@@ -1,0 +1,3 @@
+from shadow1_tpu_torch.cli import main
+
+raise SystemExit(main())
