@@ -11,15 +11,29 @@ fails:
    (``shadow1_tpu_torch/csrc/popk.cu``, ``nvcc`` for ``sm_90a``);
 3. kernels: each kernel against its plain PyTorch version on the same CUDA
    tensors, at the bench shape (C = 48 event slots, P = 24 outbox slots,
-   H = 65,536 hosts, NP = 10 payload words) and on edge cases (a full
-   event buffer, no eligible event, a full outbox); outputs must be bit
-   equal. Times each kernel, its plain version and its byte bound;
+   H = 65,536 hosts, NP = 10 payload words), on a random state and on edge
+   cases (a full event buffer, no eligible event, a full outbox; for pop
+   and push the bit-exact hazards of ``csrc/popk.cu``: tie-break low words
+   above 2**31, past-due keys, a bound at or below the epoch, ties on t32
+   and tb_hi, hosts with nothing eligible, times at I64_MAX and far in the
+   past, whole tiles of hosts with nothing to push, push-back tie-breaks
+   near 2**62); outputs
+   must be bit equal. Times each kernel, its plain version and its byte
+   bound. One public call of ``pop_until``, ``push_local`` or
+   ``push_back`` must issue exactly one device operation, its kernel
+   (``torch.profiler``);
 4. the slice: PHOLD through ``Engine(device="cuda")`` — the bench workload
    (65,536 hosts, 16 events per host, ev_cap 48, outbox_cap 24, 2 ms mean
    delay, 1 ms windows) and a 4,096-host lossy PHOLD — whose metrics, hop
    totals and per-host hop digest must equal the JAX engine's, committed
    as ``shadow1_tpu_torch/golden/*.json`` (``tools/torch_golden.py``).
-   Every kernel's launch count must rise during the bench run.
+   Every kernel's launch count must rise during the bench run;
+5. in the path: one more bench run, with function-level hooks installed
+   here (nothing in the package), keeps clones of the exact arguments the
+   engine hands each kernel's wrapper at three rounds in the middle of a
+   window. On each, the kernel must equal its plain version bit for bit;
+   its device time (cold L2), the byte bound for that data and the
+   wrapper's stream time are measured.
 
 It then prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -44,8 +58,17 @@ REPLACES = {
     "push": "shadow1_tpu/core/popk.py:194",
     "obox": "shadow1_tpu/core/popk.py:290",
 }
+# Each kernel's design: "pr1", the first one-thread-per-host kernel, or
+# "pr2", its redesign that computes the whole public function in one launch
+# (csrc/popk.cu).
+DESIGN = {"pop": "pr2", "push": "pr2", "obox": "pr1"}
 C, P, H = 48, 24, 65536
 I32_FREE = 2**31 - 1
+I32_PASTDUE = -(2**31 - 2)
+I64_MAX = 2**63 - 1
+# Rounds whose kernel arguments the in-path phase keeps: three in the
+# middle of the eleventh window (the bench runs about 18 per window).
+PATH_WINDOW, PATH_ROUNDS = 10, (5, 8, 11)
 
 
 def log(msg: str) -> None:
@@ -67,10 +90,13 @@ def card_line() -> str:
 
 # -- phase 3: kernels against their plain versions --------------------------
 
-def random_evbuf(g, dev, *, fill=0.5, full=False):
+def random_evbuf(g, dev, *, fill=0.5, full=False, edge=False):
     """An EventBuf at bench shape from numpy: distinct (t32, tb) keys per
     host (the tie-break's low word is a per-host permutation), many time
-    ties, random payload."""
+    ties, random payload. ``edge``: the pop kernel's hazards — t32 in
+    [-50, 50) with 5 % at I32_PASTDUE (past due), tb_hi in {0, 1}, low
+    words distinct per host over the whole i32 range (half of them at or
+    above 2**31), every fifth host empty, epoch 2**40."""
     import numpy as np
     import torch
 
@@ -80,9 +106,20 @@ def random_evbuf(g, dev, *, fill=0.5, full=False):
     kind = g.integers(1, 7, (C, H))
     if not full:
         kind = np.where(g.random((C, H)) < fill, kind, 0)
-    t32 = np.where(kind != 0, g.integers(0, 2000, (C, H)), I32_FREE)
-    lo = g.permuted(np.broadcast_to(np.arange(C) * 7919 - 2**30, (H, C)),
-                    axis=1).T
+    if edge:
+        kind[:, ::5] = 0
+        t32 = g.integers(-50, 50, (C, H))
+        t32[g.random((C, H)) < 0.05] = I32_PASTDUE
+        perm = g.permuted(np.broadcast_to(np.arange(C, dtype=np.int64), (H, C)),
+                          axis=1).T
+        lo = (perm * 2654435761 + g.integers(0, 2**32, H)) % 2**32 - 2**31
+        hi = g.integers(0, 2, (C, H))
+    else:
+        t32 = g.integers(0, 2000, (C, H))
+        lo = g.permuted(np.broadcast_to(np.arange(C) * 7919 - 2**30, (H, C)),
+                        axis=1).T
+        hi = g.integers(0, 3, (C, H))
+    t32 = np.where(kind != 0, t32, I32_FREE)
 
     def i32(a):
         return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(dev)
@@ -92,10 +129,11 @@ def random_evbuf(g, dev, *, fill=0.5, full=False):
 
     return EventBuf(
         time_hi=rnd(C, H), time_lo=rnd(C, H), t32=i32(t32),
-        tb_hi=i32(g.integers(0, 3, (C, H))), tb_lo=i32(lo), kind=i32(kind),
+        tb_hi=i32(hi), tb_lo=i32(lo), kind=i32(kind),
         p=rnd(NP, C, H),
         self_ctr=torch.from_numpy(g.integers(0, 2**40, H)).to(dev),
-        epoch=torch.tensor(10**9, dtype=torch.int64, device=dev),
+        epoch=torch.tensor(2**40 if edge else 10**9, dtype=torch.int64,
+                           device=dev),
         n_elig=i32(g.integers(0, C, H)),
         u32=torch.tensor(1000, dtype=torch.int32, device=dev))
 
@@ -165,39 +203,64 @@ def time_ms(fn, reset, *, reps=20, inner=10) -> float:
     return total / (reps * inner)
 
 
+def device_ops(run, attempts: int = 3) -> list:
+    """(name, count, device µs) of each device operation that
+    ``torch.profiler`` (CUPTI) records while ``run()`` runs; ``run`` ends
+    with a synchronise. CUPTI now and then hands back a trace with no
+    device record at all, though the run launched kernels: such a trace is
+    taken again, up to ``attempts`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+        ops = [(e.key, e.count, e.self_device_time_total)
+               for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and e.count > 0]
+        if ops:
+            return ops
+    raise AssertionError(f"torch.profiler recorded no device operation in "
+                         f"{attempts} traces")
+
+
 def device_ms(fn, reset, *, kernel: str, reps=20, inner=10) -> float:
     """Device time per launch of the kernel whose name holds ``kernel``
     while ``fn()`` runs, from ``torch.profiler`` (CUPTI): host launch gaps
-    do not count."""
+    do not count, nor does what ``reset()`` launches."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def run():
         for _ in range(reps):
             reset()
             torch.cuda.synchronize()
-            with torch.profiler.record_function("timed"):
-                for _ in range(inner):
-                    fn()
+            for _ in range(inner):
+                fn()
             torch.cuda.synchronize()
+
+    fn()
+    torch.cuda.synchronize()
     total_us, n = 0.0, 0
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
-        if kernel in e.key:
-            total_us += e.self_device_time_total
-            n += e.count
-    require(n == reps * inner,
+    for name, count, us in device_ops(run):
+        if kernel in name:
+            total_us += us
+            n += count
+    # CUPTI now and then drops an activity record: average over the
+    # launches it saw, and require nearly all of them.
+    require(0.9 * reps * inner <= n <= reps * inner,
             f"profiler saw {n} {kernel} launches, expected {reps * inner}")
-    return total_us / (reps * inner) / 1e3
+    return total_us / n / 1e3
 
 
-def restore(dst, src):
+def restore(dst, src, flush=None):
+    """A reset that copies ``src`` back into ``dst`` and, with ``flush``
+    (a tensor larger than the 50 MB L2), evicts the L2 cache after by
+    reading it, which leaves no dirty line for the timed kernel to write
+    back."""
     def reset():
         for d, s in zip(dst, src):
             d.copy_(s)
+        if flush is not None:
+            flush.max()
 
     return reset
 
@@ -215,103 +278,235 @@ def timings(kernel: str, wrapper, plain, reset) -> dict:
     return out
 
 
-def check_pop(g, dev) -> dict:
+def one_device_op(what: str, fn, kernel: str, calls: int = 5) -> None:
+    """Each call of ``fn`` (a public wrapper on CUDA tensors) must issue
+    exactly one device operation, the kernel named ``kernel``: over
+    ``calls`` calls the wrapper must count ``calls`` launches, and the
+    profiler may see no other device operation and at most ``calls``
+    launches (at least ``calls`` - 1: CUPTI can drop one)."""
+    import torch
+
+    from shadow1_tpu_torch.core import popk
+
+    name = kernel.removesuffix("_kernel")
+
+    def run():
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+
+    fn()
+    torch.cuda.synchronize()
+    before = popk.LAUNCHES[name]
+    ops = device_ops(run)
+    launched = popk.LAUNCHES[name] - before
+    require(launched % calls == 0 and launched >= calls,
+            f"{what}: {calls} calls counted {launched} {name} launches")
+    n = sum(c for _, c, _ in ops)
+    require(all(kernel in name for name, _, _ in ops)
+            and calls - 1 <= n <= calls,
+            f"{what}: {calls} calls issued {n} device operations, expected "
+            f"{calls} launches of {kernel} and nothing else: {ops}")
+
+
+def bit_equal(what: str, ref, got) -> int:
+    import torch
+
+    torch.cuda.synchronize()
+    e = max_abs_err(ref, got, what)
+    if e:
+        raise AssertionError(f"{what} differs from its plain version: "
+                             f"max |err| {e}")
+    return e
+
+
+# Byte bounds: each word the public function must move, once — its inputs
+# where the data says they are needed, its outputs in full — for the data
+# it is given. The bound is these bytes at the card's memory rate.
+
+def pop_bytes(buf, until) -> int:
+    """pop_until: read the t32 plane; kind at each slot the argmin must
+    examine — t32 < u32 and t32 at most the host's least eligible t32
+    (every slot below u32 where none is eligible); both tie-break words at
+    the eligible slots that tie on that least t32 (the popped one among
+    them); the NP payload words at the popped slot; the n_elig row, until
+    and epoch. Write t32 and kind at that slot, the Popped rows (mask 1 B,
+    time 8, tb 8, kind 4, payload 4·NP) and the new n_elig row."""
     import torch
 
     from shadow1_tpu_torch.consts import NP
     from shadow1_tpu_torch.core import events as ev
+
+    cap, h = buf.kind.shape
+    lt = buf.t32 < ev.until32(buf, until)
+    elig = lt & (buf.kind != 0)
+    least = torch.where(elig, buf.t32, I32_FREE).amin(0)
+    n_exam = int((lt & (buf.t32 <= least)).sum())
+    n_tie = int((elig & (buf.t32 == least)).sum())
+    n_pop = int(elig.any(dim=0).sum())
+    return (4 * cap * h + 4 * n_exam + 8 * n_tie + (4 * NP + 8) * n_pop
+            + (1 + 8 + 8 + 4 + 4 * NP + 4 + 4) * h + 16)
+
+
+def pop_sector_bytes(buf, until) -> int:
+    """pop_bytes at the granularity the card moves scattered words in: a
+    32-byte sector (8 hosts of one slot row) for each sector that holds a
+    kind, tie-break, payload or cleared word the function must touch. Not
+    the bound; it says how far the [C, H] layout keeps pop above it."""
+    import torch
+
+    from shadow1_tpu_torch.consts import NP
+    from shadow1_tpu_torch.core import events as ev
+
+    cap, h = buf.kind.shape
+    lt = buf.t32 < ev.until32(buf, until)
+    elig = lt & (buf.kind != 0)
+    least = torch.where(elig, buf.t32, I32_FREE).amin(0)
+    tie = elig & (buf.t32 == least)
+    key = torch.where(tie, buf.tb_hi.to(torch.int64) * 2**32
+                      + buf.tb_lo.to(torch.int64), I64_MAX)
+    popped = tie & (key == key.amin(0))
+
+    def sectors(m):
+        pad = torch.nn.functional.pad(m, (0, -h % 8))
+        return 32 * int(pad.view(cap, -1, 8).any(-1).sum())
+
+    return (4 * cap * h + sectors(lt & (buf.t32 <= least)) + 2 * sectors(tie)
+            + (NP + 2) * sectors(popped)
+            + (1 + 8 + 8 + 4 + 4 * NP + 4 + 4) * h + 16)
+
+
+def push_bytes(buf, mask, local: bool) -> int:
+    """push_local / push_back: read the mask row, kind up to each pushing
+    host's first free slot, and where a push lands its time, tie-break
+    (push_back), kind and NP payload words; write the 6 + NP words into the
+    slot; read n_elig, epoch and u32 and write the new n_elig and the
+    overflow rows; push_local also reads self_ctr and writes the new one."""
+    import torch
+
+    from shadow1_tpu_torch.consts import NP
+
+    cap, h = buf.kind.shape
+    free = buf.kind == 0
+    first = torch.where(free, torch.arange(cap, device=free.device)[:, None],
+                        cap).amin(0)
+    n_ok = int((mask & (first < cap)).sum())
+    scan = int((first[mask] + 1).clamp(max=cap).sum())
+    per_ok = 8 + 4 + 4 * NP + 4 * (6 + NP) + (0 if local else 8)
+    return (h + 4 * scan + per_ok * n_ok + (4 + 4 + 1) * h + 12
+            + (16 * h if local else 0))
+
+
+def obox_bytes(ob, mask) -> int:
+    """outbox_append's kernel (its first design): read ok, cnt where ok and the
+    appending hosts' 5 + NP value words; write them at slot cnt[h]."""
+    from shadow1_tpu_torch.consts import NP
+
+    cap, h = ob.dst.shape
+    n_ok = int((mask & (ob.cnt < cap)).sum())
+    return 4 * (h + n_ok + 2 * (5 + NP) * n_ok)
+
+
+def check_pop(g, dev) -> dict:
+    import torch
+
     from shadow1_tpu_torch.core import popk
 
+    def i64(v):
+        return torch.tensor(v, dtype=torch.int64, device=dev)
+
+    edge = random_evbuf(g, dev, edge=True)
+    e0 = 2**40
     err = 0
     for case, buf, until in (
             ("random", random_evbuf(g, dev), 10**9 + 1000),
-            ("no eligible event", random_evbuf(g, dev), 10**9)):
-        until = torch.tensor(until, dtype=torch.int64, device=dev)
-        ref = popk.pop_until_plain(buf, until)
-        got = popk.pop_until(clone(buf), until)
-        torch.cuda.synchronize()
-        e = max_abs_err(ref, got, f"pop[{case}]")
-        if e:
-            raise AssertionError(f"pop[{case}] differs from its plain "
-                                 f"version: max |err| {e}")
-        err = max(err, e)
+            ("no eligible event", random_evbuf(g, dev), 10**9),
+            ("edge", edge, e0 + 20),
+            ("edge, until at the epoch", edge, e0),
+            ("edge, until below the epoch", edge, e0 - 7),
+            ("edge, until far ahead", edge, e0 + 10**12)):
+        ref = popk.pop_until_plain(buf, i64(until))
+        got = popk.pop_until(clone(buf), i64(until))
+        err = max(err, bit_equal(f"pop[{case}]", ref, got))
+        mask = ref[1].mask
         if case == "random":
-            mask = ref[1].mask
             require(int(mask.sum()) > H // 2, "pop: random case pops too little")
+        if case.startswith("edge, until") and "far" not in case:
+            # u32 = 0: only past-due keys pop.
+            require(bool(mask.any()) and bool(
+                (ref[1].time[mask] < e0).all()), f"pop[{case}]: past-due only")
+    lo_pop = ref[1].tb[ref[1].mask] & 0xFFFFFFFF
+    require(bool((lo_pop >= 2**31).any()), "pop: no low word >= 2**31 popped")
+    b1, u1 = clone(edge), i64(e0 + 20)
+    one_device_op("pop_until", lambda: popk.pop_until(b1, u1), "pop_kernel")
     buf = random_evbuf(g, dev)
-    until = torch.tensor(10**9 + 1000, dtype=torch.int64, device=dev)
-    u32 = ev.until32(buf, until).reshape(1).to(torch.int32).contiguous()
-    # Byte bound: read the t32 plane, kind where t32 < u (the popped slot's
-    # kind among them), both tie-break words where eligible and the NP
-    # payload words at the popped slot; write t32 and kind at that slot and
-    # the 4 + NP output rows.
-    lt = buf.t32 < u32
-    n_lt = int(lt.sum())
-    n_elig = int((lt & (buf.kind != 0)).sum())
-    n_pop = int((lt & (buf.kind != 0)).any(dim=0).sum())
-    nbytes = 4 * (C * H + n_lt + 2 * n_elig + NP * n_pop
-                  + 2 * n_pop + (4 + NP) * H)
+    until = i64(10**9 + 1000)
     reset = restore((buf.t32, buf.kind), (buf.t32.clone(), buf.kind.clone()))
-    return dict(max_abs_err=err, bytes=nbytes, **timings(
+    return dict(max_abs_err=err, bytes=pop_bytes(buf, until),
+                sector_bytes=pop_sector_bytes(buf, until), **timings(
         "pop_kernel", lambda: popk.pop_until(buf, until),
         lambda: popk.pop_until_plain(buf, until), reset))
 
 
-def _push_rows(g, dev, mask_p):
+def _push_rows(g, dev, mask_p, *, edge=False):
+    """mask, time, kind, payload rows. ``edge``: 10 % of times at I64_MAX,
+    10 % past due by more than 2**31 against an epoch of 2**40, and the
+    first 4,096 hosts (128 whole 32-host tiles) idle."""
     import numpy as np
     import torch
 
     from shadow1_tpu_torch.consts import NP
 
-    mask = torch.from_numpy(g.random(H) < mask_p).to(dev)
-    time_ = torch.from_numpy(10**9 + g.integers(0, 5000, H)).to(dev)
+    mask = g.random(H) < mask_p
+    time_ = 10**9 + g.integers(0, 5000, H)
+    if edge:
+        mask[:4096] = False
+        time_ = 2**40 + g.integers(-5000, 5000, H)
+        r = g.random(H)
+        time_[r < 0.1] = I64_MAX
+        time_[(r >= 0.1) & (r < 0.2)] = 2**40 - 2**33 - g.integers(0, 9)
     kind = torch.from_numpy(g.integers(1, 7, H).astype(np.int32)).to(dev)
     p = torch.from_numpy(g.integers(-2**31, 2**31, (NP, H), dtype=np.int64)
                          .astype(np.int32)).to(dev)
-    return mask, time_, kind, p
+    return (torch.from_numpy(mask).to(dev), torch.from_numpy(time_).to(dev),
+            kind, p)
 
 
 def check_push(g, dev) -> dict:
     import torch
 
-    from shadow1_tpu_torch.consts import NP
     from shadow1_tpu_torch.core import popk
 
     err = 0
-    for case, buf in (("random", random_evbuf(g, dev)),
-                      ("full buffer", random_evbuf(g, dev, full=True))):
-        rows = _push_rows(g, dev, 0.7)
+    for case, buf, edge in (("random", random_evbuf(g, dev), False),
+                            ("full buffer", random_evbuf(g, dev, full=True), False),
+                            ("edge", random_evbuf(g, dev, edge=True), True)):
+        rows = _push_rows(g, dev, 0.7, edge=edge)
         for local in (True, False):
             if local:
                 ref = popk.push_local_plain(buf, *rows)
                 got = popk.push_local(clone(buf), *rows)
             else:
-                tb = torch.from_numpy(g.integers(0, 2**62, H)).to(dev)
+                # Tie-breaks near 2**62, low words on both sides of 2**31.
+                tb = torch.from_numpy((1 << 62) + g.integers(-2**33, 2**33, H)).to(dev)
                 ref = popk.push_back_plain(buf, rows[0], rows[1], tb, *rows[2:])
                 got = popk.push_back(clone(buf), rows[0], rows[1], tb, *rows[2:])
-            torch.cuda.synchronize()
-            e = max_abs_err(ref, got, f"push[{case}]")
-            if e:
-                raise AssertionError(f"push[{case}, local={local}] differs "
-                                     f"from its plain version: max |err| {e}")
+            err = max(err, bit_equal(f"push[{case}, local={local}]", ref, got))
             if case == "full buffer":
                 require(bool(got[1].eq(rows[0]).all()),
                         "push: a full buffer must overflow every masked host")
-            err = max(err, e)
     buf = random_evbuf(g, dev)
     mask, time_, kind, p = _push_rows(g, dev, 0.7)
-    free = buf.kind == 0
-    first = torch.where(free, torch.arange(C, device=dev)[:, None], C).amin(0)
-    n_push = int((mask & (first < C)).sum())
-    # Byte bound: read the mask, the kind plane up to each pushing host's
-    # first free slot and its 6 + NP value words; write those 6 + NP words
-    # into the slot and the overflow row.
-    nbytes = 4 * (H + int((first[mask] + 1).clamp(max=C).sum())
-                  + 2 * (6 + NP) * n_push + H)
+    b1, tb = clone(buf), buf.self_ctr.clone()
+    one_device_op("push_local",
+                  lambda: popk.push_local(b1, mask, time_, kind, p), "push_kernel")
+    one_device_op("push_back",
+                  lambda: popk.push_back(b1, mask, time_, tb, kind, p),
+                  "push_kernel")
     planes = (buf.time_hi, buf.time_lo, buf.t32, buf.tb_hi, buf.tb_lo,
               buf.kind, buf.p)
     reset = restore(planes, tuple(x.clone() for x in planes))
-    return dict(max_abs_err=err, bytes=nbytes, **timings(
+    return dict(max_abs_err=err, bytes=push_bytes(buf, mask, True), **timings(
         "push_kernel", lambda: popk.push_local(buf, mask, time_, kind, p),
         lambda: popk.push_local_plain(buf, mask, time_, kind, p), reset))
 
@@ -320,7 +515,6 @@ def check_obox(g, dev) -> dict:
     import numpy as np
     import torch
 
-    from shadow1_tpu_torch.consts import NP
     from shadow1_tpu_torch.core import popk
 
     err = 0
@@ -330,25 +524,15 @@ def check_obox(g, dev) -> dict:
         dst = torch.from_numpy(g.integers(0, H, H).astype(np.int32)).to(dev)
         ref = popk.outbox_append_plain(ob, mask, dst, kind, time_, p)
         got = popk.outbox_append(clone(ob), mask, dst, kind, time_, p)
-        torch.cuda.synchronize()
-        e = max_abs_err(ref, got, f"obox[{case}]")
-        if e:
-            raise AssertionError(f"obox[{case}] differs from its plain "
-                                 f"version: max |err| {e}")
+        err = max(err, bit_equal(f"obox[{case}]", ref, got))
         if case == "full outbox":
             require(not bool(got[1].any()), "obox: a full outbox takes nothing")
-        err = max(err, e)
     ob = random_outbox(g, dev)
     mask, time_, kind, p = _push_rows(g, dev, 0.7)
     dst = torch.from_numpy(g.integers(0, H, H).astype(np.int32)).to(dev)
-    ok = mask & (ob.cnt < P)
-    n_ok = int(ok.sum())
-    # Byte bound: read ok, cnt where ok and the appending hosts' 5 + NP
-    # value words; write them at slot cnt[h].
-    nbytes = 4 * (H + n_ok + 2 * (5 + NP) * n_ok)
     planes = (ob.dst, ob.kind, ob.depart_hi, ob.depart_lo, ob.ctr, ob.p)
     reset = restore(planes, tuple(x.clone() for x in planes))
-    return dict(max_abs_err=err, bytes=nbytes, **timings(
+    return dict(max_abs_err=err, bytes=obox_bytes(ob, mask), **timings(
         "obox_kernel",
         lambda: popk.outbox_append(ob, mask, dst, kind, time_, p),
         lambda: popk.outbox_append_plain(ob, mask, dst, kind, time_, p),
@@ -358,7 +542,7 @@ def check_obox(g, dev) -> dict:
 # -- phase 4: the slice -----------------------------------------------------
 
 def run_golden(name: str, dev, *, count: bool = False) -> dict:
-    """Run the golden file's experiment on the port and compare."""
+    """Run the golden file's experiment on the port and compare with it."""
     import numpy as np
     import torch
 
@@ -404,6 +588,106 @@ def run_golden(name: str, dev, *, count: bool = False) -> dict:
                 launches=launches)
 
 
+# -- phase 5: the kernels on the arguments of the main path -----------------
+
+class PathCapture:
+    """Function-level hooks around the names through which the engine and
+    the PHOLD handler call the kernels' wrappers (``engine.pop_until``,
+    ``phold.push_local``, ``phold.outbox_append``). They keep clones of
+    the arguments of rounds ``PATH_ROUNDS`` of window ``PATH_WINDOW`` —
+    taken before the call, since the kernels update planes in place — and
+    otherwise pass every call through unchanged."""
+
+    def __init__(self):
+        self.cases = {"pop": [], "push": [], "obox": []}
+        self._until, self._window, self._round, self._on = None, -1, -1, False
+        self._saved = []
+
+    def _keep(self, name, args):
+        self.cases[name].append(tuple(
+            clone(a) if isinstance(a, tuple) else a.clone() for a in args))
+
+    def __enter__(self):
+        from shadow1_tpu_torch.core import engine, phold
+
+        pop, push, obox = engine.pop_until, phold.push_local, phold.outbox_append
+
+        def pop_hook(buf, until, extract="sum"):
+            if until is not self._until:  # win_end: one tensor per window
+                self._until, self._window, self._round = until, self._window + 1, -1
+            self._round += 1
+            self._on = (self._window == PATH_WINDOW
+                        and self._round in PATH_ROUNDS)
+            if self._on:
+                self._keep("pop", (buf, until))
+            return pop(buf, until, extract)
+
+        def push_hook(buf, mask, time_, kind, p):
+            if self._on:
+                self._keep("push", (buf, mask, time_, kind, p))
+            return push(buf, mask, time_, kind, p)
+
+        def obox_hook(ob, mask, dst, kind, depart, p):
+            if self._on:
+                self._keep("obox", (ob, mask, dst, kind, depart, p))
+            return obox(ob, mask, dst, kind, depart, p)
+
+        self._saved = [(engine, "pop_until", pop), (phold, "push_local", push),
+                       (phold, "outbox_append", obox)]
+        engine.pop_until, phold.push_local = pop_hook, push_hook
+        phold.outbox_append = obox_hook
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def check_path(name: str, cases, dev, flush) -> dict:
+    """The kernel on each kept main-path argument set: bit-equal to its
+    plain version; its device time per launch with the L2 cache evicted
+    before each launch (the bound is a device-memory bound); the byte bound
+    of that data; the wrapper's stream time per call. Means over cases."""
+    from shadow1_tpu_torch.core import popk
+
+    require(len(cases) == len(PATH_ROUNDS),
+            f"in-path {name}: kept {len(cases)} argument sets, expected "
+            f"{len(PATH_ROUNDS)}")
+    wrapper, plain = {
+        "pop": (popk.pop_until, popk.pop_until_plain),
+        "push": (popk.push_local, popk.push_local_plain),
+        "obox": (popk.outbox_append, popk.outbox_append_plain)}[name]
+    ms, wrap_ms, nbytes, sector_bytes, err, active = [], [], [], [], 0, []
+    for i, args in enumerate(cases):
+        ref = plain(*args)
+        got = wrapper(clone(args[0]), *args[1:])
+        err = max(err, bit_equal(f"{name}[in path, case {i}]", ref, got))
+        first = args[0]
+        if name == "pop":
+            nbytes.append(pop_bytes(first, args[1]))
+            sector_bytes.append(pop_sector_bytes(first, args[1]))
+            active.append(int(ref[1].mask.sum()))
+        elif name == "push":
+            nbytes.append(push_bytes(first, args[1], True))
+            active.append(int(args[1].sum()))
+        else:
+            nbytes.append(obox_bytes(first, args[1]))
+            active.append(int(ref[1].sum()))
+        work = clone(first)
+        planes = [x for x in work if x.dim() >= 2]
+        saved = [x.clone() for x in planes]
+        call = (lambda w=work, a=args: wrapper(w, *a[1:]))
+        ms.append(device_ms(call, restore(planes, saved, flush),
+                            kernel=f"{name}_kernel", reps=30, inner=1))
+        restore(planes, saved)()
+        wrap_ms.append(time_ms(call, restore(planes, saved)))
+    n = len(cases)
+    return dict(path_ms=sum(ms) / n, path_bytes=sum(nbytes) / n,
+                path_wrapper_ms=sum(wrap_ms) / n, path_err=err,
+                path_active=active, path_case_ms=ms, path_case_bytes=nbytes,
+                path_case_sector_bytes=sector_bytes)
+
+
 def main() -> int:
     import torch
 
@@ -438,6 +722,9 @@ def main() -> int:
             f"us/launch (wrapper call {r['wrapper_ms'] * 1e3:.2f} us); plain "
             f"{r['plain_ms'] * 1e3:.2f} us/call; byte bound "
             f"{r['bound_ms'] * 1e3:.2f} us ({r['bytes']} B at 3.35 TB/s)")
+        if "sector_bytes" in r:
+            log(f"  {name}: 32-byte sectors it must touch {r['sector_bytes']} B "
+                f"= {r['sector_bytes'] / HBM_BYTES_PER_S * 1e6:.2f} us")
 
     bench = run_golden("bench", dev, count=True)
     log(f"slice bench (65,536 hosts): {bench['events']} events, "
@@ -457,18 +744,42 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the slice path: {missing}")
     log(f"launches on the bench run: {launches} over {bench['rounds']} rounds")
 
+    with PathCapture() as cap:
+        run_golden("bench", dev)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    for name, r in checks.items():
+        r.update(check_path(name, cap.cases[name], dev, flush))
+        r["path_bound_ms"] = r["path_bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"kernel {name} in the path (window {PATH_WINDOW}, rounds "
+            f"{PATH_ROUNDS}; active hosts {r['path_active']}): bit-equal to "
+            f"plain; device {r['path_ms'] * 1e3:.2f} us/launch with a cold "
+            f"L2 (by round {[round(x * 1e3, 2) for x in r['path_case_ms']]}; "
+            f"wrapper call {r['path_wrapper_ms'] * 1e3:.2f} us); byte bound "
+            f"{r['path_bound_ms'] * 1e3:.2f} us ({r['path_bytes']:.0f} B; by "
+            f"round {r['path_case_bytes']})")
+        if r["path_case_sector_bytes"]:
+            log(f"  {name} in the path: 32-byte sectors it must touch, by round "
+                f"{r['path_case_sector_bytes']} B")
+    del cap, flush
+
     kernels = []
     for name, r in checks.items():
+        err = max(r["max_abs_err"], r["path_err"])
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "design": DESIGN[name],
+            "launches": launches[name],
             "launches_per_round": launches[name] / bench["rounds"],
-            "max_abs_err": r["max_abs_err"], "bit_equal": r["max_abs_err"] == 0,
+            "max_abs_err": err, "bit_equal": err == 0,
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "wrapper_ms": r["wrapper_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
             "us": r["ms"] * 1e3, "plain_us": r["plain_ms"] * 1e3,
             "bound_us": r["bound_ms"] * 1e3,
+            "wrapper_us": r["wrapper_ms"] * 1e3,
+            "path_us": r["path_ms"] * 1e3,
+            "path_bound_us": r["path_bound_ms"] * 1e3,
+            "path_wrapper_us": r["path_wrapper_ms"] * 1e3,
         })
     print(json.dumps({"kernels": kernels}))
     print(card, flush=True)

@@ -33,8 +33,8 @@ _I = ctypes.c_int
 # C signatures of csrc/popk.cu's entry points: every pointer and the stream
 # are c_void_p (ctypes would pass a bare Python int as a 32-bit int).
 _SIGNATURES = {
-    "popk_pop": [_P] * 11 + [_I, _I, _P],
-    "popk_push": [_P] * 16 + [_I, _I, _P],
+    "popk_pop": [_P] * 14 + [_I, _I, _P],
+    "popk_push": [_P] * 18 + [_I, _I, _I, _P],
     "popk_obox": [_P] * 14 + [_I, _I, _P],
     "popk_np": [],
 }

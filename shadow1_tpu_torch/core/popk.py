@@ -19,12 +19,18 @@ kernel         replaces (shadow1_tpu/core/popk.py)     plain version
 are what the engine and the models call. They dispatch on the device of
 the buffer they are given: a CUDA tensor goes to the kernel (which raises
 if it cannot launch — there is no fallback), a CPU tensor to the plain
-version. On CUDA the kernels update the buffer's planes IN PLACE, the way
-the TPU kernels alias their inputs: the returned ``EventBuf``/``Outbox``
-holds the same plane tensors it was given, mutated. Each wrapper keeps the
-[H]-vector rebuild the TPU wrapper does around its kernel (i64 time and tb
-from the min words and ``n_elig`` for pop; ``n_elig`` and, for local
-pushes, ``self_ctr`` for push; ``cnt`` and ``pkt_ctr`` for the outbox).
+version.
+
+On CUDA, ``pop_until``, ``push_local`` and ``push_back`` are one kernel
+launch each and no other device operation: the kernel computes the whole
+function, the [H] rebuild the TPU wrapper did around its kernel included
+(the rebased bound, the i64 time and tie-break, ``n_elig``, ``self_ctr``).
+Their [H] results (the ``Popped`` rows, the overflow mask, ``n_elig``,
+``self_ctr``) are fresh tensors; the [C, H] planes are updated IN PLACE,
+the way the TPU kernels alias their inputs, so the returned ``EventBuf``
+holds the plane tensors it was given, mutated. ``outbox_append`` keeps its
+first design: its kernel writes the outbox planes in place, and the
+wrapper rebuilds ``cnt`` and ``pkt_ctr`` around the launch.
 
 Every kernel launch adds one to ``LAUNCHES[name]``, and nothing else does,
 so a run can show that its main path went through the kernels.
@@ -71,24 +77,35 @@ from shadow1_tpu_torch.core.outbox import Outbox, outbox_append_plain
 # Kernel launches on CUDA tensors, by kernel name; set to 0 to start a count.
 LAUNCHES = {"pop": 0, "push": 0, "obox": 0}
 
+_I32, _I64 = torch.int32, torch.int64
 
-def _check(name: str, device: torch.device, **tensors) -> None:
-    """Every tensor handed to a kernel: on ``device``, int32, contiguous,
-    and of the shape the kernel indexes it by (keys ``name=(t, shape)``)."""
-    for arg, (t, shape) in tensors.items():
-        if t.device != device or t.dtype != torch.int32:
-            raise ValueError(f"{name}: {arg} must be int32 on {device}, got "
-                             f"{t.dtype} on {t.device}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
-                             f"expected {tuple(shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
+
+def _check(name: str, device: torch.device, specs) -> None:
+    """Every tensor handed to a kernel: on ``device``, of its dtype and
+    shape, contiguous. ``specs`` holds (arg, tensor, dtype, shape); one
+    pass, and a message is built only for a tensor that fails."""
+    for arg, t, dtype, shape in specs:
+        if (t.dtype != dtype or t.shape != shape or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: {arg} must be a contiguous {dtype} tensor of shape "
+                f"{tuple(shape)} on {device}, got {t.dtype}{tuple(t.shape)} "
+                f"on {t.device} (contiguous={t.is_contiguous()})")
+
+
+def _arg(x, dtype, shape, device) -> torch.Tensor:
+    """``x`` as a contiguous ``dtype`` tensor of ``shape`` on ``device``.
+    A tensor that already is one passes through untouched (no device
+    operation); anything else is converted, broadcast and copied."""
+    if (isinstance(x, torch.Tensor) and x.dtype == dtype and x.shape == shape
+            and x.device == device and x.is_contiguous()):
+        return x
+    return torch.as_tensor(x, device=device).to(dtype).expand(shape).contiguous()
 
 
 def _launch(name: str, fn, *args) -> None:
-    """Call a kernel's C entry point (tensors pass as device pointers) and
-    count the launch; raise if CUDA refused it."""
+    """Call a kernel's C entry point (tensors pass as device pointers, None
+    as NULL) and count the launch; raise if CUDA refused it."""
     err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
                for a in args))
     if err != 0:
@@ -101,95 +118,73 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _i32(x, h: int, device) -> torch.Tensor:
-    """An [H] int32 contiguous row from a scalar, bool or int tensor."""
-    return torch.as_tensor(x, device=device).to(torch.int32).expand(h).contiguous()
-
-
 # -- pop ------------------------------------------------------------------
 
-def pop_kernel_launch(buf: EventBuf, u32: torch.Tensor):
-    """Launch the pop kernel on ``buf`` (t32 and kind cleared in place).
-    Returns the raw [H] words (min_t, min_hi, min_lo, kind) and [NP, H]
-    payload of the selected slots."""
+def pop_until(buf: EventBuf, until, extract: str = "sum") -> tuple[EventBuf, Popped]:
+    """Per-host pop of the minimum-(time, tb) event with time < until (see
+    ``events.pop_until_plain``). CUDA: one launch of the pop kernel, which
+    reads ``until`` and ``epoch`` on the device; CPU: the plain version."""
+    if not buf.kind.is_cuda:
+        return pop_until_plain(buf, until, extract)
+    if extract not in ("sum", "gather"):
+        raise ValueError(f"bad pop_extract {extract!r}")
     from shadow1_tpu_torch.core._build import library
 
     cap, h = buf.kind.shape
     dev = buf.kind.device
-    u = u32.reshape(1).to(torch.int32).contiguous()
-    plane = (cap, h)
-    _check("pop", dev, until32=(u, (1,)), t32=(buf.t32, plane),
-           tb_hi=(buf.tb_hi, plane), tb_lo=(buf.tb_lo, plane),
-           kind=(buf.kind, plane), p=(buf.p, (NP, cap, h)))
-    out = torch.empty((4 + NP, h), dtype=torch.int32, device=dev)
-    mt, mhi, mlo, ko, po = out[0], out[1], out[2], out[3], out[4:]
-    _launch("pop", library().popk_pop, u, buf.t32, buf.tb_hi, buf.tb_lo,
-            buf.kind, buf.p, mt, mhi, mlo, ko, po, cap, h, _stream(dev))
-    return mt, mhi, mlo, ko, po
-
-
-def pop_until(buf: EventBuf, until, extract: str = "sum") -> tuple[EventBuf, Popped]:
-    """Per-host pop of the minimum-(time, tb) event with time < until (see
-    ``events.pop_until_plain``). CUDA: the pop kernel; CPU: the plain
-    version."""
-    if not buf.kind.is_cuda:
-        return pop_until_plain(buf, until, extract)
-    assert extract in ("sum", "gather"), f"bad pop_extract {extract!r}"
-    u32 = ev.until32(buf, until)
-    mt, mhi, mlo, ko, po = pop_kernel_launch(buf, u32)
-    mask = mt < u32
-    popped = Popped(
-        mask=mask,
-        time=torch.where(mask, buf.epoch + mt.to(torch.int64), 0),
-        kind=ko,
-        p=po,
-        tb=torch.where(mask, ev.tb_join(mhi, mlo), 0),
-    )
-    return buf._replace(n_elig=buf.n_elig - mask.to(torch.int32)), popped
+    until = _arg(until, _I64, (), dev)
+    plane, row = (cap, h), (h,)
+    _check("pop", dev, (
+        ("t32", buf.t32, _I32, plane), ("tb_hi", buf.tb_hi, _I32, plane),
+        ("tb_lo", buf.tb_lo, _I32, plane), ("kind", buf.kind, _I32, plane),
+        ("p", buf.p, _I32, (NP, cap, h)), ("epoch", buf.epoch, _I64, ()),
+        ("n_elig", buf.n_elig, _I32, row)))
+    out = Popped(
+        mask=torch.empty(h, dtype=torch.bool, device=dev),
+        time=torch.empty(h, dtype=_I64, device=dev),
+        kind=torch.empty(h, dtype=_I32, device=dev),
+        p=torch.empty((NP, h), dtype=_I32, device=dev),
+        tb=torch.empty(h, dtype=_I64, device=dev))
+    n_elig = torch.empty(h, dtype=_I32, device=dev)
+    _launch("pop", library().popk_pop, until, buf.epoch, buf.t32, buf.tb_hi,
+            buf.tb_lo, buf.kind, buf.p, buf.n_elig, out.mask, out.time,
+            out.tb, out.kind, out.p, n_elig, cap, h, _stream(dev))
+    return buf._replace(n_elig=n_elig), out
 
 
 # -- push -----------------------------------------------------------------
 
-def push_kernel_launch(buf: EventBuf, mask, thi_v, tlo_v, t32_v, bhi_v, blo_v,
-                       kind_v, p_v) -> torch.Tensor:
-    """Launch the push kernel: where ``mask``, write the 6 + NP value words
-    into each host's first free slot, in place. Returns the i32 [H]
-    overflow flags (masked hosts with no free slot)."""
+def _push_cuda(buf: EventBuf, mask, time, tb, kind, p, *, advance_ctr: bool):
+    """One launch of the push kernel: where ``mask``, the event goes into
+    the host's first free slot, in place. Returns (buf with the new
+    ``n_elig`` — and ``self_ctr`` when ``advance_ctr`` — , overflow)."""
     from shadow1_tpu_torch.core._build import library
 
     cap, h = buf.kind.shape
     dev = buf.kind.device
     plane, row = (cap, h), (h,)
-    over = torch.empty(h, dtype=torch.int32, device=dev)
-    _check("push", dev, mask=(mask, row), thi_v=(thi_v, row),
-           tlo_v=(tlo_v, row), t32_v=(t32_v, row), bhi_v=(bhi_v, row),
-           blo_v=(blo_v, row), kind_v=(kind_v, row), p_v=(p_v, (NP, h)),
-           time_hi=(buf.time_hi, plane), time_lo=(buf.time_lo, plane),
-           t32=(buf.t32, plane), tb_hi=(buf.tb_hi, plane),
-           tb_lo=(buf.tb_lo, plane), kind=(buf.kind, plane),
-           p=(buf.p, (NP, cap, h)))
-    _launch("push", library().popk_push, mask, thi_v, tlo_v, t32_v, bhi_v,
-            blo_v, kind_v, p_v, buf.time_hi, buf.time_lo, buf.t32, buf.tb_hi,
-            buf.tb_lo, buf.kind, buf.p, over, cap, h, _stream(dev))
-    return over
-
-
-def _push_cuda(buf: EventBuf, mask, time, tb, kind, p, *, advance_ctr: bool):
-    h = buf.kind.shape[1]
-    dev = buf.kind.device
-    time = time.to(torch.int64)
-    thi_v, tlo_v = ev.tb_split(time)
-    bhi_v, blo_v = ev.tb_split(tb.to(torch.int64))
-    t32_v = ev._t32_of(time, buf.epoch)
-    over = push_kernel_launch(
-        buf, _i32(mask, h, dev), thi_v, tlo_v, t32_v, bhi_v, blo_v,
-        _i32(kind, h, dev), p.to(torch.int32).contiguous())
-    over = (over != 0) & mask
-    ok = mask & ~over
-    buf = buf._replace(n_elig=buf.n_elig + (ok & (t32_v < buf.u32)).to(torch.int32))
+    mask = _arg(mask, torch.bool, row, dev)
+    time = _arg(time, _I64, row, dev)
+    tb = _arg(tb, _I64, row, dev)
+    kind = _arg(kind, _I32, row, dev)
+    p = _arg(p, _I32, (NP, h), dev)
+    _check("push", dev, (
+        ("time_hi", buf.time_hi, _I32, plane),
+        ("time_lo", buf.time_lo, _I32, plane), ("t32", buf.t32, _I32, plane),
+        ("tb_hi", buf.tb_hi, _I32, plane), ("tb_lo", buf.tb_lo, _I32, plane),
+        ("kind", buf.kind, _I32, plane), ("p", buf.p, _I32, (NP, cap, h)),
+        ("epoch", buf.epoch, _I64, ()), ("u32", buf.u32, _I32, ()),
+        ("n_elig", buf.n_elig, _I32, row)))
+    over = torch.empty(h, dtype=torch.bool, device=dev)
+    n_elig = torch.empty(h, dtype=_I32, device=dev)
+    ctr = torch.empty(h, dtype=_I64, device=dev) if advance_ctr else None
+    _launch("push", library().popk_push, mask, time, tb, kind, p, buf.epoch,
+            buf.u32, buf.n_elig, buf.time_hi, buf.time_lo, buf.t32,
+            buf.tb_hi, buf.tb_lo, buf.kind, buf.p, over, n_elig, ctr, cap, h,
+            int(advance_ctr), _stream(dev))
     if advance_ctr:
-        buf = buf._replace(self_ctr=buf.self_ctr + ok.to(torch.int64))
-    return buf, over
+        return buf._replace(n_elig=n_elig, self_ctr=ctr), over
+    return buf._replace(n_elig=n_elig), over
 
 
 def push_local(buf: EventBuf, mask, time, kind, p) -> tuple[EventBuf, torch.Tensor]:
@@ -218,12 +213,15 @@ def obox_kernel_launch(ob: Outbox, ok, dst_v, kind_v, dhi_v, dlo_v, ctr_v, p_v) 
     cap, h = ob.dst.shape
     dev = ob.dst.device
     plane, row = (cap, h), (h,)
-    _check("obox", dev, cnt=(ob.cnt, row), ok=(ok, row), dst_v=(dst_v, row),
-           kind_v=(kind_v, row), dhi_v=(dhi_v, row), dlo_v=(dlo_v, row),
-           ctr_v=(ctr_v, row), p_v=(p_v, (NP, h)), dst=(ob.dst, plane),
-           kind=(ob.kind, plane), depart_hi=(ob.depart_hi, plane),
-           depart_lo=(ob.depart_lo, plane), ctr=(ob.ctr, plane),
-           p=(ob.p, (NP, cap, h)))
+    _check("obox", dev, (
+        ("cnt", ob.cnt, _I32, row), ("ok", ok, _I32, row),
+        ("dst_v", dst_v, _I32, row), ("kind_v", kind_v, _I32, row),
+        ("dhi_v", dhi_v, _I32, row), ("dlo_v", dlo_v, _I32, row),
+        ("ctr_v", ctr_v, _I32, row), ("p_v", p_v, _I32, (NP, h)),
+        ("dst", ob.dst, _I32, plane), ("kind", ob.kind, _I32, plane),
+        ("depart_hi", ob.depart_hi, _I32, plane),
+        ("depart_lo", ob.depart_lo, _I32, plane),
+        ("ctr", ob.ctr, _I32, plane), ("p", ob.p, _I32, (NP, cap, h))))
     _launch("obox", library().popk_obox, ob.cnt, ok, dst_v, kind_v, dhi_v,
             dlo_v, ctr_v, p_v, ob.dst, ob.kind, ob.depart_hi, ob.depart_lo,
             ob.ctr, ob.p, cap, h, _stream(dev))
@@ -238,8 +236,9 @@ def outbox_append(ob: Outbox, mask, dst, kind, depart, p) -> tuple[Outbox, torch
     dev = ob.dst.device
     ok = mask & (ob.cnt < cap)
     dhi_v, dlo_v = ev.tb_split(depart.to(torch.int64))
-    obox_kernel_launch(ob, _i32(ok, h, dev), _i32(dst, h, dev),
-                       _i32(kind, h, dev), dhi_v, dlo_v,
+    row = (h,)
+    obox_kernel_launch(ob, _arg(ok, _I32, row, dev), _arg(dst, _I32, row, dev),
+                       _arg(kind, _I32, row, dev), dhi_v, dlo_v,
                        ob.pkt_ctr.to(torch.int32), p.to(torch.int32).contiguous())
     ob = ob._replace(cnt=ob.cnt + ok.to(torch.int32),
                      pkt_ctr=ob.pkt_ctr + ok.to(torch.int64))

@@ -4,7 +4,18 @@ the PHOLD engine on CUDA against the same engine on the CPU.
 These need a CUDA device and ``nvcc``; they are marked ``cuda`` and skip
 where there is no card. Run them on the card with
 
-    python -m pytest tests/test_torch_cuda.py -m cuda -q
+    python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
+
+(``--noconftest``: ``tests/conftest.py`` imports JAX, which these tests do
+not need.)
+
+Every comparison is bit-exact. The pop and push cases cover the kernels'
+hazards: host counts that leave a ragged last tile (H = 33, 4097) or a
+single host, whole tiles (H = 4096), planes off the 16-byte grid, slot
+counts that do not divide among the slot groups (C = 1, 7, 49), tie-break low words at and above 2**31, ties on t32 and on tb_hi,
+past-due keys, hosts with nothing eligible, a bound at or below the epoch,
+times at I64_MAX and far in the past, full buffers, and push-back
+tie-breaks near 2**62.
 """
 
 import numpy as np
@@ -20,6 +31,10 @@ from shadow1_tpu_torch.core.engine import Engine
 
 pytestmark = pytest.mark.cuda
 
+I64_MAX = (1 << 63) - 1
+EPOCH = 1 << 40
+SHAPES = [(h, c) for h in (1, 33, 4096, 4097) for c in (1, 7, 48, 49)]
+
 
 @pytest.fixture
 def dev():
@@ -28,17 +43,56 @@ def dev():
     return torch.device("cuda")
 
 
-def _filled(g, c, h, dev):
-    """An event buffer with random events pushed through the plain path."""
-    buf = ev.evbuf_init(h, c, dev)
-    k = torch.full((h,), 1, dtype=torch.int32, device=dev)
-    for _ in range(c - 2):
-        m = torch.from_numpy(g.random(h) < 0.8).to(dev)
-        t = torch.from_numpy(g.integers(0, 50, h)).to(dev)
-        p = torch.from_numpy(g.integers(0, 99, (NP, h)).astype(np.int32)).to(dev)
-        buf, _ = ev.push_local_plain(buf, m, t, k, p)
-    return ev.rebase(buf, torch.tensor(0, device=dev),
-                     torch.tensor(30, device=dev))
+def _t(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _random_buf(g, c, h, dev, *, fill=0.6):
+    """An event buffer with unique (t32, tb) keys per host: t32 in a small
+    range (many ties), some past due; tb_hi in {0, 1} (ties); tb_lo a
+    per-host set of distinct words over the whole i32 range (low words
+    above 2**31 included); a few free slots with a stale t32 below any
+    bound (kind decides eligibility); every fifth host from the fourth
+    empty."""
+    kind = np.where(g.random((c, h)) < fill, g.integers(1, 7, (c, h)), 0)
+    kind[:, 3::5] = 0
+    kind[0, 0] = 1  # something to pop at every shape
+    t32 = g.integers(-40, 60, (c, h))
+    t32[g.random((c, h)) < 0.05] = ev.I32_PASTDUE
+    stale = (kind == 0) & (g.random((c, h)) < 0.1)
+    t32 = np.where((kind != 0) | stale, t32, ev.I32_FREE)
+    perm = g.permuted(np.broadcast_to(np.arange(c, dtype=np.int64), (h, c)),
+                      axis=1).T
+    lo = (perm * 2654435761 + g.integers(0, 2**32, h)) % 2**32 - 2**31
+
+    def rnd(*shape):
+        return g.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+
+    i32 = np.int32
+    return ev.EventBuf(
+        time_hi=_t(rnd(c, h), dev), time_lo=_t(rnd(c, h), dev),
+        t32=_t(t32.astype(i32), dev), tb_hi=_t(g.integers(0, 2, (c, h)).astype(i32), dev),
+        tb_lo=_t(lo.astype(i32), dev), kind=_t(kind.astype(i32), dev),
+        p=_t(rnd(NP, c, h), dev),
+        self_ctr=_t(g.integers(0, 2**40, h), dev),
+        epoch=torch.tensor(EPOCH, dtype=torch.int64, device=dev),
+        n_elig=_t(g.integers(0, c + 1, h).astype(i32), dev),
+        u32=torch.tensor(30, dtype=torch.int32, device=dev))
+
+
+def _push_rows(g, h, dev):
+    """mask (one host in three idle, and hosts 128 .. 383 idle: whole tiles
+    of either kernel shape), times (normal, at I64_MAX, past due by more
+    than 2**31), kind and payload."""
+    mask = g.random(h) < 0.67
+    mask[128:384] = False
+    time = EPOCH + g.integers(-100, 100, h)
+    r = g.random(h)
+    time[r < 0.1] = I64_MAX
+    time[(r >= 0.1) & (r < 0.2)] = EPOCH - (1 << 33) - g.integers(0, 9)
+    kind = g.integers(1, 7, h).astype(np.int32)
+    p = g.integers(-2**31, 2**31, (NP, h), dtype=np.int64).astype(np.int32)
+    return _t(mask, dev), _t(time, dev), _t(kind, dev), _t(p, dev)
 
 
 def _clone(tree):
@@ -50,34 +104,144 @@ def _equal(a, b):
         if isinstance(x, tuple):
             _equal(x, y)
         else:
-            assert x.dtype == y.dtype and torch.equal(x, y)
+            assert x.dtype == y.dtype and x.shape == y.shape
+            assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("h", [1, 33, 4096])
-def test_pop_kernel_matches_plain(dev, h):
-    g = np.random.default_rng(h)
-    buf = _filled(g, 16, h, dev)
-    for _ in range(16):
-        want = popk.pop_until_plain(buf, torch.tensor(30, device=dev))
-        got = popk.pop_until(_clone(buf), torch.tensor(30, device=dev))
-        _equal(want, got)
+def _pop_both(buf, until):
+    want = popk.pop_until_plain(buf, until)
+    n = popk.LAUNCHES["pop"]
+    got = popk.pop_until(_clone(buf), until)
+    assert popk.LAUNCHES["pop"] == n + 1
+    _equal(want, got)
+    return want
+
+
+@pytest.mark.parametrize("h,c", SHAPES)
+def test_pop_kernel_matches_plain(dev, h, c):
+    g = np.random.default_rng(h * 100 + c)
+    buf = _random_buf(g, c, h, dev)
+    popped = 0
+    for until in (EPOCH + 30, EPOCH + 30, EPOCH + 10**6):
+        for _ in range(c + 1):
+            buf, out = _pop_both(buf, torch.tensor(until, device=dev))
+            popped += int(out.mask.sum())
+    # Everything live was below the last bound: the buffer drained.
+    assert popped > 0 and not bool((buf.kind != 0).any())
+
+
+@pytest.mark.parametrize("h,c", SHAPES)
+def test_push_kernel_matches_plain(dev, h, c):
+    g = np.random.default_rng(h * 100 + c + 1)
+    buf = _random_buf(g, c, h, dev, fill=0.9)
+    over = 0
+    for step in range(6):
+        rows = _push_rows(g, h, dev)
+        for local in (True, False):
+            n = popk.LAUNCHES["push"]
+            if local:
+                want = popk.push_local_plain(buf, *rows)
+                got = popk.push_local(_clone(buf), *rows)
+            else:
+                # Tie-breaks near 2**62, with low words on both sides of 2**31.
+                tb = _t((1 << 62) + g.integers(-2**33, 2**33, h), dev)
+                want = popk.push_back_plain(buf, rows[0], rows[1], tb, *rows[2:])
+                got = popk.push_back(_clone(buf), rows[0], rows[1], tb, *rows[2:])
+            assert popk.LAUNCHES["push"] == n + 1
+            _equal(want, got)
+            over += int(want[1].sum())
+            buf = want[0]
+    assert over > 0 or h == 1  # the buffers filled up and overflowed
+
+
+def _misaligned(x):
+    """A copy of ``x`` whose data starts 4 bytes past a 16-byte boundary."""
+    y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    return y.view(x.shape).copy_(x)
+
+
+def test_misaligned_planes_match_plain(dev):
+    """Planes off the 16-byte grid (aligned only to their 4-byte words):
+    both kernels equal the plain versions."""
+    g = np.random.default_rng(5)
+    buf = _random_buf(g, 48, 4096, dev, fill=0.7)
+    planes = ("t32", "tb_hi", "tb_lo", "kind")
+    for _ in range(3):
+        until = torch.tensor(EPOCH + 30, device=dev)
+        want = popk.pop_until_plain(buf, until)
+        mis = buf._replace(**{f: _misaligned(getattr(buf, f)) for f in planes})
+        assert mis.kind.data_ptr() % 16 == 4
+        _equal(want, popk.pop_until(mis, until))
+        buf = want[0]
+        rows = _push_rows(g, 4096, dev)
+        want = popk.push_local_plain(buf, *rows)
+        mis = _clone(buf)._replace(kind=_misaligned(buf.kind))
+        _equal(want, popk.push_local(mis, *rows))
         buf = want[0]
 
 
+def test_pop_at_or_below_epoch(dev):
+    """until <= epoch: u32 = 0, so only past-due keys (t32 < 0) pop; with
+    none left, nothing pops."""
+    g = np.random.default_rng(7)
+    buf = _random_buf(g, 48, 4097, dev)
+    for until in (EPOCH, EPOCH - 5, 0):
+        _, out = _pop_both(buf, torch.tensor(until, device=dev))
+        assert bool(out.mask.any())
+        assert bool((out.time[out.mask] < EPOCH).all())
+    buf = buf._replace(t32=torch.where(buf.t32 < 0, 0, buf.t32))
+    for until in (EPOCH, EPOCH - 5, 0):
+        _, out = _pop_both(buf, torch.tensor(until, device=dev))
+        assert not bool(out.mask.any())
+
+
+def test_pop_edges(dev):
+    """Past-due keys pop first; a host's argmin decided by tb_hi and then
+    by a low word above 2**31; Python-int bound."""
+    h, c = 3, 4
+    buf = ev.evbuf_init(h, c, dev)
+    kind = torch.ones((c, h), dtype=torch.int32, device=dev)
+    t32 = torch.tensor([[5, 5, ev.I32_PASTDUE], [5, 5, 7], [5, 6, 7],
+                        [9, 5, 7]], dtype=torch.int32, device=dev)
+    hi = torch.tensor([[1, 0, 0], [0, 0, 0], [0, 0, 0], [0, 0, 0]],
+                      dtype=torch.int32, device=dev)
+    lo = torch.tensor([[0, 2**31 - 1, 0], [3, -2**31, 1], [4, 0, 2],
+                       [5, 1, 3]], dtype=torch.int32, device=dev)
+    buf = buf._replace(t32=t32, kind=kind, tb_hi=hi, tb_lo=lo,
+                       epoch=torch.tensor(100, device=dev))
+    _, out = _pop_both(buf, 200)
+    assert out.time.tolist() == [105, 105, 100 + ev.I32_PASTDUE]
+    assert out.tb.tolist() == [2**31 + 3, 0, 2**31]
+
+
+def test_results_are_fresh(dev):
+    """pop_until and push_local return new n_elig / self_ctr tensors and
+    leave the input's as they were."""
+    g = np.random.default_rng(11)
+    buf = _random_buf(g, 48, 4097, dev)
+    n0, c0 = buf.n_elig.clone(), buf.self_ctr.clone()
+    after, out = popk.pop_until(buf, torch.tensor(EPOCH + 30, device=dev))
+    assert after.n_elig.data_ptr() != buf.n_elig.data_ptr()
+    assert torch.equal(buf.n_elig, n0)
+    assert torch.equal(after.n_elig, n0 - out.mask.to(torch.int32))
+    rows = _push_rows(g, 4097, dev)
+    after, over = popk.push_local(buf, *rows)
+    assert after.n_elig.data_ptr() != buf.n_elig.data_ptr()
+    assert after.self_ctr.data_ptr() != buf.self_ctr.data_ptr()
+    assert torch.equal(buf.n_elig, n0) and torch.equal(buf.self_ctr, c0)
+    ok = rows[0] & ~over
+    assert torch.equal(after.self_ctr, c0 + ok.to(torch.int64))
+
+
 @pytest.mark.parametrize("h", [1, 33, 4096])
-def test_push_and_obox_kernels_match_plain(dev, h):
+def test_obox_kernel_matches_plain(dev, h):
     g = np.random.default_rng(h + 1)
-    buf = _filled(g, 12, h, dev)
     ob = ob_mod.outbox_init(h, 6, dev)
     k = torch.full((h,), 1, dtype=torch.int32, device=dev)
     for _ in range(8):
         m = torch.from_numpy(g.random(h) < 0.9).to(dev)
         t = torch.from_numpy(g.integers(0, 50, h)).to(dev)
         p = torch.from_numpy(g.integers(0, 99, (NP, h)).astype(np.int32)).to(dev)
-        want = popk.push_local_plain(buf, m, t, k, p)
-        got = popk.push_local(_clone(buf), m, t, k, p)
-        _equal(want, got)
-        buf = want[0]
         dst = torch.from_numpy(g.integers(0, h, h).astype(np.int32)).to(dev)
         want = popk.outbox_append_plain(ob, m, dst, k, t, p)
         got = popk.outbox_append(_clone(ob), m, dst, k, t, p)
