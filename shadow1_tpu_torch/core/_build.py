@@ -35,7 +35,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "popk_pop": [_P] * 14 + [_I, _I, _P],
     "popk_push": [_P] * 18 + [_I, _I, _I, _P],
-    "popk_obox": [_P] * 14 + [_I, _I, _P],
+    "popk_obox": [_P] * 16 + [_I] * 5 + [_P],
     "popk_np": [],
 }
 
@@ -72,16 +72,22 @@ def build() -> dict:
             "log": proc.stderr}
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed (once a process)."""
-    build()
-    lib = ctypes.CDLL(str(LIBRARY))
+def load(path: Path) -> ctypes.CDLL:
+    """A library built from ``csrc/popk.cu`` (or a variant of it with the
+    same entry points), with each entry point's C signature bound."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     if lib.popk_np() != NP:
-        raise RuntimeError(f"{LIBRARY} was built for NP={lib.popk_np()} "
+        raise RuntimeError(f"{path} was built for NP={lib.popk_np()} "
                            f"payload words, consts.NP is {NP}")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed (once a process)."""
+    build()
+    return load(LIBRARY)

@@ -57,10 +57,10 @@ def outbox_fill(ob: Outbox) -> torch.Tensor:
 def outbox_append_plain(ob: Outbox, mask, dst, kind, depart, p) -> tuple[Outbox, torch.Tensor]:
     """Append one packet per host where ``mask`` at slot ``cnt[h]``.
     Returns (ob, ok_mask); a full outbox drops the packet (ok False).
-    ``p`` is [NP, H]."""
+    ``dst``, ``kind`` and ``depart`` are [H] or 0-d; ``p`` is [NP, H]."""
     cap, h = ob.dst.shape
     ok = mask & (ob.cnt < cap)
-    dhi, dlo = tb_split(depart.to(torch.int64))
+    dhi, dlo = tb_split(depart.to(torch.int64).expand(h))
     ob = ob._replace(
         dst=set_col(ob.dst, ob.cnt, dst.expand(h), ok),
         kind=set_col(ob.kind, ob.cnt, kind.expand(h), ok),

@@ -21,16 +21,18 @@ the buffer they are given: a CUDA tensor goes to the kernel (which raises
 if it cannot launch — there is no fallback), a CPU tensor to the plain
 version.
 
-On CUDA, ``pop_until``, ``push_local`` and ``push_back`` are one kernel
-launch each and no other device operation: the kernel computes the whole
-function, the [H] rebuild the TPU wrapper did around its kernel included
-(the rebased bound, the i64 time and tie-break, ``n_elig``, ``self_ctr``).
-Their [H] results (the ``Popped`` rows, the overflow mask, ``n_elig``,
-``self_ctr``) are fresh tensors; the [C, H] planes are updated IN PLACE,
-the way the TPU kernels alias their inputs, so the returned ``EventBuf``
-holds the plane tensors it was given, mutated. ``outbox_append`` keeps its
-first design: its kernel writes the outbox planes in place, and the
-wrapper rebuilds ``cnt`` and ``pkt_ctr`` around the launch.
+On CUDA, ``pop_until``, ``push_local``, ``push_back`` and
+``outbox_append`` are one kernel launch each and no other device
+operation: the kernel computes the whole function, the [H] rebuild the TPU
+wrapper did around its kernel included (the rebased bound, the i64 time
+and tie-break splits, ``n_elig``, ``self_ctr``; for the outbox the ``ok``
+mask, ``cnt`` and ``pkt_ctr``). Their [H] results (the ``Popped`` rows,
+the overflow and ``ok`` masks, ``n_elig``, ``self_ctr``, ``cnt``,
+``pkt_ctr``) are fresh tensors; the [C, H] and [P, H] planes are updated
+IN PLACE, the way the TPU kernels alias their inputs, so the returned
+``EventBuf`` / ``Outbox`` holds the plane tensors it was given, mutated.
+An argument that already has the kernel's dtype, shape and layout is
+handed over as it is; any other is converted first (``_arg``).
 
 Every kernel launch adds one to ``LAUNCHES[name]``, and nothing else does,
 so a run can show that its main path went through the kernels.
@@ -64,7 +66,6 @@ from __future__ import annotations
 import torch
 
 from shadow1_tpu_torch.consts import NP
-from shadow1_tpu_torch.core import events as ev
 from shadow1_tpu_torch.core.events import (
     EventBuf,
     Popped,
@@ -205,41 +206,44 @@ def push_back(buf: EventBuf, mask, time, tb, kind, p) -> tuple[EventBuf, torch.T
 
 # -- outbox append --------------------------------------------------------
 
-def obox_kernel_launch(ob: Outbox, ok, dst_v, kind_v, dhi_v, dlo_v, ctr_v, p_v) -> None:
-    """Launch the outbox-append kernel: where ``ok``, write the 5 + NP
-    value words at slot ``cnt[h]``, in place."""
+def _row(x: torch.Tensor, dtype, h: int, device) -> tuple[torch.Tensor, int]:
+    """``x`` for a kernel that reads host h at ``h * step``: a 0-d tensor
+    as one value (step 0), any other as an [H] row (step 1); a 0-d value
+    is never expanded into a copy of H values."""
+    if x.dim() == 0:
+        return _arg(x, dtype, (), device), 0
+    return _arg(x, dtype, (h,), device), 1
+
+
+def outbox_append(ob: Outbox, mask, dst, kind, depart, p) -> tuple[Outbox, torch.Tensor]:
+    """Append one packet per host where ``mask`` at slot ``cnt[h]`` (see
+    ``outbox.outbox_append_plain``). Returns (ob, ok_mask). CUDA: one
+    launch of the obox kernel, which also computes ``ok`` and the new
+    ``cnt`` and ``pkt_ctr`` rows; ``dst``, ``kind`` and ``depart`` may be
+    [H] rows or 0-d."""
+    if not ob.dst.is_cuda:
+        return outbox_append_plain(ob, mask, dst, kind, depart, p)
     from shadow1_tpu_torch.core._build import library
 
     cap, h = ob.dst.shape
     dev = ob.dst.device
     plane, row = (cap, h), (h,)
+    mask = _arg(mask, torch.bool, row, dev)
+    dst, dst_step = _row(dst, _I32, h, dev)
+    kind, kind_step = _row(kind, _I32, h, dev)
+    depart, depart_step = _row(depart, _I64, h, dev)
+    p = _arg(p, _I32, (NP, h), dev)
     _check("obox", dev, (
-        ("cnt", ob.cnt, _I32, row), ("ok", ok, _I32, row),
-        ("dst_v", dst_v, _I32, row), ("kind_v", kind_v, _I32, row),
-        ("dhi_v", dhi_v, _I32, row), ("dlo_v", dlo_v, _I32, row),
-        ("ctr_v", ctr_v, _I32, row), ("p_v", p_v, _I32, (NP, h)),
+        ("cnt", ob.cnt, _I32, row), ("pkt_ctr", ob.pkt_ctr, _I64, row),
         ("dst", ob.dst, _I32, plane), ("kind", ob.kind, _I32, plane),
         ("depart_hi", ob.depart_hi, _I32, plane),
         ("depart_lo", ob.depart_lo, _I32, plane),
         ("ctr", ob.ctr, _I32, plane), ("p", ob.p, _I32, (NP, cap, h))))
-    _launch("obox", library().popk_obox, ob.cnt, ok, dst_v, kind_v, dhi_v,
-            dlo_v, ctr_v, p_v, ob.dst, ob.kind, ob.depart_hi, ob.depart_lo,
-            ob.ctr, ob.p, cap, h, _stream(dev))
-
-
-def outbox_append(ob: Outbox, mask, dst, kind, depart, p) -> tuple[Outbox, torch.Tensor]:
-    """Append one packet per host where ``mask`` at slot ``cnt[h]`` (see
-    ``outbox.outbox_append_plain``). Returns (ob, ok_mask)."""
-    if not ob.dst.is_cuda:
-        return outbox_append_plain(ob, mask, dst, kind, depart, p)
-    cap, h = ob.dst.shape
-    dev = ob.dst.device
-    ok = mask & (ob.cnt < cap)
-    dhi_v, dlo_v = ev.tb_split(depart.to(torch.int64))
-    row = (h,)
-    obox_kernel_launch(ob, _arg(ok, _I32, row, dev), _arg(dst, _I32, row, dev),
-                       _arg(kind, _I32, row, dev), dhi_v, dlo_v,
-                       ob.pkt_ctr.to(torch.int32), p.to(torch.int32).contiguous())
-    ob = ob._replace(cnt=ob.cnt + ok.to(torch.int32),
-                     pkt_ctr=ob.pkt_ctr + ok.to(torch.int64))
-    return ob, ok
+    ok = torch.empty(h, dtype=torch.bool, device=dev)
+    cnt = torch.empty(h, dtype=_I32, device=dev)
+    pkt_ctr = torch.empty(h, dtype=_I64, device=dev)
+    _launch("obox", library().popk_obox, mask, ob.cnt, ob.pkt_ctr, dst, kind,
+            depart, p, ob.dst, ob.kind, ob.depart_hi, ob.depart_lo, ob.ctr,
+            ob.p, ok, cnt, pkt_ctr, cap, h, dst_step, kind_step, depart_step,
+            _stream(dev))
+    return ob._replace(cnt=cnt, pkt_ctr=pkt_ctr), ok

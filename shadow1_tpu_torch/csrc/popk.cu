@@ -12,15 +12,16 @@
 // their inputs; every [H] result goes to an output the wrapper allocated.
 //
 // What bounds them on an H100 (3.35 TB/s, bench shape C = 48, P = 24,
-// H = 65,536, NP = 10; one [C, H] plane is 12.6 MB): bytes, never
-// operations — each kernel does a few integer compares per byte it moves.
+// H = 65,536, NP = 10; one [C, H] plane is 12.6 MB): bytes or memory
+// latency, never operations — each kernel does a few integer compares per
+// byte it moves.
 //
-// pop and push compute their whole public function in one launch: the pop
+// Each kernel computes its whole public function in one launch: the pop
 // kernel all of events.pop_until (the rebased bound u32, the argmin, the
 // Popped rows with their i64 time and tie-break, the new n_elig), the push
 // kernel all of push_local / push_back (both tie-break splits, the rebased
 // key, the first free slot, the writes, overflow, the new n_elig and, for
-// push_local, the new self_ctr).
+// push_local, the new self_ctr), the obox kernel all of outbox_append.
 //
 // * pop: the least it must read is the t32 plane plus, at each slot below
 //   u32 whose t32 is not past the host's least eligible one, the kind and
@@ -55,15 +56,37 @@
 //   32 neighbouring hosts of one plane. A store at a per-host slot is
 //   sector-granular too: 32 bytes move for every scattered 4-byte word, so
 //   a random buffer's pushes cost up to 8x their word bound.
-// * obox: reads no plane at all; the slot is cnt[h]. It writes 5 + NP
-//   words per appending host, at most (5 + NP) x H x 4 B = 3.9 MB. Still
-//   one thread per host, its first design.
+// * obox: the whole of outbox_append in one launch (ok = mask && cnt < P,
+//   the new cnt and pkt_ctr rows, the tb_split of depart, the 5 + NP word
+//   stores at slot cnt[h]). It reads no plane at all, so in the path what
+//   bounds it is the chain of dependent device-memory round trips, and on
+//   a random state the 32-byte sectors of its scattered stores. The first
+//   port's kernel waited on three round trips (ok, then cnt, then the value
+//   words, each behind a branch on the one before); this one waits on two.
+//   One thread per host (neighbouring lanes on neighbouring hosts: each [H]
+//   row load is one coalesced line per warp) loads mask, cnt and pkt_ctr
+//   together and writes its [H] outputs; only a host whose packet lands
+//   then loads its value words (dst, kind, depart, the NP payload words)
+//   and makes its 5 + NP stores, so only the landing hosts' sectors of the
+//   value rows move. Issuing every load before any test (one round trip)
+//   was slower on the H100, in the path and in situ: it moves every host's
+//   value words, 4.5 MB at bench shape, mostly the zero payload PHOLD
+//   sends; so was loading the values of whole warps where any lane appends
+//   (a warp vote). PERF.md has the three designs' times. The stores go
+//   plane by plane, so a warp's 32 words of one plane leave in one
+//   instruction, one 128-byte line where the hosts share cnt. On a random
+//   state they bound it: a host's words sit at its own row cnt[h], so each
+//   scattered 4-byte word costs a 32-byte sector, 8x its word bound when
+//   no neighbours share a row. Neither TMA nor wgmma has a part here: the
+//   loads are [H] rows and the stores go to per-host rows.
 //
 // Bit-exact hazards, each covered by tests/test_torch_cuda.py and the edge
 // cases of chip_smoke.py:
 // * tie-break low words >= 2**31: stored sign-flipped (lo ^ 0x80000000), so
 //   signed i32 order is unsigned low-word order; tb_join undoes the flip;
 // * time = I64_MAX: t32 saturates to I32_HORIZON;
+// * pkt_ctr at and above 2**31 and 2**32: the outbox's ctr word is its low
+//   32 bits, as .to(torch.int32) truncates; the new pkt_ctr wraps in uint64;
 // * time < epoch (past due): t32 goes negative, down to I32_PASTDUE;
 // * until <= epoch: u32 = 0, nothing is eligible and nothing pops;
 // * ties on t32 and on tb_hi: the lexicographic (t32, tb_hi, tb_lo) order
@@ -89,7 +112,7 @@ constexpr int32_t kI32Free = 0x7fffffff;     // events.I32_FREE
 constexpr int32_t kHorizon = 0x7ffffffe;     // events.I32_HORIZON
 constexpr int32_t kPastDue = -0x7ffffffe;    // events.I32_PASTDUE
 constexpr int kNP = 10;                      // consts.NP
-constexpr int kBlock = 256;                  // obox: one thread per host
+constexpr int kBlock = 256;                  // obox: threads (hosts) per block
 constexpr int kThreads = 256;                // pop/push: threads per block
 constexpr int kPopBatch = 48;                // pop: slots whose loads go together
 constexpr int kGroups = kThreads / 32;       // push: slot groups (warps)
@@ -298,33 +321,43 @@ push_kernel(const uint8_t* __restrict__ mask, const int64_t* __restrict__ time,
   }
 }
 
-__global__ void obox_kernel(const int32_t* __restrict__ cnt,
-                            const int32_t* __restrict__ ok,
-                            const int32_t* __restrict__ dst_v,
-                            const int32_t* __restrict__ kind_v,
-                            const int32_t* __restrict__ dhi_v,
-                            const int32_t* __restrict__ dlo_v,
-                            const int32_t* __restrict__ ctr_v,
-                            const int32_t* __restrict__ p_v,
-                            int32_t* __restrict__ dst,
-                            int32_t* __restrict__ kind,
-                            int32_t* __restrict__ dhi,
-                            int32_t* __restrict__ dlo,
-                            int32_t* __restrict__ ctr,
-                            int32_t* __restrict__ p,
-                            int P, int H) {
+// One thread per host; dst, kind and depart are read at h * step (step 0:
+// one value for every host). Two round trips: the [H] rows, then the value
+// words of a host whose packet lands (see the note at the top). This is
+// how ptxas schedules it in any case: it sinks a value load written before
+// the test into the branch that uses it.
+__global__ void __launch_bounds__(kBlock)
+obox_kernel(const uint8_t* __restrict__ mask, const int32_t* __restrict__ cnt,
+            const int64_t* __restrict__ pkt_ctr,
+            const int32_t* __restrict__ dst_v, const int32_t* __restrict__ kind_v,
+            const int64_t* __restrict__ depart, const int32_t* __restrict__ p_v,
+            int32_t* __restrict__ dst, int32_t* __restrict__ kind,
+            int32_t* __restrict__ dhi, int32_t* __restrict__ dlo,
+            int32_t* __restrict__ ctr, int32_t* __restrict__ p,
+            uint8_t* __restrict__ ok_out, int32_t* __restrict__ cnt_out,
+            int64_t* __restrict__ pkt_ctr_out, int P, int H, int dst_step,
+            int kind_step, int depart_step) {
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
-  if (h >= H || ok[h] == 0) return;
-  const int32_t slot = cnt[h];
-  if (slot < 0 || slot >= P) return;  // the reference's one-hot misses too
-  const int64_t s = (int64_t)slot * H + h;
+  if (h >= H) return;
+  const bool m = mask[h] != 0;
+  const int32_t c = cnt[h];
+  const int64_t pc = pkt_ctr[h];
+  const bool ok = m && c < P;
+  ok_out[h] = ok;
+  cnt_out[h] = c + (int32_t)ok;  // ok: c < P, so no overflow
+  pkt_ctr_out[h] = wrap_add(pc, (int64_t)ok);
+  if (!ok || c < 0) return;  // a negative cnt: the reference's one-hot misses
+  // The 3 + NP value loads all go out before the first store (restrict).
+  const int64_t s = (int64_t)c * H + h;
   const int64_t plane = (int64_t)P * H;
-  dst[s] = dst_v[h];
-  kind[s] = kind_v[h];
-  dhi[s] = dhi_v[h];
-  dlo[s] = dlo_v[h];
-  ctr[s] = ctr_v[h];
-  for (int j = 0; j < kNP; ++j) p[j * plane + s] = p_v[(int64_t)j * H + h];
+  const int64_t t = depart[(int64_t)h * depart_step];
+  dst[s] = dst_v[(int64_t)h * dst_step];
+  kind[s] = kind_v[(int64_t)h * kind_step];
+  dhi[s] = split_hi(t);
+  dlo[s] = split_lo(t);
+  ctr[s] = (int32_t)(uint32_t)(uint64_t)pc;  // .to(torch.int32): the low word
+#pragma unroll
+  for (int w = 0; w < kNP; ++w) p[w * plane + s] = p_v[(int64_t)w * H + h];
 }
 
 }  // namespace
@@ -363,15 +396,18 @@ int popk_push(const uint8_t* mask, const int64_t* time, const int64_t* tb,
   return (int)cudaGetLastError();
 }
 
-int popk_obox(const int32_t* cnt, const int32_t* ok, const int32_t* dst_v,
-              const int32_t* kind_v, const int32_t* dhi_v,
-              const int32_t* dlo_v, const int32_t* ctr_v, const int32_t* p_v,
-              int32_t* dst, int32_t* kind, int32_t* dhi, int32_t* dlo,
-              int32_t* ctr, int32_t* p, int P, int H, cudaStream_t stream) {
+int popk_obox(const uint8_t* mask, const int32_t* cnt, const int64_t* pkt_ctr,
+              const int32_t* dst_v, const int32_t* kind_v,
+              const int64_t* depart, const int32_t* p_v, int32_t* dst,
+              int32_t* kind, int32_t* dhi, int32_t* dlo, int32_t* ctr,
+              int32_t* p, uint8_t* ok_out, int32_t* cnt_out,
+              int64_t* pkt_ctr_out, int P, int H, int dst_step,
+              int kind_step, int depart_step, cudaStream_t stream) {
   if (H > 0) {
     obox_kernel<<<(H + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
-        cnt, ok, dst_v, kind_v, dhi_v, dlo_v, ctr_v, p_v, dst, kind, dhi, dlo,
-        ctr, p, P, H);
+        mask, cnt, pkt_ctr, dst_v, kind_v, depart, p_v, dst, kind, dhi, dlo,
+        ctr, p, ok_out, cnt_out, pkt_ctr_out, P, H, dst_step, kind_step,
+        depart_step);
   }
   return (int)cudaGetLastError();
 }

@@ -62,6 +62,19 @@ def test_arg_converts_only_what_differs(x, dtype, shape):
     assert torch.equal(y, torch.as_tensor(x).to(dtype).expand(shape))
 
 
+@pytest.mark.parametrize("x,step", [
+    (torch.tensor(7), 0),                                   # 0-d: one value
+    (torch.arange(5, dtype=torch.int32), 1),                # a matching row
+    (torch.tensor([True, False, True, True, False]), 1),    # a row to convert
+])
+def test_row_reads_a_0d_value_with_step_0(x, step):
+    y, s = popk._row(x, torch.int32, 5, torch.device("cpu"))
+    assert s == step and y.dtype == torch.int32 and y.dim() == step
+    assert torch.equal(y.expand(5), x.to(torch.int32).expand(5))
+    if x.dtype == torch.int32:
+        assert y is x  # no device operation for a row that matches
+
+
 @pytest.mark.parametrize("bad,what", [
     (torch.zeros((2, 3), dtype=torch.int64), "int64"),
     (torch.zeros((3, 2), dtype=torch.int32), "shape"),

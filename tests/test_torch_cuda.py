@@ -15,7 +15,10 @@ single host, whole tiles (H = 4096), planes off the 16-byte grid, slot
 counts that do not divide among the slot groups (C = 1, 7, 49), tie-break low words at and above 2**31, ties on t32 and on tb_hi,
 past-due keys, hosts with nothing eligible, a bound at or below the epoch,
 times at I64_MAX and far in the past, full buffers, and push-back
-tie-breaks near 2**62.
+tie-breaks near 2**62. The outbox cases cover H = 1, 33, 4096, 4097 × P =
+1, 6, 24, packet counters at and above 2**31, 2**32 and 2**33 and at
+I64_MAX, departures with low words at and above 2**31 and at I64_MAX, 0-d
+dst, kind and depart, idle 32-host tiles, full outboxes and cnt at P - 1.
 """
 
 import numpy as np
@@ -233,20 +236,88 @@ def test_results_are_fresh(dev):
     assert torch.equal(after.self_ctr, c0 + ok.to(torch.int64))
 
 
-@pytest.mark.parametrize("h", [1, 33, 4096])
-def test_obox_kernel_matches_plain(dev, h):
-    g = np.random.default_rng(h + 1)
-    ob = ob_mod.outbox_init(h, 6, dev)
-    k = torch.full((h,), 1, dtype=torch.int32, device=dev)
-    for _ in range(8):
-        m = torch.from_numpy(g.random(h) < 0.9).to(dev)
-        t = torch.from_numpy(g.integers(0, 50, h)).to(dev)
-        p = torch.from_numpy(g.integers(0, 99, (NP, h)).astype(np.int32)).to(dev)
-        dst = torch.from_numpy(g.integers(0, h, h).astype(np.int32)).to(dev)
-        want = popk.outbox_append_plain(ob, m, dst, k, t, p)
-        got = popk.outbox_append(_clone(ob), m, dst, k, t, p)
+def _outbox(g, h, cap, dev):
+    """An outbox with random planes, cnt over [0, P] (host 0 full where
+    H > 1, the last host at P - 1) and pkt_ctr at and above 2**31 - 1,
+    2**31, 2**32, 2**33 and at I64_MAX (the next append wraps)."""
+    def rnd(*shape):
+        return _t(g.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32), dev)
+
+    cnt = g.integers(0, cap + 1, h).astype(np.int32)
+    cnt[0], cnt[-1] = cap, cap - 1
+    ctr = g.choice(np.array([0, 5, 2**31 - 1, 2**31, 2**32 - 1, 2**32,
+                             2**33 + 9, I64_MAX]), h)
+    return ob_mod.Outbox(
+        dst=rnd(cap, h), kind=rnd(cap, h), depart_hi=rnd(cap, h),
+        depart_lo=rnd(cap, h), ctr=rnd(cap, h), p=rnd(NP, cap, h),
+        cnt=_t(cnt, dev), pkt_ctr=_t(ctr, dev))
+
+
+def _obox_rows(g, h, step, dev):
+    """mask (hosts 128 .. 383 idle: whole 32-host tiles), dst and kind (0-d
+    on odd steps), depart (low words at and above 2**31, some at I64_MAX;
+    0-d on step 2) and payload."""
+    mask = g.random(h) < 0.8
+    mask[128:384] = False
+    dst = g.integers(0, h, h).astype(np.int32)
+    kind = g.integers(1, 7, h).astype(np.int32)
+    if step % 2:
+        dst, kind = np.array(h // 2, np.int32), np.array(4, np.int32)
+    lo = g.choice(np.array([0, 2**31 - 1, 2**31, 2**31 + 3, 2**32 - 1]), h)
+    depart = (EPOCH + g.integers(0, 2**20, h)) & ~0xFFFFFFFF | lo
+    depart[g.random(h) < 0.1] = I64_MAX
+    if step == 2:
+        depart = np.array(EPOCH + 2**31 + 1, np.int64)
+    p = g.integers(-2**31, 2**31, (NP, h), dtype=np.int64).astype(np.int32)
+    return (_t(mask, dev), _t(dst, dev), _t(kind, dev), _t(depart, dev),
+            _t(p, dev))
+
+
+@pytest.mark.parametrize("h,c", [(h, c) for h in (1, 33, 4096, 4097)
+                                 for c in (1, 6, 24)])
+def test_obox_kernel_matches_plain(dev, h, c):
+    g = np.random.default_rng(h * 100 + c + 2)
+    ob = _outbox(g, h, c, dev)
+    n_ok = n_drop = 0
+    for step in range(8):
+        rows = _obox_rows(g, h, step, dev)
+        want = popk.outbox_append_plain(ob, *rows)
+        got = popk.outbox_append(_clone(ob), *rows)
         _equal(want, got)
+        n_ok += int(want[1].sum())
+        n_drop += int((rows[0] & ~want[1]).sum())
         ob = want[0]
+    assert n_ok > 0 and n_drop > 0  # appends landed, full outboxes dropped
+
+
+def test_obox_results_are_fresh(dev):
+    """outbox_append returns new ok / cnt / pkt_ctr tensors, leaves the
+    caller's cnt and pkt_ctr as they were, and updates the planes it was
+    given in place."""
+    g = np.random.default_rng(13)
+    ob = _outbox(g, 4097, 24, dev)
+    cnt0, ctr0 = ob.cnt.clone(), ob.pkt_ctr.clone()
+    rows = _obox_rows(g, 4097, 0, dev)
+    want = popk.outbox_append_plain(ob, *rows)
+    after, ok = popk.outbox_append(ob, *rows)
+    _equal(want, (after, ok))
+    for new, old in ((after.cnt, ob.cnt), (after.pkt_ctr, ob.pkt_ctr),
+                     (ok, rows[0])):
+        assert new.data_ptr() != old.data_ptr()
+    assert torch.equal(ob.cnt, cnt0) and torch.equal(ob.pkt_ctr, ctr0)
+    assert after.dst.data_ptr() == ob.dst.data_ptr()
+    assert torch.equal(after.cnt, cnt0 + ok.to(torch.int32))
+
+
+def test_obox_one_launch_per_call(dev):
+    """Each outbox_append call on CUDA adds exactly one to the obox launch
+    count, [H] and 0-d rows alike."""
+    g = np.random.default_rng(17)
+    ob = _outbox(g, 4096, 24, dev)
+    for step in range(3):
+        n = popk.LAUNCHES["obox"]
+        ob, _ = popk.outbox_append(ob, *_obox_rows(g, 4096, step, dev))
+        assert popk.LAUNCHES["obox"] == n + 1
 
 
 def test_engine_cuda_matches_cpu(dev):

@@ -10,6 +10,9 @@ kernels of ``shadow1_tpu.core.popk`` in interpret mode, which ties the
 port's plain versions (what its CUDA kernels are held to on the card) to
 the TPU kernels themselves. The port side runs on CPU tensors, so its
 wrappers in ``shadow1_tpu_torch.core.popk`` take the plain versions.
+Outbox appends also run on edge cases the random sequence never reaches
+(large packet counters, departure low words at and above 2**31, 0-d
+rows, full outboxes).
 """
 
 import functools
@@ -171,6 +174,79 @@ def test_random_op_sequence(impl, seed):
     assert n_pops > 0 and n_over > 0
     assert_same(ej.evbuf_fill(bj), et.evbuf_fill(bt), "evbuf_fill")
     assert_same(oj.outbox_fill(obj), ot.outbox_fill(obt), "outbox_fill")
+
+
+OBOX_EDGES = ["pkt_ctr", "depart", "0-d dst and kind", "0-d depart",
+              "idle tiles", "full outbox", "cnt at P - 1"]
+
+
+def _obox_edge(case: str, g, h: int = 100, cap: int = 6):
+    """An outbox and three sets of append rows for one edge case the random
+    op sequence never reaches (its pkt_ctr stays small, its departures
+    below 2**31): pkt_ctr at and above 2**31, 2**32 and 2**33 (and at
+    I64_MAX, where the next append wraps); departures whose low words lie
+    at and above 2**31, and I64_MAX; 0-d dst and kind, or a 0-d depart;
+    whole 32-host tiles with no appending host; a full outbox; every cnt
+    at P - 1, so the first append fills it and the next ones drop."""
+    def rnd(*shape):
+        return g.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+
+    cnt = g.integers(0, cap, h).astype(np.int32)
+    pkt_ctr = g.integers(0, 2**20, h)
+    if case == "pkt_ctr":
+        pkt_ctr = g.choice(np.array([2**31 - 1, 2**31, 2**32 - 1, 2**32,
+                                     2**33 + 7, 2**40 + 2**31, 2**63 - 1]), h)
+    elif case == "full outbox":
+        cnt[:] = cap
+    elif case == "cnt at P - 1":
+        cnt[:] = cap - 1
+    ob = (rnd(cap, h), rnd(cap, h), rnd(cap, h), rnd(cap, h), rnd(cap, h),
+          rnd(NP, cap, h), cnt, pkt_ctr)
+    steps = []
+    for _ in range(3):
+        mask = g.random(h) < 0.8
+        dst = g.integers(0, h, h).astype(np.int32)
+        kind = g.integers(1, 7, h).astype(np.int32)
+        depart = g.integers(0, 2**40, h)
+        if case == "depart":
+            lo = g.choice(np.array([0, 2**31 - 1, 2**31, 2**31 + 5, 2**32 - 1]), h)
+            depart = (g.integers(0, 2**20, h) << 32) | lo
+            depart[g.random(h) < 0.2] = 2**63 - 1
+        elif case == "0-d dst and kind":
+            dst, kind = np.array(7, np.int32), np.array(3, np.int32)
+        elif case == "0-d depart":
+            depart = np.array(2**40 + 2**31 + 3, np.int64)
+        elif case == "idle tiles":
+            mask[:64] = False
+        steps.append((mask, dst, kind, depart, rnd(NP, h)))
+    return ob, steps
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("case", OBOX_EDGES)
+def test_outbox_append_edges(impl, case):
+    """The port's outbox_append (its plain version, on the CPU) equals the
+    reference's, leaf for leaf, on the edge cases the CUDA kernel must
+    handle bit-exactly."""
+    g = np.random.default_rng(OBOX_EDGES.index(case))
+    ob, steps = _obox_edge(case, g)
+    obj = oj.Outbox(*(jnp.asarray(x) for x in ob))
+    obt = ot.Outbox(*(torch.from_numpy(x) for x in ob))
+    ops = JaxOps(impl)
+    n_ok = 0
+    for i, (mask, dst, kind, depart, p) in enumerate(steps):
+        if impl == "pallas":  # the fused wrapper broadcasts dst and kind only
+            depart = np.broadcast_to(depart, mask.shape)
+        args = (mask, dst, kind, depart, p)
+        obj, okj = ops.outbox_append(obj, *(jnp.asarray(x) for x in args))
+        obt, okt = pt.outbox_append(obt, *(torch.from_numpy(np.array(x))
+                                           for x in args))
+        assert_same(okj, okt, f"{case} step {i} ok")
+        assert_same(obj, obt, f"{case} step {i} outbox")
+        n_ok += int(np.asarray(okj).sum())
+    assert (n_ok == 0) == (case == "full outbox")
+    if case == "cnt at P - 1":  # each host takes one packet, then is full
+        assert n_ok == int(np.any([s[0] for s in steps], axis=0).sum())
 
 
 @pytest.mark.parametrize("v", [0, 1, 2**31 - 1, 2**31, 2**32 - 1, 2**32,

@@ -12,7 +12,9 @@ window, twice:
    name, the device's busy time against the wall (its idle share), device
    kernels per round, and with ``--trace`` the Chrome trace.
 
-Prints one JSON line with both, the card's name and power limit.
+Prints one JSON line with both, the card's name and power limit;
+``kernel_us`` is the device time per launch of each of the port's kernels
+("in situ").
 """
 
 from __future__ import annotations
@@ -41,6 +43,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
+    print(json.dumps(profile(args.hosts, args.windows, args.trace)))
+    return 0
+
+
+def profile(hosts: int, windows: int, trace: str | None = None) -> dict:
+    """The two runs above on the kernels ``popk`` launches now; the record
+    ``main`` prints."""
+    import torch
+
     sys.path.insert(0, str(ROOT))
     from shadow1_tpu_torch.config.compiled import single_vertex_experiment
     from shadow1_tpu_torch.consts import EngineParams
@@ -51,7 +62,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     exp = single_vertex_experiment(
-        n_hosts=args.hosts, seed=1234, end_time=(2 * args.windows + 1) * MS,
+        n_hosts=hosts, seed=1234, end_time=(2 * windows + 1) * MS,
         latency_ns=MS, model="phold",
         model_cfg={"mean_delay_ns": 2.0 * MS, "init_events": 16})
     eng = E.Engine(exp, EngineParams(ev_cap=48, outbox_cap=24, max_rounds=128),
@@ -64,7 +75,7 @@ def main() -> int:
         popk.LAUNCHES[k] = 0
     m0 = E.Engine.metrics_dict(st)
     t_all = time.perf_counter()
-    for _ in range(args.windows):
+    for _ in range(windows):
         fr = E.window_frame(st, eng.ctx)
         for name, fn in E.window_phases(eng.ctx, eng._handlers):
             t0 = time.perf_counter()
@@ -78,16 +89,17 @@ def main() -> int:
     rounds = m1["rounds"] - m0["rounds"]
     launches = dict(popk.LAUNCHES)
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        st = eng.run(st, n_windows=args.windows)
+        st = eng.run(st, n_windows=windows)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     prof_rounds = E.Engine.metrics_dict(st)["rounds"] - m1["rounds"]
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+    if trace:
+        prof.export_chrome_trace(trace)
     rows = []
     for a in prof.key_averages():
         # Device-side events only (kernels, memcpy, memset): CPU ops also
@@ -101,19 +113,23 @@ def main() -> int:
             rows.append((dev_us, a.key, a.count))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    rec = {
-        "card": card, "hosts": args.hosts, "windows": args.windows,
+    kernel_us = {}
+    for name in popk.LAUNCHES:
+        hits = [(us, n) for us, k, n in rows if f"{name}_kernel" in k]
+        if hits:
+            kernel_us[name] = sum(u for u, _ in hits) / sum(n for _, n in hits)
+    return {
+        "card": card, "hosts": hosts, "windows": windows,
         "events": events, "rounds": rounds, "wall_s": wall,
         "events_per_s": events / wall, "phase_s": phases,
         "launches": launches,
         "profiled_wall_s": prof_wall, "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1 - busy_us / 1e6 / prof_wall,
         "device_kernels_per_round": sum(r[2] for r in rows) / prof_rounds,
+        "kernel_us": kernel_us,
         "top_kernels": [{"name": k[:160], "device_us": us, "calls": n}
                         for us, k, n in rows[:40]],
     }
-    print(json.dumps(rec))
-    return 0
 
 
 if __name__ == "__main__":
