@@ -35,11 +35,30 @@ fails:
    engine hands each kernel's wrapper at three rounds in the middle of a
    window. On each, the kernel must equal its plain version bit for bit;
    its device time (cold L2), the byte bound for that data and the
-   wrapper's stream time are measured.
+   wrapper's stream time are measured;
+6. kernels at the net shape: phase 3 again at the net model's shape (C =
+   512 event slots, P = 64 outbox slots, H = 16,384 hosts), random state
+   and edge cases, bit-equal, timed against the byte bound;
+7. the net slice: ``filexfer16k`` (16,384 hosts, 20 windows) and ``rung1``
+   (``configs/rung1_filexfer.yaml``, 500 windows) through
+   ``Engine(device="cuda")`` with ``state_digest=1``, built in code from
+   the golden files (``shadow1_tpu_torch/golden/net_*.json``; no YAML, no
+   GraphML). Every digest word of every window, every ``Metrics`` field,
+   the summary totals and the SHA-256 of each per-host summary array must
+   equal the JAX golden; a digest mismatch names the first differing
+   (window, subsystem). Every kernel's launch count must rise during the
+   16k run;
+8. the net path: one more ``filexfer16k`` run with hooks around the net
+   path's call sites of the three kernels (``engine.pop_until``,
+   ``popk.push_local`` — which ``engine.push_local_event`` calls — and
+   ``tcp.outbox_append``) keeps, in one mid-run window, the arguments of a
+   busy, a middling and a sparse round (for push and the outbox the call
+   of the round that masks the most hosts); on each the kernel must equal
+   its plain version, timed with a cold L2 against that data's byte bound.
 
-It then prints a ``{"kernels": [...]}`` line, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. It imports nothing of
-JAX or of the JAX package.
+Each phase's wall time is printed. It then prints a ``{"kernels": [...]}``
+line, the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``. It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -64,13 +83,28 @@ REPLACES = {
 # redesign that computes the whole public function in one launch
 # (csrc/popk.cu), named by the change that made it.
 DESIGN = {"pop": "pr2", "push": "pr2", "obox": "pr3"}
-C, P, H = 48, 24, 65536
+# Kernel-check shapes (C event slots, P outbox slots, H hosts): the PHOLD
+# bench's and the net model's filexfer16k. The phase-3 helpers read the
+# module's C, P, H; ``use_shape`` sets them.
+BENCH_SHAPE = (48, 24, 65536)
+NET_SHAPE = (512, 64, 16384)
+C, P, H = BENCH_SHAPE
 I32_FREE = 2**31 - 1
 I32_PASTDUE = -(2**31 - 2)
 I64_MAX = 2**63 - 1
 # Rounds whose kernel arguments the in-path phase keeps: three in the
 # middle of the eleventh window (the bench runs about 18 per window).
 PATH_WINDOW, PATH_ROUNDS = 10, (5, 8, 11)
+
+
+# The net in-path phase keeps three rounds of this window of filexfer16k
+# (of 20; flows are in full swing, and the first finish in window 14).
+NET_PATH_WINDOW = 12
+
+
+def use_shape(shape) -> None:
+    global C, P, H
+    C, P, H = shape
 
 
 def log(msg: str) -> None:
@@ -677,6 +711,179 @@ def run_golden(name: str, dev, *, count: bool = False) -> dict:
                 launches=launches)
 
 
+# -- phase 7: the net slice -------------------------------------------------
+
+def net_golden(name: str) -> dict:
+    return json.loads((ROOT / "shadow1_tpu_torch" / "golden"
+                       / f"net_{name}.json").read_text())
+
+
+def net_experiment(name: str, gold: dict):
+    """The golden's experiment, built in code (no YAML, no GraphML), held
+    to the golden's SHA-256 of its arrays."""
+    from shadow1_tpu_torch.config import compiled as ct
+
+    if "build" in gold:
+        exp = ct.tiled_filexfer_experiment(
+            **gold["build"]["tiled_filexfer_experiment"])
+    else:
+        exp = ct.experiment_from_arrays(gold["experiment"])
+    sha = hashlib.sha256(json.dumps(ct.experiment_arrays(exp),
+                                    sort_keys=True).encode()).hexdigest()
+    require(sha == gold["experiment_sha256"],
+            f"{name}: the experiment built here is not the golden's")
+    return exp
+
+
+def run_net_golden(name: str, dev, *, count: bool = False) -> dict:
+    """Run a net golden's experiment with state_digest=1 through
+    Engine(device=dev) and compare: every digest word (the first differing
+    (window, subsystem) is named), every Metrics field, the summary totals
+    and the SHA-256 of each per-host summary array."""
+    import numpy as np
+    import torch
+
+    from shadow1_tpu_torch.consts import EngineParams
+    from shadow1_tpu_torch.core import popk
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+
+    gold = net_golden(name)
+    exp = net_experiment(name, gold)
+    windows = gold["windows"]
+    params = EngineParams(**gold["params"], metrics_ring=windows,
+                          state_digest=1)
+    eng = Engine(exp, params, device=dev)
+    torch.cuda.synchronize()
+    if count:
+        for k in popk.LAUNCHES:
+            popk.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    st = eng.run(n_windows=windows)
+    metrics = Engine.metrics_dict(st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(popk.LAUNCHES) if count else None
+    fields = gold["digest_fields"]
+    rows = drain_ring(st, eng.window)
+    require(len(rows) == windows, f"{name}: {len(rows)} ring rows")
+    for w, (want, row) in enumerate(zip(gold["digests"], rows)):
+        for f, x in zip(fields, want):
+            if row[f] != x:
+                raise AssertionError(
+                    f"{name}: first differing digest word: window {w}, "
+                    f"subsystem {f.removeprefix('dg_')}: golden {x}, port "
+                    f"{row[f]}")
+    diff = {k: (gold["metrics"][k], v) for k, v in metrics.items()
+            if gold["metrics"].get(k) != v}
+    require(not diff and set(metrics) == set(gold["metrics"]),
+            f"{name}: metrics differ from the JAX golden (golden, port): "
+            f"{diff}")
+    summ = eng.model_summary(st)
+    got = {"total_rx_bytes": int(summ["total_rx_bytes"]),
+           "total_flows_done": int(summ["total_flows_done"]),
+           "nic_tx_bytes": int(summ["nic_tx_bytes"].sum()),
+           "nic_rx_bytes": int(summ["nic_rx_bytes"].sum())}
+    require(got == gold["summary"], f"{name}: summary {got} differs from "
+            f"the JAX golden's {gold['summary']}")
+    for k, want in gold["sha256"].items():
+        h = hashlib.sha256(np.asarray(summ[k], "<i8").tobytes()).hexdigest()
+        require(h == want, f"{name}: per-host {k} differs from the golden")
+    return dict(wall_s=wall, events=metrics["events"],
+                rounds=metrics["rounds"], windows=metrics["windows"],
+                hosts=exp.n_hosts, launches=launches)
+
+
+class NetPathCapture:
+    """Hooks around the net path's call sites of the kernels' wrappers:
+    ``engine.pop_until``, ``popk.push_local`` (``engine.push_local_event``
+    imports it at each call, so TCP timers, transmit resumes and app
+    wakeups all pass here) and ``tcp.outbox_append`` (every TCP segment).
+    In window ``NET_PATH_WINDOW`` every round's pop arguments are cloned
+    before the call, and so are the push and outbox arguments of the
+    round's call that masks the most hosts; when a round ends it is kept
+    if it is the busiest so far (most hosts popped), the sparsest with any
+    pop, or the closest to half the busiest. Calls pass through unchanged."""
+
+    def __init__(self):
+        self.kept = {}
+        self.cur = None
+        self._until, self._window = None, -1
+        self._saved = []
+
+    def _end_round(self):
+        rec, self.cur = self.cur, None
+        if rec is None or rec["n"] == 0:
+            return
+        n, kept = rec["n"], self.kept
+        if "busy" not in kept or n > kept["busy"]["n"]:
+            kept["busy"] = rec
+            return
+        half = kept["busy"]["n"] / 2
+        if "middling" not in kept or abs(n - half) < abs(kept["middling"]["n"] - half):
+            kept["middling"] = rec
+        if "sparse" not in kept or n < kept["sparse"]["n"]:
+            kept["sparse"] = rec
+
+    def cases(self, name: str) -> list:
+        recs = {id(r): r for r in self.kept.values()}.values()
+        return [r[name][1] for r in sorted(recs, key=lambda r: -r["n"])
+                if r.get(name)]
+
+    def actives(self) -> list:
+        recs = {id(r): r for r in self.kept.values()}.values()
+        return sorted((r["n"] for r in recs), reverse=True)
+
+    @staticmethod
+    def _clone_args(args):
+        return tuple(clone(a) if isinstance(a, tuple) else
+                     a.clone() if hasattr(a, "clone") else a for a in args)
+
+    def _widest(self, name, args):
+        if self.cur is None:
+            return
+        m = int(args[1].sum())
+        best = self.cur.get(name)
+        if best is None or m > best[0]:
+            self.cur[name] = (m, self._clone_args(args))
+
+    def __enter__(self):
+        from shadow1_tpu_torch.core import engine, popk
+        from shadow1_tpu_torch.tcp import tcp
+
+        pop, push, obox = engine.pop_until, popk.push_local, tcp.outbox_append
+
+        def pop_hook(buf, until, extract="sum"):
+            self._end_round()
+            if until is not self._until:  # win_end: one tensor per window
+                self._until, self._window = until, self._window + 1
+            if self._window != NET_PATH_WINDOW:
+                return pop(buf, until, extract)
+            args = self._clone_args((buf, until))
+            out = pop(buf, until, extract)
+            self.cur = {"n": int(out[1].mask.sum()), "pop": (0, args)}
+            return out
+
+        def push_hook(buf, mask, time_, kind, p):
+            self._widest("push", (buf, mask, time_, kind, p))
+            return push(buf, mask, time_, kind, p)
+
+        def obox_hook(ob, mask, dst, kind, depart, p):
+            self._widest("obox", (ob, mask, dst, kind, depart, p))
+            return obox(ob, mask, dst, kind, depart, p)
+
+        self._saved = [(engine, "pop_until", pop), (popk, "push_local", push),
+                       (tcp, "outbox_append", obox)]
+        engine.pop_until, popk.push_local = pop_hook, push_hook
+        tcp.outbox_append = obox_hook
+        return self
+
+    def __exit__(self, *exc):
+        self._end_round()
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
 # -- phase 5: the kernels on the arguments of the main path -----------------
 
 class PathCapture:
@@ -732,16 +939,19 @@ class PathCapture:
             setattr(mod, name, fn)
 
 
-def check_path(name: str, cases, dev, flush) -> dict:
+def check_path(name: str, cases, dev, flush, expect=len(PATH_ROUNDS)) -> dict:
     """The kernel on each kept main-path argument set: bit-equal to its
     plain version; its device time per launch with the L2 cache evicted
     before each launch (the bound is a device-memory bound); the byte bound
-    of that data; the wrapper's stream time per call. Means over cases."""
+    of that data; the wrapper's stream time per call. Means over cases.
+    ``expect``: how many argument sets there must be (a range for the net
+    path, where a round may hold no push)."""
     from shadow1_tpu_torch.core import popk
 
-    require(len(cases) == len(PATH_ROUNDS),
+    lo, hi = (expect, expect) if isinstance(expect, int) else expect
+    require(lo <= len(cases) <= hi,
             f"in-path {name}: kept {len(cases)} argument sets, expected "
-            f"{len(PATH_ROUNDS)}")
+            f"{expect}")
     wrapper, plain = {
         "pop": (popk.pop_until, popk.pop_until_plain),
         "push": (popk.push_local, popk.push_local_plain),
@@ -778,6 +988,31 @@ def check_path(name: str, cases, dev, flush) -> dict:
                 path_case_sector_bytes=sector_bytes)
 
 
+def report_kernel(name: str, r: dict, shape: str) -> None:
+    r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"kernel {name} at {shape} shape: bit-equal to plain; device "
+        f"{r['ms'] * 1e3:.2f} us/launch (wrapper call "
+        f"{r['wrapper_ms'] * 1e3:.2f} us); plain {r['plain_ms'] * 1e3:.2f} "
+        f"us/call; byte bound {r['bound_ms'] * 1e3:.2f} us ({r['bytes']} B "
+        f"at 3.35 TB/s)")
+    if "sector_bytes" in r:
+        log(f"  {name}: 32-byte sectors it must touch {r['sector_bytes']} B "
+            f"= {r['sector_bytes'] / HBM_BYTES_PER_S * 1e6:.2f} us")
+
+
+def report_path(name: str, r: dict, where: str) -> None:
+    r["path_bound_ms"] = r["path_bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"kernel {name} in the {where} (active hosts {r['path_active']}): "
+        f"bit-equal to plain; device {r['path_ms'] * 1e3:.2f} us/launch with "
+        f"a cold L2 (by case {[round(x * 1e3, 2) for x in r['path_case_ms']]}"
+        f"; wrapper call {r['path_wrapper_ms'] * 1e3:.2f} us); byte bound "
+        f"{r['path_bound_ms'] * 1e3:.2f} us ({r['path_bytes']:.0f} B; by case "
+        f"{r['path_case_bytes']})")
+    if r["path_case_sector_bytes"]:
+        log(f"  {name} in the {where}: 32-byte sectors it must touch, by case "
+            f"{r['path_case_sector_bytes']} B")
+
+
 def main() -> int:
     import torch
 
@@ -790,32 +1025,38 @@ def main() -> int:
 
     from shadow1_tpu_torch.core import _build
 
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def phase_done(name: str, t0: float) -> None:
+        phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]:.1f} s wall")
+
     card = card_line()
     log(f"card: {card}")
     dev = torch.device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
+    t0 = time.perf_counter()
     info = _build.build()
     _build.library()
     log(f"build: {info['seconds']:.2f} s (built={info['built']})")
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
+    phase_done("build", t0)
 
+    t0 = time.perf_counter()
     g = np.random.default_rng(20261016)
+    use_shape(BENCH_SHAPE)
     checks = {"pop": check_pop(g, dev), "push": check_push(g, dev),
               "obox": check_obox(g, dev)}
     for name, r in checks.items():
-        r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        log(f"kernel {name}: bit-equal to plain; device {r['ms'] * 1e3:.2f} "
-            f"us/launch (wrapper call {r['wrapper_ms'] * 1e3:.2f} us); plain "
-            f"{r['plain_ms'] * 1e3:.2f} us/call; byte bound "
-            f"{r['bound_ms'] * 1e3:.2f} us ({r['bytes']} B at 3.35 TB/s)")
-        if "sector_bytes" in r:
-            log(f"  {name}: 32-byte sectors it must touch {r['sector_bytes']} B "
-                f"= {r['sector_bytes'] / HBM_BYTES_PER_S * 1e6:.2f} us")
+        report_kernel(name, r, "bench")
+    phase_done("kernels at bench shape", t0)
 
+    t0 = time.perf_counter()
     bench = run_golden("bench", dev, count=True)
     log(f"slice bench (65,536 hosts): {bench['events']} events, "
         f"{bench['rounds']} rounds, {bench['windows']} windows in "
@@ -833,28 +1074,65 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the slice path: {missing}")
     log(f"launches on the bench run: {launches} over {bench['rounds']} rounds")
+    phase_done("PHOLD slice", t0)
 
+    t0 = time.perf_counter()
     with PathCapture() as cap:
         run_golden("bench", dev)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     for name, r in checks.items():
         r.update(check_path(name, cap.cases[name], dev, flush))
-        r["path_bound_ms"] = r["path_bytes"] / HBM_BYTES_PER_S * 1e3
-        log(f"kernel {name} in the path (window {PATH_WINDOW}, rounds "
-            f"{PATH_ROUNDS}; active hosts {r['path_active']}): bit-equal to "
-            f"plain; device {r['path_ms'] * 1e3:.2f} us/launch with a cold "
-            f"L2 (by round {[round(x * 1e3, 2) for x in r['path_case_ms']]}; "
-            f"wrapper call {r['path_wrapper_ms'] * 1e3:.2f} us); byte bound "
-            f"{r['path_bound_ms'] * 1e3:.2f} us ({r['path_bytes']:.0f} B; by "
-            f"round {r['path_case_bytes']})")
-        if r["path_case_sector_bytes"]:
-            log(f"  {name} in the path: 32-byte sectors it must touch, by round "
-                f"{r['path_case_sector_bytes']} B")
-    del cap, flush
+        report_path(name, r, f"PHOLD path (window {PATH_WINDOW}, rounds "
+                    f"{PATH_ROUNDS})")
+    del cap
+    phase_done("PHOLD path", t0)
+
+    t0 = time.perf_counter()
+    use_shape(NET_SHAPE)
+    net_checks = {"pop": check_pop(g, dev), "push": check_push(g, dev),
+                  "obox": check_obox(g, dev)}
+    use_shape(BENCH_SHAPE)
+    for name, r in net_checks.items():
+        report_kernel(name, r, "net")
+    phase_done("kernels at net shape", t0)
+
+    t0 = time.perf_counter()
+    net = run_net_golden("filexfer16k", dev, count=True)
+    log(f"net slice filexfer16k ({net['hosts']} hosts): {net['events']} "
+        f"events, {net['rounds']} rounds, {net['windows']} windows in "
+        f"{net['wall_s']:.3f} s = {net['events'] / net['wall_s']:.0f} "
+        f"events/s, {net['wall_s'] / net['rounds'] * 1e3:.2f} ms/round on "
+        f"{card}; every metric, summary, hash and digest word equal to the "
+        f"JAX golden")
+    net_launches = net["launches"]
+    missing = [k for k, n in net_launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the net path: {missing}")
+    log(f"launches on the filexfer16k run: {net_launches} over "
+        f"{net['rounds']} rounds")
+    rung1 = run_net_golden("rung1", dev)
+    log(f"net slice rung1 ({rung1['hosts']} hosts): {rung1['events']} "
+        f"events, {rung1['rounds']} rounds, {rung1['windows']} windows in "
+        f"{rung1['wall_s']:.3f} s ({rung1['wall_s'] / rung1['rounds'] * 1e3:.2f}"
+        f" ms/round); equal to the JAX golden")
+    phase_done("net slice", t0)
+
+    t0 = time.perf_counter()
+    with NetPathCapture() as ncap:
+        run_net_golden("filexfer16k", dev)
+    log(f"net path: kept rounds of window {NET_PATH_WINDOW} with "
+        f"{ncap.actives()} popping hosts")
+    for name, r in net_checks.items():
+        r.update(check_path(name, ncap.cases(name), dev, flush, expect=(1, 3)))
+        report_path(name, r, f"net path (window {NET_PATH_WINDOW})")
+    del ncap, flush
+    phase_done("net path", t0)
 
     kernels = []
     for name, r in checks.items():
-        err = max(r["max_abs_err"], r["path_err"])
+        n = net_checks[name]
+        err = max(r["max_abs_err"], r["path_err"], n["max_abs_err"],
+                  n["path_err"])
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "design": DESIGN[name],
@@ -870,7 +1148,17 @@ def main() -> int:
             "path_us": r["path_ms"] * 1e3,
             "path_bound_us": r["path_bound_ms"] * 1e3,
             "path_wrapper_us": r["path_wrapper_ms"] * 1e3,
+            "net_launches": net_launches[name],
+            "net_launches_per_round": net_launches[name] / net["rounds"],
+            "net_us": n["ms"] * 1e3, "net_plain_us": n["plain_ms"] * 1e3,
+            "net_bound_us": n["bound_ms"] * 1e3,
+            "net_path_us": n["path_ms"] * 1e3,
+            "net_path_bound_us": n["path_bound_ms"] * 1e3,
+            "net_path_case_us": [x * 1e3 for x in n["path_case_ms"]],
+            "net_path_active": n["path_active"],
         })
+    log(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
+        f"; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

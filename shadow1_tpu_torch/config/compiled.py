@@ -159,3 +159,93 @@ def single_vertex_experiment(
         model_cfg=model_cfg or {},
         **fidelity,
     )
+
+
+# The host layout of configs/churn_filexfer.yaml: per group one server
+# (20 Mbit both ways, on vertex 0 "pop_west") and 7 clients (10 Mbit, on
+# vertex 1 "pop_east"), each client 12 sequential 250,000-byte flows to its
+# group's server, client k starting at 10 ms + 30 ms·(k − 1); every path
+# 40 ms (configs/topology_2pop.graphml).
+_FX_CLIENTS = 7
+_FX_SERVER_BW, _FX_CLIENT_BW = 20_000_000, 10_000_000
+_FX_FLOW_BYTES, _FX_FLOW_COUNT = 250_000, 12
+_FX_START_NS, _FX_INTERVAL_NS = 10_000_000, 30_000_000
+_FX_LATENCY_NS = 40_000_000
+
+
+def tiled_filexfer_experiment(n_groups: int, seed: int, end_time: int, *,
+                              loss: float = 0.001) -> CompiledExperiment:
+    """The host layout of ``configs/churn_filexfer.yaml`` (its ``faults:``
+    left out) tiled ``n_groups`` times, built in code (no YAML, no
+    GraphML): host ``8g`` is group g's server, hosts ``8g + 1 .. 8g + 7``
+    its clients (see the ``_FX_*`` constants). The one edge between the
+    two vertices loses ``loss`` of its packets (0.1 % in the GraphML). The
+    per-host app arrays have the dtypes and defaults the YAML loader
+    gives."""
+    per = 1 + _FX_CLIENTS
+    h = n_groups * per
+    k = np.arange(h) % per                      # 0: server, 1..7: clients
+    server = k == 0
+    i64 = np.int64
+    bw = np.where(server, _FX_SERVER_BW, _FX_CLIENT_BW).astype(i64)
+    return CompiledExperiment(
+        n_hosts=h,
+        seed=seed,
+        end_time=end_time,
+        lat_vv=np.full((2, 2), _FX_LATENCY_NS, i64),
+        loss_vv=np.array([[0.0, loss], [loss, 0.0]], np.float32),
+        host_vertex=np.where(server, 0, 1).astype(np.int32),
+        bw_up=bw,
+        bw_dn=bw.copy(),
+        model="net",
+        model_cfg={
+            "role": np.where(server, 0, 1).astype(i64),
+            "server": np.where(server, 0, np.arange(h) - k).astype(i64),
+            "flow_bytes": np.where(server, 0, _FX_FLOW_BYTES).astype(i64),
+            "start_time": np.where(
+                server, 0,
+                _FX_START_NS + (k - 1) * _FX_INTERVAL_NS).astype(i64),
+            "flow_count": np.where(server, 0, _FX_FLOW_COUNT).astype(i64),
+            "app": "filexfer",
+        },
+        vertex_names=["pop_west", "pop_east"],
+    )
+
+
+# The arrays of a CompiledExperiment that define a net-model run, in the
+# order ``experiment_arrays`` lists them.
+_ARRAY_FIELDS = ("lat_vv", "loss_vv", "host_vertex", "bw_up", "bw_dn")
+
+
+def experiment_arrays(exp: CompiledExperiment) -> dict:
+    """A JSON-ready record of ``exp`` (no faults, no fidelity knobs):
+    scalars, the topology and bandwidth arrays and the per-host app
+    arrays, each with its dtype, so ``experiment_from_arrays`` rebuilds
+    the same experiment on a machine that has neither YAML nor GraphML."""
+    def arr(a):
+        a = np.asarray(a)
+        return {"dtype": str(a.dtype), "shape": list(a.shape),
+                "data": a.ravel().tolist()}
+
+    return {
+        "n_hosts": exp.n_hosts, "seed": exp.seed, "end_time": exp.end_time,
+        "model": exp.model,
+        "arrays": {f: arr(getattr(exp, f)) for f in _ARRAY_FIELDS},
+        "model_cfg": {k: (v if isinstance(v, (str, int, float)) else arr(v))
+                      for k, v in exp.model_cfg.items()},
+    }
+
+
+def experiment_from_arrays(rec: dict) -> CompiledExperiment:
+    """Inverse of ``experiment_arrays``."""
+    def arr(d):
+        if not isinstance(d, dict):
+            return d
+        return np.asarray(d["data"], np.dtype(d["dtype"])).reshape(d["shape"])
+
+    return CompiledExperiment(
+        n_hosts=rec["n_hosts"], seed=rec["seed"], end_time=rec["end_time"],
+        model=rec["model"],
+        model_cfg={k: arr(v) for k, v in rec["model_cfg"].items()},
+        **{f: arr(rec["arrays"][f]) for f in _ARRAY_FIELDS},
+    )

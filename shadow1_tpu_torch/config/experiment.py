@@ -11,12 +11,17 @@ both packages:
     hosts:    [{name: h, count: 8, vertex: 0, bandwidth_up: 100 Mbit}, ...]
     app:      {model: phold, params: {mean_delay_ns: ..., init_events: ...}}
 
+The ``app:`` section compiles to per-host arrays as in the reference:
+each schema parameter takes its ``defaults:`` value, then each host group's
+``groups:`` value — a scalar, a list (one per host) or a stagger
+``{start, interval}`` — and ``"@name"`` names the first host of a group.
+
 Sections this slice of the port does not run fail loudly with a
 ``NotImplementedError`` naming the ROADMAP item that adds them: ``faults:``
 (fault plane and fidelity gates), ``probes:`` (checkpoint and
-observability) and every app model but ``phold`` (slice 2 for filexfer,
-the other apps after it). ``sweep:`` runs the base experiment, as a solo
-run of the reference does.
+observability) and the apps ``dgram``, ``tgen``, ``tor`` and ``bitcoin``
+(the other apps). ``sweep:`` runs the base experiment, as a solo run of the
+reference does.
 """
 
 from __future__ import annotations
@@ -59,6 +64,49 @@ def parse_bw_bits(v) -> int:
         if s.endswith(unit):
             return int(float(s[: -len(unit)]) * _BW_UNITS[unit])
     return int(float(s))
+
+
+# Per-host app parameter schemas: name -> (dtype, default, parser), as in
+# the reference. A parser of parse_time_ns lets YAML say "100 ms".
+_APP_PARAMS: dict[str, dict[str, tuple]] = {
+    "filexfer": {
+        "role": (np.int64, 2, None),
+        "server": (np.int64, 0, None),
+        "flow_bytes": (np.int64, 0, None),
+        "start_time": (np.int64, 0, parse_time_ns),
+        "flow_count": (np.int64, 0, None),
+    },
+    "phold": {},
+}
+_OTHER_APPS = ("dgram", "tgen", "tor", "bitcoin")
+
+
+def _per_host_array(name, dtype, default, parser, groups, defaults,
+                    group_cfg, h):
+    arr = np.full(h, default, dtype)
+    conv = parser or (lambda x: x)
+    if name in defaults:
+        arr[:] = _group_values(name, defaults[name], conv, h, np.arange(h))
+    for g in groups:
+        block = group_cfg.get(g.name, {})
+        if name in block:
+            arr[g.ids] = _group_values(name, block[name], conv, g.count,
+                                       np.arange(g.count))
+    return arr
+
+
+def _group_values(name, val, conv, count, idx):
+    """One app-param value spec → per-host values for a group of ``count``:
+    a scalar (broadcast), a list (one per host) or a stagger dict
+    ``{start: X, interval: Y}`` → ``start + i·interval``."""
+    if isinstance(val, dict):
+        extra = set(val) - {"start", "interval"}
+        assert not extra, f"unknown stagger keys for {name}: {extra}"
+        return conv(val.get("start", 0)) + idx * conv(val.get("interval", 0))
+    if isinstance(val, list):
+        assert len(val) == count, (name, count)
+        return [conv(x) for x in val]
+    return conv(val)
 
 
 @dataclasses.dataclass
@@ -213,26 +261,46 @@ def build_experiment(doc: dict, base_dir: str = ".") -> tuple[CompiledExperiment
     appsec = doc.get("app", {"model": "phold"})
     _reject_unknown("app:", appsec, ("model", "params", "defaults", "groups"))
     app = appsec["model"]
-    if app != "phold":
-        item = ("slice 2, NIC + TCP + filexfer" if app == "filexfer"
-                else "the other apps")
+    if app in _OTHER_APPS:
         raise NotImplementedError(
-            f"app model {app!r} runs on the net stack, which is not ported "
-            f"yet (ROADMAP: {item})")
-    # Group-name references: "@name" → first host id of that group.
-    by_name = {g.name: g for g in groups}
+            f"app model {app!r} is not ported yet (ROADMAP: the other apps)")
+    schema = _APP_PARAMS.get(app)
+    assert schema is not None, f"unknown app model {app!r}"
+    dns = Dns.from_groups(groups, host_vertex)
 
+    # Group-name references: "@name" → first host id of that group (the
+    # registry's bare group name).
     def resolve(tree):
         if isinstance(tree, str) and tree.startswith("@"):
-            return by_name[tree[1:]].start
+            return dns.resolve(tree[1:])
         if isinstance(tree, dict):
             return {k: resolve(v) for k, v in tree.items()}
         if isinstance(tree, list):
             return [resolve(v) for v in tree]
         return tree
 
+    defaults = resolve(appsec.get("defaults", {}))
+    group_cfg = resolve(appsec.get("groups", {}))
     model_cfg: dict[str, Any] = resolve(dict(appsec.get("params", {})))
-    model_cfg.setdefault("mean_delay_ns", float(10 * MS))
+    if schema:
+        allowed = set(schema)
+        assert set(defaults) <= allowed, \
+            f"unknown app.defaults params: {set(defaults) - allowed}"
+        host_names = {g.name for g in groups}
+        assert set(group_cfg) <= host_names, \
+            f"unknown app.groups host groups: {set(group_cfg) - host_names}"
+        for gname, block in group_cfg.items():
+            assert set(block) <= allowed, \
+                f"unknown params in app.groups.{gname}: {set(block) - allowed}"
+    for pname, (dtype, default, parser) in schema.items():
+        model_cfg[pname] = _per_host_array(
+            pname, dtype, default, parser, groups, defaults, group_cfg, h)
+    if app == "phold":
+        model_cfg.setdefault("mean_delay_ns", float(10 * MS))
+        model = "phold"
+    else:
+        model_cfg["app"] = app
+        model = "net"
 
     exp = CompiledExperiment(
         n_hosts=h,
@@ -241,11 +309,11 @@ def build_experiment(doc: dict, base_dir: str = ".") -> tuple[CompiledExperiment
         lat_vv=lat_vv,
         loss_vv=loss_vv,
         host_vertex=host_vertex,
-        model="phold",
+        model=model,
         model_cfg=model_cfg,
         jitter_vv=jitter_vv,
         aqm_pmax=aqm_pmax,
-        dns=Dns.from_groups(groups, host_vertex),
+        dns=dns,
         vertex_names=[str(n) for n in names],
         **per_host,
     )

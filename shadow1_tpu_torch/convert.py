@@ -10,9 +10,12 @@ names, leaf shapes and dtypes — so a state converts leaf by leaf:
 * ``state_to_numpy(st)`` returns the port's ``SimState`` with numpy leaves
   of the same dtypes, to compare with or hand back to the reference.
 
-The tree is read by field name, so this module needs nothing of the JAX
-package. States that carry the telemetry ring, probe ring or link
-accumulator are refused: this slice does not run them.
+The tree is read by field name (NamedTuples) and key (the net model's
+TCP and app dicts), so this module needs nothing of the JAX package. A
+state carries PHOLD's or the net model's state (NIC rows, the TCP dict of
+``[S, H]`` and ``[Q, S, H]`` planes, the filexfer dict) and the telemetry
+ring; states that carry the probe ring or the link accumulator are
+refused: this slice does not run them.
 """
 
 from __future__ import annotations
@@ -26,9 +29,14 @@ from shadow1_tpu_torch.core.engine import Metrics, SimState
 from shadow1_tpu_torch.core.events import EventBuf
 from shadow1_tpu_torch.core.outbox import Outbox
 from shadow1_tpu_torch.core.phold import PholdState
+from shadow1_tpu_torch.net import NetState
+from shadow1_tpu_torch.net.nic import NicState
+from shadow1_tpu_torch.telemetry.ring import TelemetryRing
 
 # Port NamedTuple for each reference NamedTuple, by class name.
-_TYPES = {c.__name__: c for c in (SimState, EventBuf, Outbox, Metrics, PholdState)}
+_TYPES = {c.__name__: c for c in (SimState, EventBuf, Outbox, Metrics,
+                                  PholdState, NetState, NicState,
+                                  TelemetryRing)}
 
 
 def _is_namedtuple(x) -> bool:
@@ -48,17 +56,19 @@ def _convert(node: Any, leaf) -> Any:
             raise ValueError(f"{name}: fields {node._fields} do not match "
                              f"the port's {cls._fields}")
         return cls(*(_convert(getattr(node, f), leaf) for f in cls._fields))
+    if isinstance(node, dict):
+        return {k: _convert(v, leaf) for k, v in node.items()}
     return leaf(node)
 
 
 def state_from_numpy(tree, device) -> SimState:
     """A reference SimState with numpy leaves → the port's SimState on
     ``device``, leaf for leaf with the same dtypes."""
-    for f in ("telem", "probes", "links"):
+    for f in ("probes", "links"):
         if getattr(tree, f, None) is not None:
             raise NotImplementedError(
-                f"SimState.{f} is not ported yet (ROADMAP: digest and ring "
-                "instruments, checkpoint and observability)")
+                f"SimState.{f} is not ported yet (ROADMAP: checkpoint and "
+                "observability)")
     dev = torch.device(device)
     return _convert(tree, lambda a: torch.from_numpy(
         np.array(a, copy=True)).to(dev))

@@ -1,5 +1,5 @@
 """The batched engine: conservative-window discrete-event execution
-(port of ``core/engine.py``, the PHOLD path).
+(port of ``core/engine.py``: the PHOLD model and the net model).
 
 * outer loop — one iteration per conservative window [T, T+W), W = the
   minimum path latency;
@@ -9,10 +9,14 @@
   draws) and delivered into the destination event buffers.
 
 Each window runs the reference's four phases in order (``window_phases``):
-prepare (rebase and the work gauges), rounds, deliver, telem. The JAX
-engine runs them as one jitted program; here they are eager PyTorch, the
-windows and rounds are Python loops, and the round loop's continue test
-(``any_eligible``) reads one flag back from the device per round.
+prepare (the work gauges, the model's ``pre_window`` hook, rebase), rounds,
+deliver, telem (gauges, and the telemetry-ring row with the state-digest
+words). The JAX engine runs them as one jitted program; here they are eager
+PyTorch, the windows and rounds are Python loops, and every ``lax.cond`` /
+``while_loop`` test of the reference is one flag read back from the device:
+per round the continue test (``any_eligible``) and one read of which
+handler kinds popped, plus the model's own (``tcp/tcp.py``,
+``apps/filexfer.py``).
 
 Module and function names follow the reference so each counterpart is found
 under the same name. Parts of the reference this slice does not run raise
@@ -22,6 +26,7 @@ under the same name. Parts of the reference this slice does not run raise
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, NamedTuple
 
@@ -31,6 +36,7 @@ import torch
 from shadow1_tpu_torch import rng
 from shadow1_tpu_torch.config.compiled import NO_STOP, CompiledExperiment
 from shadow1_tpu_torch.consts import (
+    K_NONE,
     KIND_METRIC_FIELDS,
     R_LOSS,
     EngineParams,
@@ -106,11 +112,12 @@ class SimState(NamedTuple):
     win_start: torch.Tensor  # i64 scalar
     evbuf: EventBuf
     outbox: Outbox
-    model: Any               # workload-model state (PholdState)
+    model: Any               # workload-model state (PholdState, NetState)
     metrics: Metrics
     cpu_busy: torch.Tensor   # i64 [H] virtual CPU free-at (0: no cpu model)
-    # The reference's telemetry ring, probe ring and link accumulator; this
-    # slice refuses the knobs that create them, so they are always None.
+    # The telemetry ring (telemetry/ring.TelemetryRing), None when
+    # metrics_ring is 0. The reference's probe ring and link accumulator:
+    # refused, always None.
     telem: Any = None
     probes: Any = None
     links: Any = None
@@ -130,9 +137,23 @@ class Ctx:
     lat_vv: torch.Tensor        # i64 [V, V]
     loss_thr_vv: torch.Tensor   # i64 [V, V] Bernoulli thresholds (≤ 2**32)
     host_vertex: torch.Tensor   # i32 [H]
+    bw_up: torch.Tensor         # i64 [H] uplink bits/s
+    bw_dn: torch.Tensor         # i64 [H] downlink bits/s
     model_cfg: dict
     hosts: torch.Tensor         # i32 [H] global host ids
     device: torch.device
+    # The reference's fidelity flags. ``check_supported`` refuses every
+    # configuration that sets one, so they are all False here; the net
+    # model reads them where the reference does.
+    has_jitter: bool = False
+    has_stop: bool = False
+    has_restart: bool = False
+    has_link_fault: bool = False
+    has_loss_ramp: bool = False
+    has_cpu: bool = False
+    has_tx_qlen: bool = False
+    has_rx_qlen: bool = False
+    has_aqm: bool = False
 
 
 def resolve_device(device=None) -> torch.device:
@@ -160,8 +181,17 @@ def check_supported(exp: CompiledExperiment, params: EngineParams) -> None:
             f"{what} is not ported yet (ROADMAP: {item})")
 
     gates = "fault plane and fidelity gates"
-    if exp.model != "phold":
-        no(f"model {exp.model!r}", "slice 2, NIC + TCP + filexfer")
+    if exp.model == "net" and exp.model_cfg.get("app") != "filexfer":
+        no(f"app {exp.model_cfg.get('app')!r}", "the other apps")
+    if exp.model not in ("phold", "net"):
+        raise ValueError(f"unknown model {exp.model!r}")
+    queues = "NIC queue bounds and RED AQM"
+    if np.asarray(exp.aqm_max_bytes).max() > 0:
+        no("aqm_max_bytes (RED AQM, has_aqm)", queues)
+    if np.asarray(exp.tx_qlen_bytes).max() > 0:
+        no("tx_queue_bytes (has_tx_qlen)", queues)
+    if np.asarray(exp.rx_qlen_bytes).max() > 0:
+        no("rx_queue_bytes (has_rx_qlen)", queues)
     if exp.faults is not None:
         no("faults:", gates)
     if (np.asarray(exp.stop_time) < NO_STOP).any():
@@ -172,12 +202,20 @@ def check_supported(exp: CompiledExperiment, params: EngineParams) -> None:
         no("network.jitter (has_jitter)", gates)
     if params.compact_cap:
         no("compact_cap", "compaction")
-    if params.metrics_ring or params.state_digest:
-        no("metrics_ring / state_digest", "digest and ring instruments")
     if params.probes or params.link_telem:
         no("probes / link_telem", "checkpoint and observability")
     if params.auto_caps or params.on_overflow != "drop":
         no("auto_caps / on_overflow other than 'drop'", "recovery planes")
+
+
+def check_digest_params(params: EngineParams) -> None:
+    """state_digest needs a telemetry ring: the per-window digest words are
+    ring columns."""
+    if params.state_digest and params.metrics_ring <= 0:
+        raise ValueError(
+            "state_digest=1 requires metrics_ring > 0 — the per-window "
+            "digest words are ring columns (CLI --state-digest sets a ring "
+            "automatically)")
 
 
 def build_base_ctx(exp: CompiledExperiment, params: EngineParams,
@@ -200,6 +238,8 @@ def build_base_ctx(exp: CompiledExperiment, params: EngineParams,
         loss_thr_vv=t(rng.prob_threshold(np.asarray(exp.loss_vv, np.float32))
                       .astype(np.int64), torch.int64),
         host_vertex=t(exp.host_vertex, torch.int32),
+        bw_up=t(exp.bw_up, torch.int64),
+        bw_dn=t(exp.bw_dn, torch.int64),
         model_cfg=exp.model_cfg,
         hosts=torch.arange(exp.n_hosts, dtype=torch.int32, device=dev),
         device=dev,
@@ -235,13 +275,20 @@ class FlatPackets(NamedTuple):
     keep: torch.Tensor     # bool [N]
 
 
+@functools.lru_cache(maxsize=None)
+def _kind_column(kinds: tuple, device: torch.device) -> torch.Tensor:
+    """The handler kinds as an i32 [K, 1] column on ``device``, copied once."""
+    return torch.tensor(kinds, dtype=torch.int32, device=device)[:, None]
+
+
 def run_round(st: SimState, ctx: Ctx, handlers: dict, win_end) -> SimState:
     """One inner round: per-host pop-min, then the handler passes.
 
     With several handler kinds, each pass runs only if some host popped its
-    kind (the reference's ``lax.cond``; here one device read per kind) and
-    counts its ``fires_*``; a single handler runs unconditionally, as in the
-    reference."""
+    kind (the reference's ``lax.cond``) and counts its ``fires_*``; which
+    kinds popped is known once the pop is done (a pass never changes the
+    popped events), so one device read serves every kind. A single handler
+    runs unconditionally, as in the reference."""
     evbuf, ev = pop_until(st.evbuf, win_end, extract=ctx.params.pop_extract)
     st = st._replace(evbuf=evbuf)
     m = st.metrics
@@ -255,11 +302,11 @@ def run_round(st: SimState, ctx: Ctx, handlers: dict, win_end) -> SimState:
         **pops,
     ))
     items = sorted(handlers.items())
-    for kind, fn in items:
-        if len(items) == 1:
-            st = fn(st, ev)
-            continue
-        present = bool((ev.mask & (ev.kind == kind)).any())
+    if len(items) == 1:
+        return items[0][1](st, ev)
+    kinds = _kind_column(tuple(k for k, _ in items), ev.kind.device)
+    popped = ((ev.kind[None, :] == kinds) & ev.mask[None, :]).any(dim=1).tolist()
+    for (kind, fn), present in zip(items, popped):
         if kind in KIND_METRIC_FIELDS:
             fires = KIND_METRIC_FIELDS[kind][1]
             m2 = st.metrics
@@ -346,30 +393,46 @@ class WindowFrame(NamedTuple):
     """The intra-window carry threaded through the ``window_phases``."""
 
     st: SimState
+    m_entry: Metrics        # metrics at window entry (ring delta baseline)
     win_end: torch.Tensor   # i64 scalar
     cap_hit: bool = False
+    dg_ob: Any = None       # i64 outbox digest word (digest runs only)
 
 
 def window_frame(st: SimState, ctx: Ctx) -> WindowFrame:
-    return WindowFrame(st=st, win_end=st.win_start + ctx.window)
+    return WindowFrame(st=st, m_entry=st.metrics,
+                       win_end=st.win_start + ctx.window)
 
 
-def window_phases(ctx: Ctx, handlers: dict):
-    """The ordered (name, frame → frame) stage list of one window."""
+def window_phases(ctx: Ctx, handlers: dict, pre_window=None):
+    """The ordered (name, frame → frame) stage list of one window.
+    ``pre_window(st, ctx, win_end)`` is the model's hook before the rounds
+    (the net model's batched NIC arrivals)."""
+    digest_on = bool(ctx.params.state_digest)
 
     def ph_prepare(fr: WindowFrame) -> WindowFrame:
-        st = fr.st
+        st, win_end = fr.st, fr.win_end
+        n_act = n_el = None
+        if pre_window is not None:
+            # Work gauges BEFORE the hook rewrites event times: the raw
+            # window-start pending set (events with time < win_end).
+            live = (st.evbuf.kind != K_NONE) & (st.evbuf.abs_time() < win_end)
+            n_act = live.any(dim=0).sum(dtype=torch.int64)
+            n_el = live.sum(dtype=torch.int64)
+            st = pre_window(st, ctx, win_end)
         # Advance the i32 pop-key epoch to this window's start and pin the
         # n_elig counters to win_end.
-        st = st._replace(evbuf=rebase(st.evbuf, st.win_start, fr.win_end))
-        # Work gauges: the just-rebased counters are the window-start
-        # pending set.
+        st = st._replace(evbuf=rebase(st.evbuf, st.win_start, win_end))
         n_active = (st.evbuf.n_elig > 0).sum(dtype=torch.int64)
-        n_el = st.evbuf.n_elig.sum(dtype=torch.int64)
+        if n_act is None:
+            # No hook: the just-rebased counters are the window-start
+            # pending set.
+            n_act = n_active
+            n_el = st.evbuf.n_elig.sum(dtype=torch.int64)
         m0 = st.metrics
         st = st._replace(metrics=m0._replace(
             compact_max_fill=torch.maximum(m0.compact_max_fill, n_active),
-            active_hosts=m0.active_hosts + n_active,
+            active_hosts=m0.active_hosts + n_act,
             elig_events=m0.elig_events + n_el,
         ))
         return fr._replace(st=st)
@@ -379,29 +442,50 @@ def window_phases(ctx: Ctx, handlers: dict):
         return fr._replace(st=st, cap_hit=cap_hit)
 
     def ph_deliver(fr: WindowFrame) -> WindowFrame:
-        return fr._replace(st=deliver_window(fr.st, ctx))
+        st, dg_ob = fr.st, fr.dg_ob
+        if digest_on and st.telem is not None:
+            # The outbox still holds this window's sends; the delivery
+            # below routes and clears it.
+            from shadow1_tpu_torch.core.digest import digest_outbox
+
+            dg_ob = digest_outbox(st.outbox, ctx.hosts)
+        return fr._replace(st=deliver_window(st, ctx), dg_ob=dg_ob)
 
     def ph_telem(fr: WindowFrame) -> WindowFrame:
         st = fr.st
+        ev_fill = evbuf_fill(st.evbuf)
         m = st.metrics
         st = st._replace(
             win_start=fr.win_end,
             metrics=m._replace(
                 windows=m.windows + 1,
                 round_cap_hits=m.round_cap_hits + int(fr.cap_hit),
-                ev_max_fill=torch.maximum(m.ev_max_fill, evbuf_fill(st.evbuf)),
+                ev_max_fill=torch.maximum(m.ev_max_fill, ev_fill),
             ),
         )
+        if st.telem is not None:
+            from shadow1_tpu_torch.telemetry.ring import ring_record
+
+            digests = None
+            if digest_on:
+                # The post-delivery window-boundary state (the outbox word
+                # was taken before the delivery).
+                from shadow1_tpu_torch.core.digest import state_digests
+
+                digests = state_digests(st, ctx, fr.dg_ob)
+            st = st._replace(telem=ring_record(st.telem, fr.m_entry,
+                                               st.metrics, ev_fill, digests))
         return fr._replace(st=st)
 
     return [("prepare", ph_prepare), ("rounds", ph_rounds),
             ("deliver", ph_deliver), ("telem", ph_telem)]
 
 
-def window_step(st: SimState, ctx: Ctx, handlers: dict) -> SimState:
+def window_step(st: SimState, ctx: Ctx, handlers: dict,
+                pre_window=None) -> SimState:
     """One conservative window: the four phases in order."""
     fr = window_frame(st, ctx)
-    for _name, fn in window_phases(ctx, handlers):
+    for _name, fn in window_phases(ctx, handlers, pre_window):
         fr = fn(fr)
     return fr.st
 
@@ -411,9 +495,11 @@ def _model_module(name: str):
         from shadow1_tpu_torch.core import phold
 
         return phold
-    raise NotImplementedError(
-        f"model {name!r} is not ported yet (ROADMAP: slice 2, NIC + TCP + "
-        "filexfer)")
+    if name == "net":
+        from shadow1_tpu_torch import net
+
+        return net
+    raise ValueError(f"unknown model {name!r}")
 
 
 class Engine:
@@ -432,6 +518,7 @@ class Engine:
         exp.validate()
         self.exp = exp
         self.params = params or EngineParams()
+        check_digest_params(self.params)
         check_supported(exp, self.params)
         self.device = resolve_device(device)
         self.window = exp.window
@@ -440,8 +527,12 @@ class Engine:
                                   window=self.window)
         self._model = _model_module(exp.model)
         self._handlers = self._model.make_handlers(self.ctx)
+        self._pre_window = getattr(self._model, "make_pre_window",
+                                   lambda c: None)(self.ctx)
 
     def init_state(self) -> SimState:
+        from shadow1_tpu_torch.telemetry.ring import ring_init
+
         dev, h = self.device, self.exp.n_hosts
         evbuf = evbuf_init(h, self.params.ev_cap, dev)
         model, evbuf, seed_over = self._model.init(self.ctx, evbuf)
@@ -453,6 +544,7 @@ class Engine:
             model=model,
             metrics=metrics._replace(ev_overflow=metrics.ev_overflow + seed_over),
             cpu_busy=torch.zeros(h, dtype=torch.int64, device=dev),
+            telem=ring_init(self.params.metrics_ring, dev),
         )
 
     def run(self, st: SimState | None = None,
@@ -464,7 +556,7 @@ class Engine:
             st = self.init_state()
         n = n_windows if n_windows is not None else self.n_windows
         for _ in range(int(n)):
-            st = window_step(st, self.ctx, self._handlers)
+            st = window_step(st, self.ctx, self._handlers, self._pre_window)
         return st
 
     @staticmethod

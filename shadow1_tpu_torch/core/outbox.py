@@ -49,6 +49,11 @@ def outbox_init(n_hosts: int, cap: int, device) -> Outbox:
     )
 
 
+def outbox_space(ob: Outbox) -> torch.Tensor:
+    """Free slots per host this window, i32 [H]."""
+    return ob.dst.shape[0] - ob.cnt
+
+
 def outbox_fill(ob: Outbox) -> torch.Tensor:
     """Occupancy gauge: this window's fill on the busiest host, i64 scalar."""
     return ob.cnt.amax().to(torch.int64)

@@ -37,28 +37,32 @@ handed over as it is; any other is converted first (``_arg``).
 Every kernel launch adds one to ``LAUNCHES[name]``, and nothing else does,
 so a run can show that its main path went through the kernels.
 
-What this slice of the port leaves out, and where it is refused — each
-refusal is a ``NotImplementedError`` whose message names the ROADMAP item
-that will add it (``core/engine.py check_supported``,
-``config/experiment.py build_experiment``, ``cli.py``, ``convert.py``):
+The port runs PHOLD and the net model with the ``filexfer`` app (NIC,
+TCP, the per-window state digests and telemetry ring). What it leaves out,
+and where it is refused — each refusal is a ``NotImplementedError`` whose
+message names the ROADMAP item that will add it (``core/engine.py
+check_supported``, ``config/experiment.py build_experiment``, ``cli.py``,
+``convert.py``):
 
-* ``model: net`` and every app but phold — "slice 2, NIC + TCP +
-  filexfer" for filexfer, "the other apps" for dgram, tgen, tor, bitcoin;
+* the apps ``dgram`` (with ``udp_send``), ``tgen``, ``tor`` and
+  ``bitcoin`` — "the other apps";
+* NIC queue bounds (``tx_queue_bytes``, ``rx_queue_bytes``: ``has_tx_qlen``,
+  ``has_rx_qlen``, and with them the per-round K_PKT handler ``on_pkt``)
+  and RED AQM (``aqm_max_bytes``, ``has_aqm``) — "NIC queue bounds and RED
+  AQM";
 * ``faults:``, host stop times (``has_stop``), the virtual CPU
   (``cpu_per_event``, ``has_cpu``) and edge jitter (``network.jitter``,
   ``has_jitter``); link faults and loss ramps come only from ``faults:`` —
   "fault plane and fidelity gates";
 * ``compact_cap`` — "compaction";
-* ``metrics_ring`` and ``state_digest`` (and a state carrying a ring) —
-  "digest and ring instruments";
 * ``probes`` / ``probes:`` and ``link_telem`` — "checkpoint and
   observability";
 * ``auto_caps`` and ``on_overflow`` other than "drop" — "recovery planes";
 * ``scheduler: sharded`` — "fleet, shard, serve".
 
 ``push_back``'s kernel is the push kernel with the original tie-break; the
-engine reaches it only under ``has_cpu``, which this slice refuses, so the
-PHOLD path launches it through ``push_local`` alone.
+engine reaches it only under ``has_cpu``, which is refused, so the PHOLD
+and net paths launch the push kernel through ``push_local`` alone.
 """
 
 from __future__ import annotations

@@ -19,13 +19,23 @@ tie-breaks near 2**62. The outbox cases cover H = 1, 33, 4096, 4097 × P =
 1, 6, 24, packet counters at and above 2**31, 2**32 and 2**33 and at
 I64_MAX, departures with low words at and above 2**31 and at I64_MAX, 0-d
 dst, kind and depart, idle 32-host tiles, full outboxes and cnt at P - 1.
+
+At the net model's shapes (C = 128 and 512 event slots, P = 64 outbox
+slots, H = 33, 4097 and 16,384 hosts) each kernel is held to its plain
+version again: pop over many 48-slot batches, with the best slot in a
+later batch and ties across batches; push into nearly full 512-slot
+buffers; the outbox at P = 64. A filexfer engine run on CUDA equals the
+same run on the CPU, its per-window digest words included.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from shadow1_tpu_torch.config.compiled import single_vertex_experiment
+from shadow1_tpu_torch.config.compiled import (
+    single_vertex_experiment,
+    tiled_filexfer_experiment,
+)
 from shadow1_tpu_torch.consts import MS, NP, EngineParams
 from shadow1_tpu_torch.core import events as ev
 from shadow1_tpu_torch.core import outbox as ob_mod
@@ -37,6 +47,7 @@ pytestmark = pytest.mark.cuda
 I64_MAX = (1 << 63) - 1
 EPOCH = 1 << 40
 SHAPES = [(h, c) for h in (1, 33, 4096, 4097) for c in (1, 7, 48, 49)]
+NET_SHAPES = [(h, c) for h in (33, 4097, 16384) for c in (128, 512)]
 
 
 @pytest.fixture
@@ -332,3 +343,74 @@ def test_engine_cuda_matches_cpu(dev):
     m_gpu = Engine.metrics_dict(gpu.run())
     assert all(n > 0 for n in popk.LAUNCHES.values()), popk.LAUNCHES
     assert m_gpu == Engine.metrics_dict(cpu.run())
+
+
+@pytest.mark.parametrize("h,c", NET_SHAPES)
+def test_pop_kernel_net_shape(dev, h, c):
+    """Many 48-slot batches: random states, then a state whose least key of
+    every host lies in the last batch, tied on t32 with slots of every
+    earlier batch and decided by the tie-break."""
+    g = np.random.default_rng(h + c)
+    buf = _random_buf(g, c, h, dev)
+    for until in (EPOCH + 30, EPOCH + 10**6):
+        for _ in range(4):
+            buf, _ = _pop_both(buf, torch.tensor(until, device=dev))
+    t32 = torch.full((c, h), 20, dtype=torch.int32, device=dev)
+    t32[::48] = 5                        # a tie in every batch
+    hi = torch.ones((c, h), dtype=torch.int32, device=dev)
+    hi[c - 1] = 0                        # the last slot wins the tie
+    lo = torch.from_numpy(g.integers(-2**31, 2**31, (c, h), dtype=np.int64)
+                          .astype(np.int32)).to(dev)
+    t32[c - 1] = 5
+    buf = buf._replace(t32=t32, tb_hi=hi, tb_lo=lo,
+                       kind=torch.ones((c, h), dtype=torch.int32, device=dev))
+    _, out = _pop_both(buf, torch.tensor(EPOCH + 30, device=dev))
+    assert bool(out.mask.all())
+    assert torch.equal(out.tb, (lo[c - 1].to(torch.int64) + 2**31))
+
+
+@pytest.mark.parametrize("h,c", NET_SHAPES)
+def test_push_kernel_net_shape(dev, h, c):
+    g = np.random.default_rng(h + c + 1)
+    buf = _random_buf(g, c, h, dev, fill=0.995)
+    over = 0
+    for _ in range(4):
+        rows = _push_rows(g, h, dev)
+        want = popk.push_local_plain(buf, *rows)
+        _equal(want, popk.push_local(_clone(buf), *rows))
+        over += int(want[1].sum())
+        buf = want[0]
+    assert over > 0
+
+
+@pytest.mark.parametrize("h", [33, 4097, 16384])
+def test_obox_kernel_net_shape(dev, h):
+    g = np.random.default_rng(h + 3)
+    ob = _outbox(g, h, 64, dev)
+    for step in range(4):
+        rows = _obox_rows(g, h, step, dev)
+        want = popk.outbox_append_plain(ob, *rows)
+        _equal(want, popk.outbox_append(_clone(ob), *rows))
+        ob = want[0]
+
+
+def test_filexfer_cuda_matches_cpu(dev):
+    """Four groups of the filexfer16k layout with 2 % loss: metrics, the
+    summary and every ring row (digest words included) on CUDA equal the
+    CPU's, and every kernel launched."""
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+
+    exp = tiled_filexfer_experiment(4, seed=42, end_time=12 * 40 * MS,
+                                    loss=0.02)
+    params = EngineParams(ev_cap=512, metrics_ring=12, state_digest=1)
+    runs = []
+    for d in ("cpu", dev):
+        eng = Engine(exp, params, device=d)
+        for k in popk.LAUNCHES:
+            popk.LAUNCHES[k] = 0
+        st = eng.run()
+        runs.append((Engine.metrics_dict(st), drain_ring(st, eng.window),
+                     {k: v.tolist() for k, v in eng.model_summary(st).items()}))
+    assert all(n > 0 for n in popk.LAUNCHES.values()), popk.LAUNCHES
+    assert runs[0][0]["events"] > 0 and runs[0][0]["pops_deliver"] > 0
+    assert runs[1] == runs[0]

@@ -164,7 +164,8 @@ def _unsupported(kind: str):
         doc["faults"] = {"hosts": [{"group": "h", "down_at": "50 ms",
                                     "up_at": "100 ms"}]}
     elif kind == "ring":
-        doc = _doc("serve_phold.yaml")
+        # A NIC queue bound (the ring and digest knobs run since slice 2).
+        doc["hosts"][0]["tx_queue_bytes"] = 30000
     elif kind == "compact":
         doc["engine"]["compact_cap"] = 16
     elif kind == "cpu":
@@ -181,11 +182,35 @@ def _unsupported(kind: str):
 def test_unsupported_configs_fail_loudly(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if kind == "net":
+            # An app the port does not run yet (filexfer runs since slice 2).
             exp, params, _ = xt.load_experiment(
-                str(ROOT / "configs" / "rung1_filexfer.yaml"))
+                str(ROOT / "configs" / "rung2_tgen100.yaml"))
         else:
             exp, params, _ = xt.build_experiment(_unsupported(kind))
         EngineT(exp, params, device="cpu")
+
+
+def test_serve_phold_ring_and_digests_match_jax():
+    """serve_phold.yaml with its own metrics_ring and state_digest knobs:
+    the port's ring rows — counter deltas, gauges and the per-window digest
+    words — equal the JAX engine's, window by window."""
+    from shadow1_tpu.telemetry.ring import drain_ring as drain_j
+    from shadow1_tpu_torch.telemetry.ring import drain_ring as drain_t
+
+    doc = _doc("serve_phold.yaml")
+    assert doc["engine"]["metrics_ring"] and doc["engine"]["state_digest"]
+    exp_j, par_j, _ = xj.build_experiment(copy.deepcopy(doc))
+    exp_t, par_t, _ = xt.build_experiment(copy.deepcopy(doc))
+    eng_j = EngineJ(exp_j, par_j)
+    st_j = eng_j.run()
+    eng_t = EngineT(exp_t, par_t, device="cpu")
+    st_t = eng_t.run()
+    assert EngineT.metrics_dict(st_t) == EngineJ.metrics_dict(st_j)
+    rows_j = drain_j(st_j, exp_j.window, start=eng_j.n_windows - par_j.metrics_ring)
+    rows_t = drain_t(st_t, exp_t.window, start=eng_t.n_windows - par_t.metrics_ring)
+    assert len(rows_t) == par_t.metrics_ring and rows_t == rows_j
+    assert all(r["dg_evbuf"] and r["dg_rng"] for r in rows_t)
+    assert all(r["dg_tcp"] == r["dg_nic"] == 0 for r in rows_t)
 
 
 def test_port_imports_no_jax():
