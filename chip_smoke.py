@@ -54,7 +54,20 @@ fails:
    ``tcp.outbox_append``) keeps, in one mid-run window, the arguments of a
    busy, a middling and a sparse round (for push and the outbox the call
    of the round that masks the most hosts); on each the kernel must equal
-   its plain version, timed with a cold L2 against that data's byte bound.
+   its plain version, timed with a cold L2 against that data's byte bound;
+9. the app slice, built in code from the goldens as in phase 7 and held
+   to them the same way: ``tgen50k`` (``configs/dense_tgen50k.yaml`` at
+   its full width, 50,000 hosts, 20 windows), ``rung2``
+   (``configs/rung2_tgen100.yaml``, 150 windows) with compaction off and
+   again with ``compact_cap`` 48 (windows on both sides of the bucket
+   must run), ``tor10k`` (``configs/rung4_tor10k.yaml`` at its full
+   width, 10,000 hosts, ``compact_cap`` 1280, 40 windows) and ``dgram4k``
+   (a 4,096-host datagram ring with 1 % loss, 20 windows). Each run must
+   launch every kernel;
+10. the kernels at tor10k's bucket shape (C = 256, P = 64, H = 1,280) as in
+   phase 3 (run right after phase 6), and on the arguments that the
+   compacted tor10k rounds of window ``TOR_PATH_WINDOW`` hand them, as in
+   phase 8 (after phase 9).
 
 Each phase's wall time is printed. It then prints a ``{"kernels": [...]}``
 line, the card's name and power limit, and last ``{"ok": true, "device":
@@ -88,6 +101,8 @@ DESIGN = {"pop": "pr2", "push": "pr2", "obox": "pr3"}
 # module's C, P, H; ``use_shape`` sets them.
 BENCH_SHAPE = (48, 24, 65536)
 NET_SHAPE = (512, 64, 16384)
+# tor10k's compacted bucket: ev_cap 256, outbox_cap 64, compact_cap 1280.
+TOR_SHAPE = (256, 64, 1280)
 C, P, H = BENCH_SHAPE
 I32_FREE = 2**31 - 1
 I32_PASTDUE = -(2**31 - 2)
@@ -100,11 +115,23 @@ PATH_WINDOW, PATH_ROUNDS = 10, (5, 8, 11)
 # The net in-path phase keeps three rounds of this window of filexfer16k
 # (of 20; flows are in full swing, and the first finish in window 14).
 NET_PATH_WINDOW = 12
+# The Tor in-path phase keeps three rounds of this window of tor10k (of
+# 40; clients start from window 6 on, and cells flow from window 32).
+TOR_PATH_WINDOW = 36
+# The tgen, dgram and Tor runs of phase 9, in order; rung2 runs once per
+# compact_cap its golden lists.
+APP_RUNS = ("tgen50k", "rung2", "tor10k", "dgram4k")
 
 
 def use_shape(shape) -> None:
     global C, P, H
     C, P, H = shape
+
+
+def idle_hosts() -> int:
+    """The edge cases' idle prefix: 4,096 hosts (128 whole 32-host tiles),
+    or at a narrower shape the whole tiles of its first half."""
+    return min(4096, H // 2 // 32 * 32)
 
 
 def log(msg: str) -> None:
@@ -246,22 +273,24 @@ def time_ms(fn, reset, *, reps=20, inner=10) -> float:
     return total / (reps * inner)
 
 
-def device_ops(run, attempts: int = 3) -> list:
+def device_ops(run, attempts: int = 6) -> list:
     """(name, count, device µs) of each device operation that
     ``torch.profiler`` (CUPTI) records while ``run()`` runs; ``run`` ends
-    with a synchronise, and is padded with 20 ms of idle on each side, so
-    that no launch sits at an edge of the capture window. CUPTI now and
-    then hands back fewer device records than the run made (once none at
-    all, once 3 and then 2 of 5; the cause is not known): a trace with
-    none is taken again here, up to ``attempts`` times, and callers that
-    count launches allow for a short one."""
+    with a synchronise, and is padded with idle on each side (20 ms,
+    doubled at each new attempt), so that no launch sits at an edge of the
+    capture window. CUPTI now and then hands back fewer device records
+    than the run made (once none at all, once 3 and then 2 of 5, once none
+    in three traces in a row; the cause is not known): a trace with none
+    is taken again here, up to ``attempts`` times, and callers that count
+    launches allow for a short one."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(attempts):
+    for i in range(attempts):
+        pad = 0.02 * 2**i
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.02)
+            time.sleep(pad)
             run()
-            time.sleep(0.02)
+            time.sleep(pad)
         ops = [(e.key, e.count, e.self_device_time_total)
                for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA") and e.count > 0]
@@ -271,7 +300,8 @@ def device_ops(run, attempts: int = 3) -> list:
                          f"{attempts} traces")
 
 
-def device_ms(fn, reset, *, kernel: str, reps=20, inner=10) -> float:
+def device_ms(fn, reset, *, kernel: str, reps=20, inner=10,
+              attempts=3) -> float:
     """Device time per launch of the kernel whose name holds ``kernel``
     while ``fn()`` runs, from ``torch.profiler`` (CUPTI): host launch gaps
     do not count, nor does what ``reset()`` launches."""
@@ -287,16 +317,22 @@ def device_ms(fn, reset, *, kernel: str, reps=20, inner=10) -> float:
 
     fn()
     torch.cuda.synchronize()
-    total_us, n = 0.0, 0
-    for name, count, us in device_ops(run):
-        if kernel in name:
-            total_us += us
-            n += count
-    # CUPTI now and then drops an activity record: average over the
-    # launches it saw, and require nearly all of them.
-    require(0.9 * reps * inner <= n <= reps * inner,
-            f"profiler saw {n} {kernel} launches, expected {reps * inner}")
-    return total_us / n / 1e3
+    seen = []
+    for _ in range(attempts):
+        total_us, n = 0.0, 0
+        for name, count, us in device_ops(run):
+            if kernel in name:
+                total_us += us
+                n += count
+        # CUPTI drops activity records: now and then one, and, once the
+        # process has run a large simulation, three or four in every trace
+        # whatever its length. Average over the launches it saw, require
+        # nearly all of them, and take a trace that saw fewer again.
+        if 0.9 * reps * inner <= n <= reps * inner:
+            return total_us / n / 1e3
+        seen.append(n)
+    raise AssertionError(f"profiler saw {seen} {kernel} launches in "
+                         f"{attempts} traces, expected {reps * inner}")
 
 
 def restore(dst, src, flush=None):
@@ -545,7 +581,7 @@ def check_pop(g, dev) -> dict:
 def _push_rows(g, dev, mask_p, *, edge=False):
     """mask, time, kind, payload rows. ``edge``: 10 % of times at I64_MAX,
     10 % past due by more than 2**31 against an epoch of 2**40, and the
-    first 4,096 hosts (128 whole 32-host tiles) idle."""
+    first ``idle_hosts()`` hosts (whole 32-host tiles) idle."""
     import numpy as np
     import torch
 
@@ -554,7 +590,7 @@ def _push_rows(g, dev, mask_p, *, edge=False):
     mask = g.random(H) < mask_p
     time_ = 10**9 + g.integers(0, 5000, H)
     if edge:
-        mask[:4096] = False
+        mask[:idle_hosts()] = False
         time_ = 2**40 + g.integers(-5000, 5000, H)
         r = g.random(H)
         time_[r < 0.1] = I64_MAX
@@ -607,7 +643,7 @@ def check_push(g, dev) -> dict:
 
 def _obox_rows(g, dev, *, edge=False, scalar=False):
     """mask, dst, kind, depart, payload for outbox_append. ``edge``: the
-    first 4,096 hosts (128 whole 32-host tiles) idle; departures at
+    first ``idle_hosts()`` hosts (whole 32-host tiles) idle; departures at
     I64_MAX, at low word 2**31, and with low words just below 2**32 (up to
     5,000 ns, and 2**33 ns, before 2**40). ``scalar``: 0-d dst and kind."""
     import numpy as np
@@ -641,7 +677,8 @@ def check_obox(g, dev) -> dict:
         if case == "full outbox":
             require(not bool(got[1].any()), "obox: a full outbox takes nothing")
         if case.startswith("edge"):
-            require(not bool(got[1][:4096].any()) and bool(got[1].any()),
+            require(not bool(got[1][:idle_hosts()].any())
+                    and bool(got[1].any()),
                     f"obox[{case}]: idle tiles appended, or nothing did")
             # The counter's wrap and departure low words >= 2**31 appended.
             ok, lo = got[1], rows[3] & 0xFFFFFFFF
@@ -724,8 +761,8 @@ def net_experiment(name: str, gold: dict):
     from shadow1_tpu_torch.config import compiled as ct
 
     if "build" in gold:
-        exp = ct.tiled_filexfer_experiment(
-            **gold["build"]["tiled_filexfer_experiment"])
+        (builder, kwargs), = gold["build"].items()
+        exp = getattr(ct, builder)(**kwargs)
     else:
         exp = ct.experiment_from_arrays(gold["experiment"])
     sha = hashlib.sha256(json.dumps(ct.experiment_arrays(exp),
@@ -735,16 +772,28 @@ def net_experiment(name: str, gold: dict):
     return exp
 
 
-def run_net_golden(name: str, dev, *, count: bool = False) -> dict:
-    """Run a net golden's experiment with state_digest=1 through
-    Engine(device=dev) and compare: every digest word (the first differing
-    (window, subsystem) is named), every Metrics field, the summary totals
-    and the SHA-256 of each per-host summary array."""
-    import numpy as np
+def sync(dev) -> None:
     import torch
 
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_net_golden(name: str, dev, *, count: bool = False,
+                   compact_cap: int | None = None) -> dict:
+    """Run a net golden's experiment with state_digest=1 through
+    Engine(device=dev) and compare: every digest word (the first differing
+    (window, subsystem) is named), every Metrics field, the summary
+    entries (each summed over hosts) and the SHA-256 of each per-host
+    summary array. ``compact_cap`` overrides the golden's (compaction is
+    bit-identical, so one golden serves both); the windows each branch of
+    ``compact_window_rounds`` ran are returned."""
+    import dataclasses
+
+    import numpy as np
+
     from shadow1_tpu_torch.consts import EngineParams
-    from shadow1_tpu_torch.core import popk
+    from shadow1_tpu_torch.core import compact, popk
     from shadow1_tpu_torch.core.engine import Engine
     from shadow1_tpu_torch.telemetry.ring import drain_ring
 
@@ -753,15 +802,19 @@ def run_net_golden(name: str, dev, *, count: bool = False) -> dict:
     windows = gold["windows"]
     params = EngineParams(**gold["params"], metrics_ring=windows,
                           state_digest=1)
+    if compact_cap is not None:
+        params = dataclasses.replace(params, compact_cap=compact_cap)
     eng = Engine(exp, params, device=dev)
-    torch.cuda.synchronize()
+    sync(dev)
     if count:
         for k in popk.LAUNCHES:
             popk.LAUNCHES[k] = 0
+    for k in compact.WINDOWS:
+        compact.WINDOWS[k] = 0
     t0 = time.perf_counter()
     st = eng.run(n_windows=windows)
     metrics = Engine.metrics_dict(st)
-    torch.cuda.synchronize()
+    sync(dev)
     wall = time.perf_counter() - t0
     launches = dict(popk.LAUNCHES) if count else None
     fields = gold["digest_fields"]
@@ -779,11 +832,10 @@ def run_net_golden(name: str, dev, *, count: bool = False) -> dict:
     require(not diff and set(metrics) == set(gold["metrics"]),
             f"{name}: metrics differ from the JAX golden (golden, port): "
             f"{diff}")
+    for k in ("ev_overflow", "ob_overflow", "round_cap_hits"):
+        require(metrics[k] == 0, f"{name}: {k} = {metrics[k]}")
     summ = eng.model_summary(st)
-    got = {"total_rx_bytes": int(summ["total_rx_bytes"]),
-           "total_flows_done": int(summ["total_flows_done"]),
-           "nic_tx_bytes": int(summ["nic_tx_bytes"].sum()),
-           "nic_rx_bytes": int(summ["nic_rx_bytes"].sum())}
+    got = {k: int(np.asarray(summ[k]).sum()) for k in gold["summary"]}
     require(got == gold["summary"], f"{name}: summary {got} differs from "
             f"the JAX golden's {gold['summary']}")
     for k, want in gold["sha256"].items():
@@ -791,24 +843,28 @@ def run_net_golden(name: str, dev, *, count: bool = False) -> dict:
         require(h == want, f"{name}: per-host {k} differs from the golden")
     return dict(wall_s=wall, events=metrics["events"],
                 rounds=metrics["rounds"], windows=metrics["windows"],
-                hosts=exp.n_hosts, launches=launches)
+                hosts=exp.n_hosts, launches=launches,
+                compact_windows=dict(compact.WINDOWS), summary=got)
 
 
 class NetPathCapture:
     """Hooks around the net path's call sites of the kernels' wrappers:
     ``engine.pop_until``, ``popk.push_local`` (``engine.push_local_event``
     imports it at each call, so TCP timers, transmit resumes and app
-    wakeups all pass here) and ``tcp.outbox_append`` (every TCP segment).
-    In window ``NET_PATH_WINDOW`` every round's pop arguments are cloned
-    before the call, and so are the push and outbox arguments of the
-    round's call that masks the most hosts; when a round ends it is kept
-    if it is the busiest so far (most hosts popped), the sparsest with any
-    pop, or the closest to half the busiest. Calls pass through unchanged."""
+    wakeups all pass here) and ``tcp.outbox_append`` (every TCP segment),
+    and around ``engine.window_frame``, which counts the windows. In
+    window ``window`` every round's pop arguments are cloned before the
+    call, and so are the push and outbox arguments of the round's call
+    that masks the most hosts; when a round ends it is kept if it is the
+    busiest so far (most hosts popped), the sparsest with any pop, or the
+    closest to half the busiest. Calls pass through unchanged; under
+    compaction they see the bucket's planes."""
 
-    def __init__(self):
+    def __init__(self, window: int = NET_PATH_WINDOW):
+        self.path_window = window
         self.kept = {}
         self.cur = None
-        self._until, self._window = None, -1
+        self._window = -1
         self._saved = []
 
     def _end_round(self):
@@ -852,12 +908,18 @@ class NetPathCapture:
         from shadow1_tpu_torch.tcp import tcp
 
         pop, push, obox = engine.pop_until, popk.push_local, tcp.outbox_append
+        frame = engine.window_frame
+
+        def frame_hook(st, ctx):
+            # One call per window, rounds or none (tor10k's first windows
+            # have no event).
+            self._end_round()
+            self._window += 1
+            return frame(st, ctx)
 
         def pop_hook(buf, until, extract="sum"):
             self._end_round()
-            if until is not self._until:  # win_end: one tensor per window
-                self._until, self._window = until, self._window + 1
-            if self._window != NET_PATH_WINDOW:
+            if self._window != self.path_window:
                 return pop(buf, until, extract)
             args = self._clone_args((buf, until))
             out = pop(buf, until, extract)
@@ -873,9 +935,10 @@ class NetPathCapture:
             return obox(ob, mask, dst, kind, depart, p)
 
         self._saved = [(engine, "pop_until", pop), (popk, "push_local", push),
-                       (tcp, "outbox_append", obox)]
+                       (tcp, "outbox_append", obox),
+                       (engine, "window_frame", frame)]
         engine.pop_until, popk.push_local = pop_hook, push_hook
-        tcp.outbox_append = obox_hook
+        tcp.outbox_append, engine.window_frame = obox_hook, frame_hook
         return self
 
     def __exit__(self, *exc):
@@ -978,7 +1041,7 @@ def check_path(name: str, cases, dev, flush, expect=len(PATH_ROUNDS)) -> dict:
         saved = [x.clone() for x in planes]
         call = (lambda w=work, a=args: wrapper(w, *a[1:]))
         ms.append(device_ms(call, restore(planes, saved, flush),
-                            kernel=f"{name}_kernel", reps=30, inner=1))
+                            kernel=f"{name}_kernel", reps=120, inner=1))
         restore(planes, saved)()
         wrap_ms.append(time_ms(call, restore(planes, saved)))
     n = len(cases)
@@ -1097,6 +1160,15 @@ def main() -> int:
     phase_done("kernels at net shape", t0)
 
     t0 = time.perf_counter()
+    use_shape(TOR_SHAPE)
+    tor_checks = {"pop": check_pop(g, dev), "push": check_push(g, dev),
+                  "obox": check_obox(g, dev)}
+    use_shape(BENCH_SHAPE)
+    for name, r in tor_checks.items():
+        report_kernel(name, r, "Tor bucket")
+    phase_done("kernels at Tor bucket shape", t0)
+
+    t0 = time.perf_counter()
     net = run_net_golden("filexfer16k", dev, count=True)
     log(f"net slice filexfer16k ({net['hosts']} hosts): {net['events']} "
         f"events, {net['rounds']} rounds, {net['windows']} windows in "
@@ -1128,11 +1200,47 @@ def main() -> int:
     del ncap, flush
     phase_done("net path", t0)
 
+    t0 = time.perf_counter()
+    apps = {}
+    for name in APP_RUNS:
+        for cap in net_golden(name).get("compact_caps", [None]):
+            label = name if not cap else f"{name}/compact{cap}"
+            r = apps[label] = run_net_golden(name, dev, count=True,
+                                             compact_cap=cap)
+            missing = [k for k, n in r["launches"].items() if n <= 0]
+            require(not missing, f"{label}: kernels not launched: {missing}")
+            log(f"app slice {label} ({r['hosts']} hosts): {r['events']} "
+                f"events, {r['rounds']} rounds, {r['windows']} windows in "
+                f"{r['wall_s']:.3f} s = {r['wall_s'] / r['rounds'] * 1e3:.2f}"
+                f" ms/round, {r['events'] / r['wall_s']:.0f} events/s on "
+                f"{card}; launches {r['launches']}; compaction windows "
+                f"{r['compact_windows']}; equal to the JAX golden")
+    both = apps["rung2/compact48"]["compact_windows"]
+    require(both["compact"] > 0 and both["full"] > 0,
+            f"rung2 with compact_cap 48 ran one branch only: {both}")
+    require(apps["tor10k"]["compact_windows"]["compact"] > 0,
+            "tor10k ran no compacted window")
+    tor = apps["tor10k"]
+    phase_done("app slice", t0)
+
+    t0 = time.perf_counter()
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    with NetPathCapture(TOR_PATH_WINDOW) as tcap:
+        run_net_golden("tor10k", dev)
+    log(f"Tor path: kept rounds of window {TOR_PATH_WINDOW} with "
+        f"{tcap.actives()} popping hosts")
+    for name, r in tor_checks.items():
+        r.update(check_path(name, tcap.cases(name), dev, flush, expect=(1, 3)))
+        report_path(name, r, f"Tor path (window {TOR_PATH_WINDOW})")
+    del tcap, flush
+    phase_done("Tor path", t0)
+
     kernels = []
     for name, r in checks.items():
         n = net_checks[name]
+        tk = tor_checks[name]
         err = max(r["max_abs_err"], r["path_err"], n["max_abs_err"],
-                  n["path_err"])
+                  n["path_err"], tk["max_abs_err"], tk["path_err"])
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "design": DESIGN[name],
@@ -1156,6 +1264,15 @@ def main() -> int:
             "net_path_bound_us": n["path_bound_ms"] * 1e3,
             "net_path_case_us": [x * 1e3 for x in n["path_case_ms"]],
             "net_path_active": n["path_active"],
+            "tor_launches": tor["launches"][name],
+            "tor_launches_per_round": tor["launches"][name] / tor["rounds"],
+            "tor_us": tk["ms"] * 1e3, "tor_plain_us": tk["plain_ms"] * 1e3,
+            "tor_bound_us": tk["bound_ms"] * 1e3,
+            "tor_path_us": tk["path_ms"] * 1e3,
+            "tor_path_bound_us": tk["path_bound_ms"] * 1e3,
+            "tor_path_case_us": [x * 1e3 for x in tk["path_case_ms"]],
+            "tor_path_active": tk["path_active"],
+            "app_launches": {k: a["launches"][name] for k, a in apps.items()},
         })
     log(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f"; total {time.perf_counter() - t_start:.1f} s")

@@ -212,6 +212,100 @@ def tiled_filexfer_experiment(n_groups: int, seed: int, end_time: int, *,
     )
 
 
+def tgen_experiment(n_hosts: int, seed: int, end_time: int, *,
+                    latency_ns: int, bw_bits: int, streams: int,
+                    mean_bytes: float, mean_think_ns: float, start_time: int,
+                    fixed_size: bool = False) -> CompiledExperiment:
+    """An all-active tgen mesh on one vertex, built in code: the layout of
+    ``configs/rung2_tgen100.yaml`` and ``configs/dense_tgen50k.yaml`` (one
+    host group, every host a client and a server), with the per-host app
+    arrays in the dtypes the YAML loader gives."""
+    cfg = {} if not fixed_size else {"fixed_size": True}
+    cfg.update({
+        "active": np.ones(n_hosts, np.int64),
+        "streams": np.full(n_hosts, streams, np.int64),
+        "mean_bytes": np.full(n_hosts, mean_bytes, np.float64),
+        "mean_think_ns": np.full(n_hosts, mean_think_ns, np.float64),
+        "start_time": np.full(n_hosts, start_time, np.int64),
+        "app": "tgen",
+    })
+    return single_vertex_experiment(
+        n_hosts=n_hosts, seed=seed, end_time=end_time, latency_ns=latency_ns,
+        bw_bits=bw_bits, model="net", model_cfg=cfg)
+
+
+# The consensus weights of configs/rung3_tor1k.yaml and
+# configs/rung4_tor10k.yaml (guard, middle, exit) and their cell cap.
+_TOR_WEIGHTS = (300, 200, 250)
+_TOR_CELLS_MAX = 120
+
+
+def tor_experiment(*, n_guard: int, n_middle: int, n_exit: int,
+                   n_dirauth: int, n_client: int, seed: int, end_time: int,
+                   latency_ns: int, relay_bw: int, client_bw: int,
+                   n_circuits: int, n_streams: int, mean_stream_cells: float,
+                   mean_think_ns: float, start_time: int,
+                   client_interval: int = 0,
+                   ct_cap: int = 64) -> CompiledExperiment:
+    """A Tor network on one vertex, built in code: the host groups of
+    ``configs/rung3_tor1k.yaml`` and ``configs/rung4_tor10k.yaml`` in
+    their order — guards, middles, exits (relays, with the consensus
+    weights ``_TOR_WEIGHTS`` of each kind), dirauths (relay bandwidth) and
+    clients (``client_bw``; client i starts at ``start_time + i ·
+    client_interval``). Per-host arrays in the dtypes the YAML loader
+    gives."""
+    counts = (n_guard, n_middle, n_exit, n_dirauth, n_client)
+    h = sum(counts)
+    kind = np.repeat(np.arange(5), counts)     # guard middle exit dir client
+    relay, client = kind <= 2, kind == 4
+    i64 = np.int64
+    start = np.full(h, start_time, i64)
+    start[client] += np.arange(n_client, dtype=i64) * client_interval
+    weight = np.zeros(h, i64)
+    weight[relay] = np.asarray(_TOR_WEIGHTS, i64)[kind[relay]]
+    bw = np.where(client, client_bw, relay_bw).astype(i64)
+    cfg = {
+        "ct_cap": ct_cap, "cells_max": _TOR_CELLS_MAX,
+        "role": np.select([relay, kind == 3, client], [0, 2, 1], 3).astype(i64),
+        "relay_weight": weight,
+        "is_guard": kind == 0,
+        "is_exit": kind == 2,
+        "n_circuits": np.where(client, n_circuits, 0).astype(i64),
+        "n_streams": np.where(client, n_streams, 0).astype(i64),
+        "mean_stream_cells": np.full(h, mean_stream_cells, np.float64),
+        "mean_think_ns": np.full(h, mean_think_ns, np.float64),
+        "start_time": start,
+        "app": "tor",
+    }
+    return CompiledExperiment(
+        n_hosts=h, seed=seed, end_time=end_time,
+        lat_vv=np.full((1, 1), latency_ns, i64),
+        loss_vv=np.zeros((1, 1), np.float32),
+        host_vertex=np.zeros(h, np.int32), bw_up=bw, bw_dn=bw.copy(),
+        model="net", model_cfg=cfg)
+
+
+def dgram_ring_experiment(n_hosts: int, seed: int, end_time: int, *,
+                          latency_ns: int, loss: float, payload: int,
+                          interval: int, count: int,
+                          start_time: int) -> CompiledExperiment:
+    """A dgram ring on one vertex, built in code: host h sends ``count``
+    datagrams of ``payload`` bytes, one every ``interval`` ns from
+    ``start_time``, to host (h + 1) mod H, over a path that loses ``loss``
+    of its packets."""
+    i64 = np.int64
+    return single_vertex_experiment(
+        n_hosts=n_hosts, seed=seed, end_time=end_time, latency_ns=latency_ns,
+        loss=loss, model="net", model_cfg={
+            "dst": (np.arange(n_hosts, dtype=i64) + 1) % n_hosts,
+            "payload": np.full(n_hosts, payload, i64),
+            "interval": np.full(n_hosts, interval, i64),
+            "count": np.full(n_hosts, count, i64),
+            "start_time": np.full(n_hosts, start_time, i64),
+            "app": "dgram",
+        })
+
+
 # The arrays of a CompiledExperiment that define a net-model run, in the
 # order ``experiment_arrays`` lists them.
 _ARRAY_FIELDS = ("lat_vv", "loss_vv", "host_vertex", "bw_up", "bw_dn")
@@ -221,18 +315,33 @@ def experiment_arrays(exp: CompiledExperiment) -> dict:
     """A JSON-ready record of ``exp`` (no faults, no fidelity knobs):
     scalars, the topology and bandwidth arrays and the per-host app
     arrays, each with its dtype, so ``experiment_from_arrays`` rebuilds
-    the same experiment on a machine that has neither YAML nor GraphML."""
+    the same experiment on a machine that has neither YAML nor GraphML.
+
+    ``model_cfg`` scalars (str, bool, int, float: ``app``, tgen's
+    ``fixed_size``, Tor's ``ct_cap`` and ``cells_max``) pass as they are,
+    arrays (bool ones too) with their dtype. Keys that start with ``_``
+    are caches a model memoized into the dict (the reference's Tor keeps
+    its path tables under ``_tor_tables``): derived, so left out. Any
+    other value is refused."""
     def arr(a):
         a = np.asarray(a)
         return {"dtype": str(a.dtype), "shape": list(a.shape),
                 "data": a.ravel().tolist()}
 
+    def cfg_value(k, v):
+        if isinstance(v, (str, bool, int, float)):
+            return v
+        if isinstance(v, np.ndarray):
+            return arr(v)
+        raise TypeError(f"model_cfg[{k!r}]: {type(v).__name__} is neither "
+                        "a scalar nor an array")
+
     return {
         "n_hosts": exp.n_hosts, "seed": exp.seed, "end_time": exp.end_time,
         "model": exp.model,
         "arrays": {f: arr(getattr(exp, f)) for f in _ARRAY_FIELDS},
-        "model_cfg": {k: (v if isinstance(v, (str, int, float)) else arr(v))
-                      for k, v in exp.model_cfg.items()},
+        "model_cfg": {k: cfg_value(k, v) for k, v in exp.model_cfg.items()
+                      if not k.startswith("_")},
     }
 
 

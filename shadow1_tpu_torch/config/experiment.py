@@ -19,9 +19,10 @@ each schema parameter takes its ``defaults:`` value, then each host group's
 Sections this slice of the port does not run fail loudly with a
 ``NotImplementedError`` naming the ROADMAP item that adds them: ``faults:``
 (fault plane and fidelity gates), ``probes:`` (checkpoint and
-observability) and the apps ``dgram``, ``tgen``, ``tor`` and ``bitcoin``
-(the other apps). ``sweep:`` runs the base experiment, as a solo run of the
-reference does.
+observability) and the app ``bitcoin`` (the other apps). The ``params:``
+scalars (``fixed_size`` for tgen, ``ct_cap``, ``cells_max`` and
+``consensus_bytes`` for Tor) pass through into ``model_cfg`` as written.
+``sweep:`` runs the base experiment, as a solo run of the reference does.
 """
 
 from __future__ import annotations
@@ -76,9 +77,34 @@ _APP_PARAMS: dict[str, dict[str, tuple]] = {
         "start_time": (np.int64, 0, parse_time_ns),
         "flow_count": (np.int64, 0, None),
     },
+    "dgram": {
+        "dst": (np.int64, 0, None),
+        "payload": (np.int64, 0, None),
+        "interval": (np.int64, 0, parse_time_ns),
+        "count": (np.int64, 0, None),
+        "start_time": (np.int64, 0, parse_time_ns),
+    },
+    "tgen": {
+        "active": (np.int64, 0, None),
+        "streams": (np.int64, 0, None),
+        "mean_bytes": (np.float64, 0.0, None),
+        "mean_think_ns": (np.float64, 0.0, parse_time_ns),
+        "start_time": (np.int64, 0, parse_time_ns),
+    },
+    "tor": {
+        "role": (np.int64, 3, None),
+        "relay_weight": (np.int64, 0, None),
+        "is_guard": (bool, False, None),
+        "is_exit": (bool, False, None),
+        "n_circuits": (np.int64, 0, None),
+        "n_streams": (np.int64, 0, None),
+        "mean_stream_cells": (np.float64, 0.0, None),
+        "mean_think_ns": (np.float64, 0.0, parse_time_ns),
+        "start_time": (np.int64, 0, parse_time_ns),
+    },
     "phold": {},
 }
-_OTHER_APPS = ("dgram", "tgen", "tor", "bitcoin")
+_OTHER_APPS = ("bitcoin",)
 
 
 def _per_host_array(name, dtype, default, parser, groups, defaults,

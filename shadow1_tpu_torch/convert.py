@@ -13,9 +13,10 @@ names, leaf shapes and dtypes — so a state converts leaf by leaf:
 The tree is read by field name (NamedTuples) and key (the net model's
 TCP and app dicts), so this module needs nothing of the JAX package. A
 state carries PHOLD's or the net model's state (NIC rows, the TCP dict of
-``[S, H]`` and ``[Q, S, H]`` planes, the filexfer dict) and the telemetry
-ring; states that carry the probe ring or the link accumulator are
-refused: this slice does not run them.
+``[S, H]`` and ``[Q, S, H]`` planes, the app's dict — filexfer, tgen,
+dgram or Tor, whose ``[ct_cap, H]`` circuit tables ride as leaves too)
+and the telemetry ring; states that carry the probe ring or the link
+accumulator are refused: the port does not run them.
 """
 
 from __future__ import annotations

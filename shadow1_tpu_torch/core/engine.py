@@ -15,8 +15,8 @@ words). The JAX engine runs them as one jitted program; here they are eager
 PyTorch, the windows and rounds are Python loops, and every ``lax.cond`` /
 ``while_loop`` test of the reference is one flag read back from the device:
 per round the continue test (``any_eligible``) and one read of which
-handler kinds popped, plus the model's own (``tcp/tcp.py``,
-``apps/filexfer.py``).
+handler kinds popped, plus the model's own (``tcp/tcp.py``, ``apps/*``);
+with ``compact_cap`` one more per window (``core/compact.py``).
 
 Module and function names follow the reference so each counterpart is found
 under the same name. Parts of the reference this slice does not run raise
@@ -142,6 +142,9 @@ class Ctx:
     model_cfg: dict
     hosts: torch.Tensor         # i32 [H] global host ids
     device: torch.device
+    # An app's static tables that are not per-host (Tor's path tables),
+    # set by the net model's make_handlers on the ctx its handlers see.
+    app_tables: Any = None
     # The reference's fidelity flags. ``check_supported`` refuses every
     # configuration that sets one, so they are all False here; the net
     # model reads them where the reference does.
@@ -180,8 +183,10 @@ def check_supported(exp: CompiledExperiment, params: EngineParams) -> None:
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP: {item})")
 
+    from shadow1_tpu_torch.net import APPS
+
     gates = "fault plane and fidelity gates"
-    if exp.model == "net" and exp.model_cfg.get("app") != "filexfer":
+    if exp.model == "net" and exp.model_cfg.get("app") not in APPS:
         no(f"app {exp.model_cfg.get('app')!r}", "the other apps")
     if exp.model not in ("phold", "net"):
         raise ValueError(f"unknown model {exp.model!r}")
@@ -200,8 +205,6 @@ def check_supported(exp: CompiledExperiment, params: EngineParams) -> None:
         no("cpu_per_event (has_cpu)", gates)
     if np.asarray(exp.jitter_vv).max() > 0:
         no("network.jitter (has_jitter)", gates)
-    if params.compact_cap:
-        no("compact_cap", "compaction")
     if params.probes or params.link_telem:
         no("probes / link_telem", "checkpoint and observability")
     if params.auto_caps or params.on_overflow != "drop":
@@ -404,10 +407,14 @@ def window_frame(st: SimState, ctx: Ctx) -> WindowFrame:
                        win_end=st.win_start + ctx.window)
 
 
-def window_phases(ctx: Ctx, handlers: dict, pre_window=None):
+def window_phases(ctx: Ctx, handlers: dict, make_handlers, pre_window=None):
     """The ordered (name, frame → frame) stage list of one window.
+    ``handlers`` are ``make_handlers(ctx)``, the model's handler builder.
     ``pre_window(st, ctx, win_end)`` is the model's hook before the rounds
-    (the net model's batched NIC arrivals)."""
+    (the net model's batched NIC arrivals). With ``compact_cap`` set below
+    the host count, the rounds run through ``core/compact.py
+    compact_window_rounds``, which builds handlers over the gathered ctx
+    with ``make_handlers``."""
     digest_on = bool(ctx.params.state_digest)
 
     def ph_prepare(fr: WindowFrame) -> WindowFrame:
@@ -438,7 +445,15 @@ def window_phases(ctx: Ctx, handlers: dict, pre_window=None):
         return fr._replace(st=st)
 
     def ph_rounds(fr: WindowFrame) -> WindowFrame:
-        st, cap_hit = run_rounds(fr.st, ctx, handlers, fr.win_end)
+        ccap = ctx.params.compact_cap
+        if ccap and ccap < ctx.n_hosts:
+            from shadow1_tpu_torch.core.compact import compact_window_rounds
+
+            st, cap_hit = compact_window_rounds(
+                fr.st, ctx, handlers, make_handlers, run_rounds, fr.win_end,
+                ccap)
+        else:
+            st, cap_hit = run_rounds(fr.st, ctx, handlers, fr.win_end)
         return fr._replace(st=st, cap_hit=cap_hit)
 
     def ph_deliver(fr: WindowFrame) -> WindowFrame:
@@ -481,11 +496,11 @@ def window_phases(ctx: Ctx, handlers: dict, pre_window=None):
             ("deliver", ph_deliver), ("telem", ph_telem)]
 
 
-def window_step(st: SimState, ctx: Ctx, handlers: dict,
+def window_step(st: SimState, ctx: Ctx, handlers: dict, make_handlers,
                 pre_window=None) -> SimState:
     """One conservative window: the four phases in order."""
     fr = window_frame(st, ctx)
-    for _name, fn in window_phases(ctx, handlers, pre_window):
+    for _name, fn in window_phases(ctx, handlers, make_handlers, pre_window):
         fr = fn(fr)
     return fr.st
 
@@ -556,7 +571,8 @@ class Engine:
             st = self.init_state()
         n = n_windows if n_windows is not None else self.n_windows
         for _ in range(int(n)):
-            st = window_step(st, self.ctx, self._handlers, self._pre_window)
+            st = window_step(st, self.ctx, self._handlers,
+                             self._model.make_handlers, self._pre_window)
         return st
 
     @staticmethod

@@ -37,15 +37,16 @@ handed over as it is; any other is converted first (``_arg``).
 Every kernel launch adds one to ``LAUNCHES[name]``, and nothing else does,
 so a run can show that its main path went through the kernels.
 
-The port runs PHOLD and the net model with the ``filexfer`` app (NIC,
-TCP, the per-window state digests and telemetry ring). What it leaves out,
-and where it is refused — each refusal is a ``NotImplementedError`` whose
-message names the ROADMAP item that will add it (``core/engine.py
-check_supported``, ``config/experiment.py build_experiment``, ``cli.py``,
-``convert.py``):
+The port runs PHOLD and the net model with the ``filexfer``, ``tgen``,
+``dgram`` and ``tor`` apps (NIC, TCP, UDP sends, the per-window state
+digests and telemetry ring), with active-host compaction
+(``core/compact.py``: under it the kernels get the bucket's ``[C, cap]``
+planes, fresh contiguous copies). What it leaves out, and where it is
+refused — each refusal is a ``NotImplementedError`` whose message names
+the ROADMAP item that will add it (``core/engine.py check_supported``,
+``config/experiment.py build_experiment``, ``cli.py``, ``convert.py``):
 
-* the apps ``dgram`` (with ``udp_send``), ``tgen``, ``tor`` and
-  ``bitcoin`` — "the other apps";
+* the app ``bitcoin`` — "the other apps";
 * NIC queue bounds (``tx_queue_bytes``, ``rx_queue_bytes``: ``has_tx_qlen``,
   ``has_rx_qlen``, and with them the per-round K_PKT handler ``on_pkt``)
   and RED AQM (``aqm_max_bytes``, ``has_aqm``) — "NIC queue bounds and RED
@@ -54,7 +55,6 @@ check_supported``, ``config/experiment.py build_experiment``, ``cli.py``,
   (``cpu_per_event``, ``has_cpu``) and edge jitter (``network.jitter``,
   ``has_jitter``); link faults and loss ramps come only from ``faults:`` —
   "fault plane and fidelity gates";
-* ``compact_cap`` — "compaction";
 * ``probes`` / ``probes:`` and ``link_telem`` — "checkpoint and
   observability";
 * ``auto_caps`` and ``on_overflow`` other than "drop" — "recovery planes";

@@ -8,16 +8,17 @@ K_PKT_DELIVER events at their queue-cleared times) → TCP processing
 the same round. Retransmit timers (``K_TCP_TIMER``), transmit resumes
 (``K_TX_RESUME``) and app wakeups (``K_APP``) are events of their own.
 
-model_cfg: ``{"app": <name>, ...app-specific numpy arrays}``. This slice
-runs the ``filexfer`` app. Not ported yet, and refused by
-``core/engine.py check_supported``: the other apps (``dgram`` with
-``udp_send``, ``tgen``, ``tor``, ``bitcoin``), and the per-round K_PKT
-handler (``on_pkt``), which the reference runs only with an rx queue bound
-or the virtual CPU.
+model_cfg: ``{"app": <name>, ...app-specific numpy arrays}``. The port
+runs the ``filexfer``, ``tgen``, ``dgram`` (through ``udp_send``) and
+``tor`` apps. Not ported yet, and refused by ``core/engine.py
+check_supported``: the ``bitcoin`` app, and the per-round K_PKT handler
+(``on_pkt``), which the reference runs only with an rx queue bound or the
+virtual CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import torch
@@ -33,8 +34,10 @@ from shadow1_tpu_torch.consts import (
     SEC,
     WIRE_OVERHEAD,
 )
+from shadow1_tpu_torch.core.dense import payload
 from shadow1_tpu_torch.core.events import I64_MAX, tb_join, tb_split
-from shadow1_tpu_torch.net.nic import NicState, nic_init
+from shadow1_tpu_torch.core.popk import outbox_append
+from shadow1_tpu_torch.net.nic import NicState, nic_init, tx_stamp
 from shadow1_tpu_torch.tcp import tcp as T
 
 
@@ -44,13 +47,17 @@ class NetState(NamedTuple):
     app: Any
 
 
-def _app_module(name: str):
-    if name == "filexfer":
-        from shadow1_tpu_torch.apps import filexfer
+# The apps the port runs (``apps/<name>.py``).
+APPS = ("filexfer", "dgram", "tgen", "tor")
 
-        return filexfer
-    raise NotImplementedError(
-        f"app {name!r} is not ported yet (ROADMAP: the other apps)")
+
+def _app_module(name: str):
+    if name not in APPS:
+        raise NotImplementedError(
+            f"app {name!r} is not ported yet (ROADMAP: the other apps)")
+    import importlib
+
+    return importlib.import_module(f"shadow1_tpu_torch.apps.{name}")
 
 
 def init(ctx, evbuf):
@@ -61,6 +68,34 @@ def init(ctx, evbuf):
     app, evbuf, over, tcpd = _app_module(ctx.model_cfg["app"]).init(
         ctx, evbuf, tcpd)
     return NetState(nic=nic, tcp=tcpd, app=app), evbuf, over
+
+
+def udp_send(st, ctx, mask, dst_host, dst_sock, length, meta, meta2, now):
+    """Datagram send: NIC uplink stamp, then an outbox packet with
+    F_DGRAM; no handshake, no reliability (loss and latency still apply).
+    The reference's link-telemetry branch is not ported:
+    ``check_supported`` refuses ``link_telem``."""
+    length = torch.as_tensor(length).to(torch.int32)
+    p = payload(ctx.n_hosts, ctx.hosts, T.pack_meta(0, dst_sock, F_DGRAM),
+                None, None, length, None, None, meta, meta2,
+                device=ctx.device)
+    wire = length.to(torch.int64) + WIRE_OVERHEAD
+    nic, depart, sent, red = tx_stamp(st.model.nic, mask, wire, now,
+                                      ctx.bw_up)
+    k = torch.full((ctx.n_hosts,), K_PKT, dtype=torch.int32,
+                   device=ctx.device)
+    outbox, ok = outbox_append(st.outbox, sent, dst_host, k, depart, p)
+    m = st.metrics
+    return st._replace(
+        model=st.model._replace(nic=nic),
+        outbox=outbox,
+        metrics=m._replace(
+            ob_overflow=m.ob_overflow + (sent & ~ok).sum(dtype=torch.int64),
+            nic_tx_drops=m.nic_tx_drops
+            + (mask & ~sent & ~red).sum(dtype=torch.int64),
+            nic_aqm_drops=m.nic_aqm_drops + red.sum(dtype=torch.int64),
+        ),
+    )
 
 
 def make_pre_window(ctx):
@@ -122,6 +157,9 @@ def make_pre_window(ctx):
 
 def make_handlers(ctx):
     app_mod = _app_module(ctx.model_cfg["app"])
+    if hasattr(app_mod, "tables"):
+        ctx = dataclasses.replace(
+            ctx, app_tables=app_mod.tables(ctx.model_cfg, ctx.device))
 
     def on_deliver(st, ev):
         """K_PKT_DELIVER: the packet cleared the NIC — TCP, then the app."""

@@ -25,7 +25,8 @@ slots, H = 33, 4097 and 16,384 hosts) each kernel is held to its plain
 version again: pop over many 48-slot batches, with the best slot in a
 later batch and ties across batches; push into nearly full 512-slot
 buffers; the outbox at P = 64. A filexfer engine run on CUDA equals the
-same run on the CPU, its per-window digest words included.
+same run on the CPU, its per-window digest words included, and so do
+small tgen, Tor and dgram runs with active-host compaction on.
 """
 
 import numpy as np
@@ -414,3 +415,58 @@ def test_filexfer_cuda_matches_cpu(dev):
     assert all(n > 0 for n in popk.LAUNCHES.values()), popk.LAUNCHES
     assert runs[0][0]["events"] > 0 and runs[0][0]["pops_deliver"] > 0
     assert runs[1] == runs[0]
+
+
+def _apps():
+    """Small tgen, Tor and dgram experiments built in code, with the
+    compact_cap each runs with (below the host count: both branches)."""
+    from shadow1_tpu_torch.config.compiled import (
+        dgram_ring_experiment,
+        tgen_experiment,
+        tor_experiment,
+    )
+
+    tgen = tgen_experiment(12, 21, 60 * 10 * MS, latency_ns=10 * MS,
+                           bw_bits=10**7, streams=2, mean_bytes=20_000.0,
+                           mean_think_ns=50.0 * MS, start_time=1 * MS)
+    tor = tor_experiment(n_guard=3, n_middle=2, n_exit=3, n_dirauth=2,
+                         n_client=12, seed=31, end_time=60 * 10 * MS,
+                         latency_ns=10 * MS, relay_bw=10**7, client_bw=10**7,
+                         n_circuits=1, n_streams=1, mean_stream_cells=10.0,
+                         mean_think_ns=100.0 * MS, start_time=1 * MS)
+    dgram = dgram_ring_experiment(64, 5, 12 * 10 * MS, latency_ns=10 * MS,
+                                  loss=0.05, payload=1200, interval=2 * MS,
+                                  count=20, start_time=1 * MS)
+    return {"tgen": (tgen, dict(ev_cap=256), 6),
+            "tor": (tor, dict(ev_cap=256, sockets_per_host=32), 8),
+            "dgram": (dgram, dict(), 16)}
+
+
+@pytest.mark.parametrize("app", ["tgen", "tor", "dgram"])
+def test_apps_cuda_match_cpu(dev, app):
+    """Each app with compaction on: metrics, summary and every ring row
+    (digest words included) on CUDA equal the CPU's; every kernel
+    launched, and windows ran on both sides of the bucket."""
+    from shadow1_tpu_torch.core import compact
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+
+    exp, kw, cap = _apps()[app]
+    windows = exp.end_time // exp.window
+    params = EngineParams(**kw, compact_cap=cap, metrics_ring=windows,
+                          state_digest=1)
+    runs = []
+    for d in ("cpu", dev):
+        eng = Engine(exp, params, device=d)
+        for k in popk.LAUNCHES:
+            popk.LAUNCHES[k] = 0
+        for k in compact.WINDOWS:
+            compact.WINDOWS[k] = 0
+        st = eng.run()
+        runs.append((Engine.metrics_dict(st), drain_ring(st, eng.window),
+                     {k: v.tolist() for k, v in eng.model_summary(st).items()},
+                     dict(compact.WINDOWS)))
+    assert all(n > 0 for n in popk.LAUNCHES.values()), popk.LAUNCHES
+    assert runs[0][0]["events"] > 0
+    assert runs[1] == runs[0]
+    if app != "dgram":
+        assert runs[1][3]["compact"] > 0 and runs[1][3]["full"] > 0

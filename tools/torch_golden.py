@@ -8,12 +8,12 @@ Runs each slice configuration below through the JAX package's ``Engine``
   ``Metrics`` field, the total hop count and a SHA-256 of the per-host hop
   counts;
 * the net model (``net_<name>.json``): the experiment's arrays, or the
-  ``tiled_filexfer_experiment`` call that makes them, with a SHA-256 of
-  those arrays; every
-  ``Metrics`` field; the scalar summary; a SHA-256 of each per-host summary
-  array; and the per-window state-digest words (a run with
-  ``state_digest=1``), 5 per window in ``core/digest.py``'s subsystem
-  order. The run must be overflow-free.
+  ``config/compiled.py`` builder call that makes them, with a SHA-256 of
+  those arrays; every ``Metrics`` field; the summary (each entry summed
+  over hosts); a SHA-256 of each per-host summary array; and the
+  per-window state-digest words (a run with ``state_digest=1``), 5 per
+  window in ``core/digest.py``'s subsystem order. The run must be
+  overflow-free.
 
 ``chip_smoke.py`` builds the same experiments in the port, runs them on the
 H100 and compares — the machine with the card has no JAX, so the reference
@@ -21,8 +21,10 @@ travels as these files.
 
     JAX_PLATFORMS=cpu python tools/torch_golden.py [NAME ...]
 
-Names: ``bench``, ``lossy`` (PHOLD), ``filexfer16k``, ``rung1`` (net).
-``filexfer16k`` (16,384 hosts) takes about 20 minutes on 8 CPU cores.
+Names: ``bench``, ``lossy`` (PHOLD), ``filexfer16k``, ``rung1``,
+``tgen50k``, ``rung2``, ``tor10k``, ``dgram4k`` (net). ``filexfer16k``
+(16,384 hosts) takes about 35 minutes on 8 CPU cores; each golden records
+its own wall time and peak memory.
 
 This script imports JAX; it lives outside ``shadow1_tpu_torch/`` because the
 port never does.
@@ -94,20 +96,62 @@ def run_reference(spec: dict) -> tuple[dict, float]:
     return rec, time.perf_counter() - t0
 
 
-# name -> net experiment spec. ``filexfer16k`` is the host layout of
-# configs/churn_filexfer.yaml (its faults: left out) tiled 2,048 times,
-# built by the port's ``tiled_filexfer_experiment`` and cut to 20 windows
-# (0.8 s of simulated time); ``rung1`` is configs/rung1_filexfer.yaml whole
-# (500 windows), carried as its compiled arrays.
+# name -> net experiment spec: ``build`` names a builder of the port's
+# ``config/compiled.py`` and its arguments (the experiment is made in code:
+# the card has neither YAML nor GraphML), ``yaml`` a config carried as its
+# compiled arrays; ``params`` are the EngineParams fields the config sets.
+#
+# * ``filexfer16k``: the host layout of configs/churn_filexfer.yaml (its
+#   faults: left out) tiled 2,048 times, cut to 20 windows (0.8 s);
+# * ``rung1``: configs/rung1_filexfer.yaml whole (500 windows);
+# * ``tgen50k``: configs/dense_tgen50k.yaml at its full width (50,000
+#   hosts), cut to 20 windows (0.2 s);
+# * ``rung2``: configs/rung2_tgen100.yaml, cut to 150 windows (3 s); the
+#   card also runs it with ``compact_cap`` 48 (``compact_caps``), against
+#   the same golden;
+# * ``tor10k``: configs/rung4_tor10k.yaml at its full width (10,000 hosts,
+#   compact_cap 1280), cut to 40 windows (1.2 s), a depth at which clients
+#   have received cells;
+# * ``dgram4k``: a 4,096-host dgram ring (20 datagrams of 1,200 B every
+#   2 ms to the next host, 10 ms paths with 1 % loss), 20 windows.
 NET_CONFIGS = {
-    "filexfer16k": dict(build=dict(n_groups=2048, seed=42,
-                                   end_time=20 * 40 * MS),
+    "filexfer16k": dict(build={"tiled_filexfer_experiment": dict(
+                            n_groups=2048, seed=42, end_time=20 * 40 * MS)},
                         params=dict(ev_cap=512), windows=20),
     "rung1": dict(yaml="configs/rung1_filexfer.yaml", windows=500),
+    "tgen50k": dict(build={"tgen_experiment": dict(
+                        n_hosts=50_000, seed=71, end_time=20 * 10 * MS,
+                        latency_ns=10 * MS, bw_bits=20_000_000,
+                        streams=1_000_000, mean_bytes=30e6,
+                        mean_think_ns=50.0 * MS, start_time=10 * MS,
+                        fixed_size=True)},
+                    params=dict(ev_cap=96, outbox_cap=32, sockets_per_host=8,
+                                msgq_cap=4, max_rounds=512, rcvbuf=16384),
+                    windows=20),
+    "rung2": dict(build={"tgen_experiment": dict(
+                      n_hosts=100, seed=22, end_time=150 * 20 * MS,
+                      latency_ns=20 * MS, bw_bits=10_000_000, streams=5,
+                      mean_bytes=100000.0, mean_think_ns=500.0 * MS,
+                      start_time=1 * MS)},
+                  params=dict(ev_cap=512, sockets_per_host=32),
+                  windows=150, compact_caps=[0, 48]),
+    "tor10k": dict(build={"tor_experiment": dict(
+                       n_guard=300, n_middle=500, n_exit=200, n_dirauth=10,
+                       n_client=8990, seed=44, end_time=40 * 30 * MS,
+                       latency_ns=30 * MS, relay_bw=200_000_000,
+                       client_bw=20_000_000, n_circuits=2, n_streams=3,
+                       mean_stream_cells=40.0, mean_think_ns=5000.0 * MS,
+                       start_time=200 * MS, client_interval=2 * MS,
+                       ct_cap=1024)},
+                   params=dict(ev_cap=256, sockets_per_host=128, msgq_cap=64,
+                               max_rounds=1024, compact_cap=1280),
+                   windows=40, nonzero=["total_cells_rx"]),
+    "dgram4k": dict(build={"dgram_ring_experiment": dict(
+                        n_hosts=4096, seed=5, end_time=20 * 10 * MS,
+                        latency_ns=10 * MS, loss=0.01, payload=1200,
+                        interval=2 * MS, count=20, start_time=1 * MS)},
+                    params={}, windows=20, nonzero=["total_rx"]),
 }
-# Per-host summary arrays hashed into a net golden.
-NET_ARRAYS = ("rx_bytes", "flows_done", "done_time", "nic_tx_bytes",
-              "nic_rx_bytes")
 
 
 def array_sha256(a) -> str:
@@ -137,13 +181,18 @@ def run_net_reference(spec: dict) -> tuple[dict, float]:
 
     windows = spec["windows"]
     if "build" in spec:
-        exp_t = ct.tiled_filexfer_experiment(**spec["build"])
+        (builder, kwargs), = spec["build"].items()
+        exp_t = getattr(ct, builder)(**kwargs)
         exp = cj.CompiledExperiment(**{
             f.name: getattr(exp_t, f.name)
             for f in dataclasses.fields(cj.CompiledExperiment)})
+        # The reference memoizes caches into model_cfg; keep the port's
+        # dict as built.
+        exp.model_cfg = dict(exp.model_cfg)
         params = EngineParams(**spec["params"])
-        rec = {"build": {"tiled_filexfer_experiment": spec["build"]},
-               "params": spec["params"]}
+        rec = {"build": spec["build"], "params": spec["params"]}
+        if "compact_caps" in spec:
+            rec["compact_caps"] = spec["compact_caps"]
     else:
         exp, params, _ = load_experiment(str(ROOT / spec["yaml"]))
         rec = {"experiment": ct.experiment_arrays(exp),
@@ -157,20 +206,21 @@ def run_net_reference(spec: dict) -> tuple[dict, float]:
     eng = Engine(exp, params)
     t0 = time.perf_counter()
     st = eng.run(n_windows=windows)
+    summ = {k: np.asarray(v) for k, v in eng.model_summary(st).items()}
+    # ``nonzero``: summary entries that must not be 0 at the end (a golden
+    # too short to reach the path it is meant to check).
+    short = [k for k in spec.get("nonzero", ()) if summ[k].sum() == 0]
+    assert not short, f"golden run too short: {short} still 0"
     metrics = Engine.metrics_dict(st)
     seconds = time.perf_counter() - t0
     for k in ("ev_overflow", "ob_overflow", "round_cap_hits"):
         assert metrics[k] == 0, f"golden run overflowed: {k} = {metrics[k]}"
-    summ = eng.model_summary(st)
     rows = drain_ring(st, eng.window)
     assert len(rows) == windows and all(r["type"] == "ring" for r in rows)
     rec.update(
         metrics=metrics,
-        summary={"total_rx_bytes": int(summ["total_rx_bytes"]),
-                 "total_flows_done": int(summ["total_flows_done"]),
-                 "nic_tx_bytes": int(np.asarray(summ["nic_tx_bytes"]).sum()),
-                 "nic_rx_bytes": int(np.asarray(summ["nic_rx_bytes"]).sum())},
-        sha256={k: array_sha256(summ[k]) for k in NET_ARRAYS},
+        summary={k: int(v.sum()) for k, v in summ.items()},
+        sha256={k: array_sha256(v) for k, v in summ.items() if v.ndim},
         digest_fields=["dg_evbuf", "dg_outbox", "dg_tcp", "dg_nic", "dg_rng"],
         digests=[[r[f] for f in ("dg_evbuf", "dg_outbox", "dg_tcp", "dg_nic",
                                  "dg_rng")] for r in rows],

@@ -1,18 +1,19 @@
-"""Where the time goes in the port's net slice (NIC + TCP + filexfer) on a
-CUDA card.
+"""Where the time goes in the port's net slice on a CUDA card.
 
-    python tools/torch_net_profile.py [--groups 2048] [--warmup 6]
-        [--windows 5] [--profiled 3] [--trace PATH]
+    python tools/torch_net_profile.py [NAME] [--warmup N] [--windows N]
+        [--profiled N] [--trace PATH]
 
-Runs the ``filexfer16k`` layout (``tiled_filexfer_experiment``: groups of
-one 20 Mbit server and seven 10 Mbit clients, 40 ms windows, 0.1 % loss,
-ev_cap 512) on the port. After ``--warmup`` windows (the clients start
-10–190 ms in; the flows are in full swing from window 6), it measures:
+NAME is a net golden of ``shadow1_tpu_torch/golden/`` built in code
+(default ``filexfer16k``; also ``tgen50k``, ``tor10k``, ``rung2``,
+``dgram4k``): the experiment and the engine parameters come from the
+golden file, with its depth widened to what the run needs. After
+``--warmup`` windows (default per configuration, ``WARMUP``: past the
+start-up, where the traffic is in full swing), it measures:
 
 1. phase times — ``--windows`` windows, each of the four window phases
    (prepare, rounds, deliver, telem) timed on the host clock with a device
-   synchronise after it; events, rounds, events/s and the kernels' launch
-   counts;
+   synchronise after it; events, rounds, events/s, the kernels' launch
+   counts and the windows each branch of the compaction ran;
 2. a ``torch.profiler`` trace of the next ``--profiled`` windows — device
    time by kernel name, the device's busy time against the wall (its idle
    share), device operations per round, device→host reads per round (the
@@ -32,13 +33,20 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-WINDOW_NS = 40_000_000
+# Windows to run before measuring, by configuration: filexfer16k's clients
+# start 10-190 ms in (40 ms windows); tgen50k's streams start at 10 ms
+# (10 ms windows); tor10k's clients start from 200 ms on and its first
+# cells arrive near window 32 (30 ms windows).
+WARMUP = {"filexfer16k": 6, "tgen50k": 6, "tor10k": 30, "rung2": 20,
+          "dgram4k": 1}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--groups", type=int, default=2048)
-    ap.add_argument("--warmup", type=int, default=6)
+    ap.add_argument("name", nargs="?", default="filexfer16k",
+                    help="net golden to run (shadow1_tpu_torch/golden/"
+                         "net_NAME.json)")
+    ap.add_argument("--warmup", type=int, default=None)
     ap.add_argument("--windows", type=int, default=5)
     ap.add_argument("--profiled", type=int, default=3)
     ap.add_argument("--trace", default=None,
@@ -50,27 +58,30 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    print(json.dumps(profile(args.groups, args.warmup, args.windows,
-                             args.profiled, args.trace)))
+    warmup = args.warmup if args.warmup is not None else WARMUP[args.name]
+    print(json.dumps(profile(args.name, warmup, args.windows, args.profiled,
+                             args.trace)))
     return 0
 
 
-def profile(groups: int, warmup: int, windows: int, profiled: int,
+def profile(name: str, warmup: int, windows: int, profiled: int,
             trace: str | None = None) -> dict:
     import torch
 
     sys.path.insert(0, str(ROOT))
-    from shadow1_tpu_torch.config.compiled import tiled_filexfer_experiment
+    from shadow1_tpu_torch.config import compiled as ct
     from shadow1_tpu_torch.consts import EngineParams
+    from shadow1_tpu_torch.core import compact, popk
     from shadow1_tpu_torch.core import engine as E
-    from shadow1_tpu_torch.core import popk
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    total = warmup + windows + profiled
-    exp = tiled_filexfer_experiment(groups, seed=42, end_time=total * WINDOW_NS)
-    eng = E.Engine(exp, EngineParams(ev_cap=512), device="cuda")
+    gold = json.loads((ROOT / "shadow1_tpu_torch" / "golden"
+                       / f"net_{name}.json").read_text())
+    (builder, kwargs), = gold["build"].items()
+    exp = getattr(ct, builder)(**kwargs)
+    eng = E.Engine(exp, EngineParams(**gold["params"]), device="cuda")
     t0 = time.perf_counter()
     st = eng.run(n_windows=warmup)
     torch.cuda.synchronize()
@@ -79,21 +90,26 @@ def profile(groups: int, warmup: int, windows: int, profiled: int,
     phases = {}
     for k in popk.LAUNCHES:
         popk.LAUNCHES[k] = 0
+    for k in compact.WINDOWS:
+        compact.WINDOWS[k] = 0
     m0 = E.Engine.metrics_dict(st)
     t_all = time.perf_counter()
     for _ in range(windows):
         fr = E.window_frame(st, eng.ctx)
-        for name, fn in E.window_phases(eng.ctx, eng._handlers, eng._pre_window):
+        for phase, fn in E.window_phases(eng.ctx, eng._handlers,
+                                         eng._model.make_handlers,
+                                         eng._pre_window):
             t0 = time.perf_counter()
             fr = fn(fr)
             torch.cuda.synchronize()
-            phases[name] = phases.get(name, 0.0) + time.perf_counter() - t0
+            phases[phase] = phases.get(phase, 0.0) + time.perf_counter() - t0
         st = fr.st
     wall = time.perf_counter() - t_all
     m1 = E.Engine.metrics_dict(st)
     events = m1["events"] - m0["events"]
     rounds = m1["rounds"] - m0["rounds"]
     launches = dict(popk.LAUNCHES)
+    compact_windows = dict(compact.WINDOWS)
 
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -120,17 +136,19 @@ def profile(groups: int, warmup: int, windows: int, profiled: int,
     busy_us = sum(r[0] for r in rows)
     d2h = sum(n for _, k, n in rows if "DtoH" in k)
     kernel_us = {}
-    for name in popk.LAUNCHES:
-        hits = [(us, n) for us, k, n in rows if f"{name}_kernel" in k]
+    for kern in popk.LAUNCHES:
+        hits = [(us, n) for us, k, n in rows if f"{kern}_kernel" in k]
         if hits:
-            kernel_us[name] = sum(u for u, _ in hits) / sum(n for _, n in hits)
+            kernel_us[kern] = sum(u for u, _ in hits) / sum(n for _, n in hits)
     return {
-        "card": card, "hosts": exp.n_hosts, "warmup_windows": warmup,
+        "config": name, "card": card, "hosts": exp.n_hosts,
+        "compact_cap": eng.params.compact_cap, "warmup_windows": warmup,
         "warmup_s": warmup_s, "windows": windows,
         "events": events, "rounds": rounds, "wall_s": wall,
         "events_per_s": events / wall, "ms_per_round": wall / rounds * 1e3,
         "phase_s": phases, "launches": launches,
         "launches_per_round": {k: n / rounds for k, n in launches.items()},
+        "compact_windows": compact_windows,
         "profiled_windows": profiled, "profiled_rounds": prof_rounds,
         "profiled_events": m2["events"] - m1["events"],
         "profiled_wall_s": prof_wall, "device_busy_s": busy_us / 1e6,

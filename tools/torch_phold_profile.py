@@ -77,7 +77,9 @@ def profile(hosts: int, windows: int, trace: str | None = None) -> dict:
     t_all = time.perf_counter()
     for _ in range(windows):
         fr = E.window_frame(st, eng.ctx)
-        for name, fn in E.window_phases(eng.ctx, eng._handlers):
+        for name, fn in E.window_phases(eng.ctx, eng._handlers,
+                                        eng._model.make_handlers,
+                                        eng._pre_window):
             t0 = time.perf_counter()
             fr = fn(fr)
             torch.cuda.synchronize()
