@@ -34,8 +34,8 @@ fails:
    here (nothing in the package), keeps clones of the exact arguments the
    engine hands each kernel's wrapper at three rounds in the middle of a
    window. On each, the kernel must equal its plain version bit for bit;
-   its device time (cold L2), the byte bound for that data and the
-   wrapper's stream time are measured;
+   its device time (cold L2), the byte bound for that data, the
+   wrapper's stream time and the plain version's are measured;
 6. kernels at the net shape: phase 3 again at the net model's shape (C =
    512 event slots, P = 64 outbox slots, H = 16,384 hosts), random state
    and edge cases, bit-equal, timed against the byte bound;
@@ -67,7 +67,24 @@ fails:
 10. the kernels at tor10k's bucket shape (C = 256, P = 64, H = 1,280) as in
    phase 3 (run right after phase 6), and on the arguments that the
    compacted tor10k rounds of window ``TOR_PATH_WINDOW`` hand them, as in
-   phase 8 (after phase 9).
+   phase 8 (after phase 9);
+11. the fault and fidelity slice, built in code from the goldens and held
+   to them as in phase 7: ``bitcoin5k`` (``configs/rung5_bitcoin5k.yaml``
+   at its full width, 5,000 hosts, 60 windows: the flood of the first
+   transactions), ``churn8`` (``configs/churn_filexfer.yaml`` whole, its
+   ``faults:`` included, 150 windows) and ``fidelity16k`` (filexfer16k's
+   16,384 hosts with every fidelity gate on: NIC queue bounds, RED AQM,
+   the virtual CPU, jitter, host churn, a link outage and a loss ramp; 11
+   windows). Each run must launch pop, push and obox, and ``fidelity16k``
+   must launch the push kernel through ``push_back`` (the virtual CPU's
+   deferrals), counted apart from ``push_local`` (``popk.PUSH_ENTRIES``);
+12. the virtual-CPU path: one more ``fidelity16k`` run with the hooks of
+   phase 8, which also wrap ``popk.push_back`` (the call site in
+   ``engine.run_round``), keeps the ``push_back`` arguments of the rounds
+   of window ``FID_PATH_WINDOW`` that defer the most events, the fewest
+   (at least one) and about half the most; on each the kernel must equal
+   ``push_back_plain`` bit for bit, timed with a cold L2 against that
+   data's byte bound.
 
 Each phase's wall time is printed. It then prints a ``{"kernels": [...]}``
 line, the card's name and power limit, and last ``{"ok": true, "device":
@@ -121,6 +138,11 @@ TOR_PATH_WINDOW = 36
 # The tgen, dgram and Tor runs of phase 9, in order; rung2 runs once per
 # compact_cap its golden lists.
 APP_RUNS = ("tgen50k", "rung2", "tor10k", "dgram4k")
+# The runs of phase 11, in order.
+FID_RUNS = ("bitcoin5k", "churn8", "fidelity16k")
+# Phase 12 keeps push_back rounds of this window of fidelity16k (of 11;
+# hosts are down and restart around it, and flows are in full swing).
+FID_PATH_WINDOW = 6
 
 
 def use_shape(shape) -> None:
@@ -807,16 +829,20 @@ def run_net_golden(name: str, dev, *, count: bool = False,
     eng = Engine(exp, params, device=dev)
     sync(dev)
     if count:
-        for k in popk.LAUNCHES:
-            popk.LAUNCHES[k] = 0
+        for counts in (popk.LAUNCHES, popk.PUSH_ENTRIES):
+            for k in counts:
+                counts[k] = 0
     for k in compact.WINDOWS:
         compact.WINDOWS[k] = 0
     t0 = time.perf_counter()
-    st = eng.run(n_windows=windows)
+    st = eng.init_state()
+    init_push = popk.LAUNCHES["push"]
+    st = eng.run(st, n_windows=windows)
     metrics = Engine.metrics_dict(st)
     sync(dev)
     wall = time.perf_counter() - t0
     launches = dict(popk.LAUNCHES) if count else None
+    entries = dict(popk.PUSH_ENTRIES) if count else None
     fields = gold["digest_fields"]
     rows = drain_ring(st, eng.window)
     require(len(rows) == windows, f"{name}: {len(rows)} ring rows")
@@ -843,7 +869,8 @@ def run_net_golden(name: str, dev, *, count: bool = False,
         require(h == want, f"{name}: per-host {k} differs from the golden")
     return dict(wall_s=wall, events=metrics["events"],
                 rounds=metrics["rounds"], windows=metrics["windows"],
-                hosts=exp.n_hosts, launches=launches,
+                hosts=exp.n_hosts, launches=launches, push_entries=entries,
+                init_push=init_push if count else None, metrics=metrics,
                 compact_windows=dict(compact.WINDOWS), summary=got)
 
 
@@ -851,17 +878,23 @@ class NetPathCapture:
     """Hooks around the net path's call sites of the kernels' wrappers:
     ``engine.pop_until``, ``popk.push_local`` (``engine.push_local_event``
     imports it at each call, so TCP timers, transmit resumes and app
-    wakeups all pass here) and ``tcp.outbox_append`` (every TCP segment),
-    and around ``engine.window_frame``, which counts the windows. In
-    window ``window`` every round's pop arguments are cloned before the
-    call, and so are the push and outbox arguments of the round's call
-    that masks the most hosts; when a round ends it is kept if it is the
-    busiest so far (most hosts popped), the sparsest with any pop, or the
-    closest to half the busiest. Calls pass through unchanged; under
-    compaction they see the bucket's planes."""
+    wakeups all pass here), ``popk.push_back`` (the virtual CPU's
+    deferrals; ``engine.run_round`` calls it through the module, once per
+    round) and ``tcp.outbox_append`` (every TCP segment), and around
+    ``engine.window_frame``, which counts the windows. In window
+    ``window`` every round's pop arguments are cloned before the call, and
+    so are the push, push_back and outbox arguments of the round's call
+    that masks the most hosts. A round is ranked by the hosts it pops, or,
+    with ``rank`` an entry's name, by the hosts that entry's widest call
+    masks (phase 12 ranks by the events ``push_back`` defers: the round
+    that pops the most may defer none). When a round ends it is kept if it
+    is the busiest so far, the sparsest of rank above 0, or the closest to
+    half the busiest. Calls pass through unchanged; under compaction they
+    see the bucket's planes."""
 
-    def __init__(self, window: int = NET_PATH_WINDOW):
+    def __init__(self, window: int = NET_PATH_WINDOW, rank: str = "pop"):
         self.path_window = window
+        self.rank = rank
         self.kept = {}
         self.cur = None
         self._window = -1
@@ -869,7 +902,11 @@ class NetPathCapture:
 
     def _end_round(self):
         rec, self.cur = self.cur, None
-        if rec is None or rec["n"] == 0:
+        if rec is None:
+            return
+        if self.rank != "pop":
+            rec["n"] = rec.get(self.rank, (0,))[0]
+        if rec["n"] == 0:
             return
         n, kept = rec["n"], self.kept
         if "busy" not in kept or n > kept["busy"]["n"]:
@@ -908,7 +945,7 @@ class NetPathCapture:
         from shadow1_tpu_torch.tcp import tcp
 
         pop, push, obox = engine.pop_until, popk.push_local, tcp.outbox_append
-        frame = engine.window_frame
+        push_back, frame = popk.push_back, engine.window_frame
 
         def frame_hook(st, ctx):
             # One call per window, rounds or none (tor10k's first windows
@@ -930,15 +967,21 @@ class NetPathCapture:
             self._widest("push", (buf, mask, time_, kind, p))
             return push(buf, mask, time_, kind, p)
 
+        def push_back_hook(buf, mask, time_, tb, kind, p):
+            self._widest("push_back", (buf, mask, time_, tb, kind, p))
+            return push_back(buf, mask, time_, tb, kind, p)
+
         def obox_hook(ob, mask, dst, kind, depart, p):
             self._widest("obox", (ob, mask, dst, kind, depart, p))
             return obox(ob, mask, dst, kind, depart, p)
 
         self._saved = [(engine, "pop_until", pop), (popk, "push_local", push),
+                       (popk, "push_back", push_back),
                        (tcp, "outbox_append", obox),
                        (engine, "window_frame", frame)]
         engine.pop_until, popk.push_local = pop_hook, push_hook
-        tcp.outbox_append, engine.window_frame = obox_hook, frame_hook
+        popk.push_back, tcp.outbox_append = push_back_hook, obox_hook
+        engine.window_frame = frame_hook
         return self
 
     def __exit__(self, *exc):
@@ -1018,8 +1061,11 @@ def check_path(name: str, cases, dev, flush, expect=len(PATH_ROUNDS)) -> dict:
     wrapper, plain = {
         "pop": (popk.pop_until, popk.pop_until_plain),
         "push": (popk.push_local, popk.push_local_plain),
+        "push_back": (popk.push_back, popk.push_back_plain),
         "obox": (popk.outbox_append, popk.outbox_append_plain)}[name]
-    ms, wrap_ms, nbytes, sector_bytes, err, active = [], [], [], [], 0, []
+    kernel = "push_kernel" if name == "push_back" else f"{name}_kernel"
+    ms, wrap_ms, plain_ms, nbytes, sector_bytes, err, active = (
+        [], [], [], [], [], 0, [])
     for i, args in enumerate(cases):
         ref = plain(*args)
         got = wrapper(clone(args[0]), *args[1:])
@@ -1029,8 +1075,8 @@ def check_path(name: str, cases, dev, flush, expect=len(PATH_ROUNDS)) -> dict:
             nbytes.append(pop_bytes(first, args[1]))
             sector_bytes.append(pop_sector_bytes(first, args[1]))
             active.append(int(ref[1].mask.sum()))
-        elif name == "push":
-            nbytes.append(push_bytes(first, args[1], True))
+        elif name in ("push", "push_back"):
+            nbytes.append(push_bytes(first, args[1], name == "push"))
             active.append(int(args[1].sum()))
         else:
             nbytes.append(obox_bytes(*args[:5]))
@@ -1041,12 +1087,14 @@ def check_path(name: str, cases, dev, flush, expect=len(PATH_ROUNDS)) -> dict:
         saved = [x.clone() for x in planes]
         call = (lambda w=work, a=args: wrapper(w, *a[1:]))
         ms.append(device_ms(call, restore(planes, saved, flush),
-                            kernel=f"{name}_kernel", reps=120, inner=1))
+                            kernel=kernel, reps=120, inner=1))
         restore(planes, saved)()
         wrap_ms.append(time_ms(call, restore(planes, saved)))
+        plain_ms.append(time_ms(lambda a=args: plain(*a), lambda: None))
     n = len(cases)
     return dict(path_ms=sum(ms) / n, path_bytes=sum(nbytes) / n,
-                path_wrapper_ms=sum(wrap_ms) / n, path_err=err,
+                path_wrapper_ms=sum(wrap_ms) / n,
+                path_plain_ms=sum(plain_ms) / n, path_err=err,
                 path_active=active, path_case_ms=ms, path_case_bytes=nbytes,
                 path_case_sector_bytes=sector_bytes)
 
@@ -1068,7 +1116,8 @@ def report_path(name: str, r: dict, where: str) -> None:
     log(f"kernel {name} in the {where} (active hosts {r['path_active']}): "
         f"bit-equal to plain; device {r['path_ms'] * 1e3:.2f} us/launch with "
         f"a cold L2 (by case {[round(x * 1e3, 2) for x in r['path_case_ms']]}"
-        f"; wrapper call {r['path_wrapper_ms'] * 1e3:.2f} us); byte bound "
+        f"; wrapper call {r['path_wrapper_ms'] * 1e3:.2f} us; plain "
+        f"{r['path_plain_ms'] * 1e3:.2f} us/call); byte bound "
         f"{r['path_bound_ms'] * 1e3:.2f} us ({r['path_bytes']:.0f} B; by case "
         f"{r['path_case_bytes']})")
     if r["path_case_sector_bytes"]:
@@ -1235,12 +1284,61 @@ def main() -> int:
     del tcap, flush
     phase_done("Tor path", t0)
 
+    t0 = time.perf_counter()
+    fid = {}
+    for name in FID_RUNS:
+        r = fid[name] = run_net_golden(name, dev, count=True)
+        missing = [k for k, n in r["launches"].items() if n <= 0]
+        require(not missing, f"{name}: kernels not launched: {missing}")
+        m = r["metrics"]
+        log(f"fault and fidelity slice {name} ({r['hosts']} hosts): "
+            f"{r['events']} events, {r['rounds']} rounds, {r['windows']} "
+            f"windows ({r['rounds'] / r['windows']:.2f} rounds/window) in "
+            f"{r['wall_s']:.3f} s = {r['wall_s'] / r['rounds'] * 1e3:.2f} "
+            f"ms/round, {r['events'] / r['wall_s']:.0f} events/s on {card}; "
+            f"launches {r['launches']}, push by entry {r['push_entries']} "
+            f"({r['init_push']} at init); equal to the JAX golden")
+        log(f"  {name} gates: " + json.dumps({k: m[k] for k in (
+            "nic_tx_drops", "nic_rx_drops", "nic_aqm_drops", "down_events",
+            "down_pkts", "link_down_pkts", "host_restarts", "fires_pkt")}))
+    btc = fid["bitcoin5k"]
+    log(f"bitcoin5k push launches per round: "
+        f"{(btc['launches']['push'] - btc['init_push']) / btc['rounds']:.2f}"
+        f" (after the {btc['init_push']} pushes of init_state); summary "
+        f"total_seen {btc['summary']['total_seen']}, total_tx_rx "
+        f"{btc['summary']['total_tx_rx']}")
+    fx = fid["fidelity16k"]
+    require(fx["push_entries"]["push_back"] > 0,
+            "fidelity16k: push_back never launched its kernel")
+    require(fx["push_entries"]["push_back"] == fx["rounds"],
+            f"fidelity16k: push_back launched {fx['push_entries']} times "
+            f"in {fx['rounds']} rounds, expected once per round")
+    for name in ("bitcoin5k", "churn8"):
+        require(fid[name]["push_entries"]["push_back"] == 0,
+                 f"{name}: push_back launched without the virtual CPU")
+    phase_done("fault and fidelity slice", t0)
+
+    t0 = time.perf_counter()
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    with NetPathCapture(FID_PATH_WINDOW, rank="push_back") as bcap:
+        run_net_golden("fidelity16k", dev)
+    log(f"virtual-CPU path: kept rounds of window {FID_PATH_WINDOW} with "
+        f"{bcap.actives()} deferred events")
+    back = check_path("push_back", bcap.cases("push_back"), dev, flush,
+                      expect=(1, 3))
+    report_path("push_back", back, f"virtual-CPU path (fidelity16k window "
+                f"{FID_PATH_WINDOW})")
+    del bcap, flush
+    phase_done("virtual-CPU path", t0)
+
     kernels = []
     for name, r in checks.items():
         n = net_checks[name]
         tk = tor_checks[name]
         err = max(r["max_abs_err"], r["path_err"], n["max_abs_err"],
                   n["path_err"], tk["max_abs_err"], tk["path_err"])
+        if name == "push":
+            err = max(err, back["path_err"])
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "design": DESIGN[name],
@@ -1273,7 +1371,23 @@ def main() -> int:
             "tor_path_case_us": [x * 1e3 for x in tk["path_case_ms"]],
             "tor_path_active": tk["path_active"],
             "app_launches": {k: a["launches"][name] for k, a in apps.items()},
+            "fid_launches": {k: a["launches"][name] for k, a in fid.items()},
+            "fid_launches_per_round": {
+                k: a["launches"][name] / a["rounds"] for k, a in fid.items()},
         })
+        if name == "push":
+            kernels[-1].update({
+                "push_back_launches": fx["push_entries"]["push_back"],
+                "push_back_launches_per_round":
+                    fx["push_entries"]["push_back"] / fx["rounds"],
+                "push_back_path_err": back["path_err"],
+                "push_back_path_us": back["path_ms"] * 1e3,
+                "push_back_path_bound_us": back["path_bound_ms"] * 1e3,
+                "push_back_path_wrapper_us": back["path_wrapper_ms"] * 1e3,
+                "push_back_path_plain_us": back["path_plain_ms"] * 1e3,
+                "push_back_path_case_us": [x * 1e3 for x in back["path_case_ms"]],
+                "push_back_path_active": back["path_active"],
+            })
     log(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f"; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -306,16 +306,108 @@ def dgram_ring_experiment(n_hosts: int, seed: int, end_time: int, *,
         })
 
 
+# The transaction payload of configs/rung5_bitcoin5k.yaml, in bytes.
+_BTC_TX_SIZE = 400
+
+
+def bitcoin_experiment(n_hosts: int, seed: int, end_time: int, *,
+                       latency_ns: int, bw_bits: int, k: int, n_tx: int,
+                       tx_start: int, tx_interval: int) -> CompiledExperiment:
+    """A Bitcoin gossip network on one vertex, built in code: the layout of
+    ``configs/rung5_bitcoin5k.yaml`` (one host group, a ring-chord peer
+    graph of degree ``k``, ``n_tx`` transactions from ``tx_start`` every
+    ``tx_interval`` ns at origins drawn from the seed, each of
+    ``_BTC_TX_SIZE`` bytes), with the arrays the YAML loader gives
+    (``config/experiment.py _gen_bitcoin_cfg``)."""
+    from shadow1_tpu_torch.config.experiment import _gen_bitcoin_cfg
+
+    cfg = {"graph": {"kind": "ring_chord", "k": k},
+           "tx": {"count": n_tx, "start": tx_start, "interval": tx_interval},
+           "tx_size": _BTC_TX_SIZE}
+    _gen_bitcoin_cfg(cfg, n_hosts, seed)
+    cfg["app"] = "bitcoin"
+    return single_vertex_experiment(
+        n_hosts=n_hosts, seed=seed, end_time=end_time, latency_ns=latency_ns,
+        bw_bits=bw_bits, model="net", model_cfg=cfg)
+
+
+# The fidelity knobs of ``fidelity_filexfer_experiment``: RED AQM and an
+# uplink queue bound on the clients (which upload their flows), a
+# downlink queue bound on the servers (which take in 7 uploads), a virtual
+# CPU cost on every host (high enough on the clients that events are
+# deferred past a window's end) and edge jitter on every vertex pair.
+_FID_AQM_MIN, _FID_AQM_MAX, _FID_AQM_PMAX = 5_000, 20_000, 0.1
+_FID_CLIENT_TXQ, _FID_SERVER_RXQ = 10_000, 1_500
+_FID_SERVER_CPU_NS, _FID_CLIENT_CPU_NS = 2_000, 1_000_000
+_FID_JITTER_NS = 1_000_000
+# Its fault schedule in ms, per tile g: churn_filexfer.yaml's, compressed
+# into 400 ms. (client k of the tile, down, up) cycles, then the outage
+# and the 8 % loss ramp of the pop_west <-> pop_east link (both ways, the
+# YAML's default).
+_FID_HOST_CYCLES = ((2, 100, 200), (2, 280, 360), (3, 150, 250))
+_FID_LINK_MS, _FID_RAMP_MS, _FID_RAMP_LOSS = (240, 290), (300, 380), 0.08
+_MS = 1_000_000
+
+
+def fidelity_filexfer_experiment(n_groups: int, seed: int,
+                                 end_time: int) -> CompiledExperiment:
+    """``tiled_filexfer_experiment`` with every fidelity gate on at once:
+    the ``_FID_*`` knobs above and, in every tile, the ``_FID_*`` fault
+    schedule (host cycles, link outage, loss ramp)."""
+    from shadow1_tpu_torch.fault.schedule import FaultSchedule
+
+    exp = tiled_filexfer_experiment(n_groups, seed, end_time)
+    h, per = exp.n_hosts, 1 + _FX_CLIENTS
+    server = np.arange(h) % per == 0
+    i64 = np.int64
+    exp.jitter_vv = np.full_like(exp.lat_vv, _FID_JITTER_NS)
+    exp.cpu_ns_per_event = np.where(server, _FID_SERVER_CPU_NS,
+                                    _FID_CLIENT_CPU_NS).astype(i64)
+    exp.tx_qlen_bytes = np.where(server, 0, _FID_CLIENT_TXQ).astype(i64)
+    exp.rx_qlen_bytes = np.where(server, _FID_SERVER_RXQ, 0).astype(i64)
+    exp.aqm_min_bytes = np.where(server, 0, _FID_AQM_MIN).astype(i64)
+    exp.aqm_max_bytes = np.where(server, 0, _FID_AQM_MAX).astype(i64)
+    exp.aqm_pmax = np.where(server, 0.0, _FID_AQM_PMAX)
+    g = np.arange(n_groups) * per
+    cyc = [(g + k, np.full(n_groups, d * _MS), np.full(n_groups, u * _MS))
+           for k, d, u in _FID_HOST_CYCLES]
+    both = ([0, 1], [1, 0])
+    exp.faults = FaultSchedule(
+        host_id=np.concatenate([c[0] for c in cyc]),
+        host_down=np.concatenate([c[1] for c in cyc]),
+        host_up=np.concatenate([c[2] for c in cyc]),
+        link_src=both[0], link_dst=both[1],
+        link_t0=[_FID_LINK_MS[0] * _MS] * 2,
+        link_t1=[_FID_LINK_MS[1] * _MS] * 2,
+        ramp_src=both[0], ramp_dst=both[1],
+        ramp_t0=[_FID_RAMP_MS[0] * _MS] * 2,
+        ramp_t1=[_FID_RAMP_MS[1] * _MS] * 2,
+        ramp_loss=[_FID_RAMP_LOSS] * 2)
+    exp.validate()
+    return exp
+
+
 # The arrays of a CompiledExperiment that define a net-model run, in the
 # order ``experiment_arrays`` lists them.
 _ARRAY_FIELDS = ("lat_vv", "loss_vv", "host_vertex", "bw_up", "bw_dn")
+# The fidelity arrays; ``experiment_arrays`` lists one only where it
+# differs from the default ``CompiledExperiment`` gives it.
+_FIDELITY_FIELDS = ("jitter_vv", "stop_time", "cpu_ns_per_event",
+                    "tx_qlen_bytes", "rx_qlen_bytes", "aqm_min_bytes",
+                    "aqm_max_bytes", "aqm_pmax")
+_FAULT_FIELDS = ("host_id", "host_down", "host_up", "link_src", "link_dst",
+                 "link_t0", "link_t1", "ramp_src", "ramp_dst", "ramp_t0",
+                 "ramp_t1", "ramp_loss")
 
 
 def experiment_arrays(exp: CompiledExperiment) -> dict:
-    """A JSON-ready record of ``exp`` (no faults, no fidelity knobs):
-    scalars, the topology and bandwidth arrays and the per-host app
-    arrays, each with its dtype, so ``experiment_from_arrays`` rebuilds
-    the same experiment on a machine that has neither YAML nor GraphML.
+    """A JSON-ready record of ``exp``: scalars, the topology and bandwidth
+    arrays, the per-host app arrays, the fidelity arrays that differ from
+    their defaults (under ``fidelity``) and the fault schedule's arrays
+    (under ``faults``, where there is one), each with its dtype, so
+    ``experiment_from_arrays`` rebuilds the same experiment on a machine
+    that has neither YAML nor GraphML. An experiment with no fidelity knob
+    and no fault has neither key.
 
     ``model_cfg`` scalars (str, bool, int, float: ``app``, tgen's
     ``fixed_size``, Tor's ``ct_cap`` and ``cells_max``) pass as they are,
@@ -336,13 +428,24 @@ def experiment_arrays(exp: CompiledExperiment) -> dict:
         raise TypeError(f"model_cfg[{k!r}]: {type(v).__name__} is neither "
                         "a scalar nor an array")
 
-    return {
+    rec = {
         "n_hosts": exp.n_hosts, "seed": exp.seed, "end_time": exp.end_time,
         "model": exp.model,
         "arrays": {f: arr(getattr(exp, f)) for f in _ARRAY_FIELDS},
         "model_cfg": {k: cfg_value(k, v) for k, v in exp.model_cfg.items()
                       if not k.startswith("_")},
     }
+    default = CompiledExperiment(
+        n_hosts=exp.n_hosts, seed=0, end_time=1, lat_vv=exp.lat_vv,
+        loss_vv=exp.loss_vv, host_vertex=exp.host_vertex, bw_up=exp.bw_up,
+        bw_dn=exp.bw_dn)
+    fid = {f: arr(getattr(exp, f)) for f in _FIDELITY_FIELDS
+           if not np.array_equal(getattr(exp, f), getattr(default, f))}
+    if fid:
+        rec["fidelity"] = fid
+    if exp.faults is not None:
+        rec["faults"] = {f: arr(getattr(exp.faults, f)) for f in _FAULT_FIELDS}
+    return rec
 
 
 def experiment_from_arrays(rec: dict) -> CompiledExperiment:
@@ -352,9 +455,16 @@ def experiment_from_arrays(rec: dict) -> CompiledExperiment:
             return d
         return np.asarray(d["data"], np.dtype(d["dtype"])).reshape(d["shape"])
 
+    faults = None
+    if "faults" in rec:
+        from shadow1_tpu_torch.fault.schedule import FaultSchedule
+
+        faults = FaultSchedule(**{f: arr(v) for f, v in rec["faults"].items()})
     return CompiledExperiment(
         n_hosts=rec["n_hosts"], seed=rec["seed"], end_time=rec["end_time"],
         model=rec["model"],
         model_cfg={k: arr(v) for k, v in rec["model_cfg"].items()},
+        faults=faults,
         **{f: arr(rec["arrays"][f]) for f in _ARRAY_FIELDS},
+        **{f: arr(v) for f, v in rec.get("fidelity", {}).items()},
     )

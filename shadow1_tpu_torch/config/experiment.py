@@ -16,12 +16,14 @@ each schema parameter takes its ``defaults:`` value, then each host group's
 ``groups:`` value — a scalar, a list (one per host) or a stagger
 ``{start, interval}`` — and ``"@name"`` names the first host of a group.
 
-Sections this slice of the port does not run fail loudly with a
-``NotImplementedError`` naming the ROADMAP item that adds them: ``faults:``
-(fault plane and fidelity gates), ``probes:`` (checkpoint and
-observability) and the app ``bitcoin`` (the other apps). The ``params:``
-scalars (``fixed_size`` for tgen, ``ct_cap``, ``cells_max`` and
-``consensus_bytes`` for Tor) pass through into ``model_cfg`` as written.
+The ``faults:`` section compiles to a ``FaultSchedule``
+(``fault/schedule.py``), and bitcoin's ``graph:`` / ``tx:`` generator specs
+to its ``peers``, ``tx_origin`` and ``tx_time`` arrays
+(``_gen_bitcoin_cfg``). ``probes:`` is not ported yet and fails loudly with
+a ``NotImplementedError`` naming the ROADMAP item that adds it (checkpoint
+and observability). The ``params:`` scalars (``fixed_size`` for tgen,
+``ct_cap``, ``cells_max`` and ``consensus_bytes`` for Tor, ``tx_size`` and
+``inv_size`` for bitcoin) pass through into ``model_cfg`` as written.
 ``sweep:`` runs the base experiment, as a solo run of the reference does.
 """
 
@@ -102,9 +104,9 @@ _APP_PARAMS: dict[str, dict[str, tuple]] = {
         "mean_think_ns": (np.float64, 0.0, parse_time_ns),
         "start_time": (np.int64, 0, parse_time_ns),
     },
+    "bitcoin": {},  # graph-structured config passes through `params`
     "phold": {},
 }
-_OTHER_APPS = ("bitcoin",)
 
 
 def _per_host_array(name, dtype, default, parser, groups, defaults,
@@ -133,6 +135,36 @@ def _group_values(name, val, conv, count, idx):
         assert len(val) == count, (name, count)
         return [conv(x) for x in val]
     return conv(val)
+
+
+def _gen_bitcoin_cfg(model_cfg: dict, h: int, seed: int) -> None:
+    """Expand bitcoin's generator specs into arrays, in place.
+
+    ``graph: {kind: ring_chord, k: K}`` → a symmetric K-regular peer graph
+    (ring ±1 plus power-of-4 chords); ``tx: {count, start, interval}`` →
+    staggered transactions at origins drawn from
+    ``RandomState(seed ^ 0xB17C01)``. Explicit ``peers`` / ``tx_origin`` /
+    ``tx_time`` arrays may be given instead."""
+    if "peers" not in model_cfg:
+        gspec = model_cfg.pop("graph", {})
+        k = int(gspec.get("k", 8))
+        assert k % 2 == 0 and k >= 2
+        chords = [1]
+        while len(chords) < k // 2:
+            chords.append(chords[-1] * 4)
+        peers = np.zeros((h, k), np.int32)
+        for ci, c in enumerate(chords):
+            peers[:, 2 * ci] = (np.arange(h) - c) % h
+            peers[:, 2 * ci + 1] = (np.arange(h) + c) % h
+        model_cfg["peers"] = peers
+    if "tx_origin" not in model_cfg:
+        tspec = model_cfg.pop("tx", {})
+        count = int(tspec.get("count", 50))
+        start = parse_time_ns(tspec.get("start", "1 s"))
+        interval = parse_time_ns(tspec.get("interval", "200 ms"))
+        rs = np.random.RandomState(seed ^ 0xB17C01)
+        model_cfg["tx_origin"] = rs.randint(0, h, count).astype(np.int64)
+        model_cfg["tx_time"] = (start + np.arange(count) * interval).astype(np.int64)
 
 
 @dataclasses.dataclass
@@ -221,10 +253,6 @@ def build_experiment(doc: dict, base_dir: str = ".") -> tuple[CompiledExperiment
     _reject_unknown("top-level config", doc,
                     ("general", "engine", "network", "hosts", "app",
                      "faults", "sweep", "probes"))
-    if doc.get("faults") is not None:
-        raise NotImplementedError(
-            "faults: is not ported yet (ROADMAP: fault plane and fidelity "
-            "gates)")
     if doc.get("probes") is not None:
         raise NotImplementedError(
             "probes: is not ported yet (ROADMAP: checkpoint and "
@@ -287,9 +315,6 @@ def build_experiment(doc: dict, base_dir: str = ".") -> tuple[CompiledExperiment
     appsec = doc.get("app", {"model": "phold"})
     _reject_unknown("app:", appsec, ("model", "params", "defaults", "groups"))
     app = appsec["model"]
-    if app in _OTHER_APPS:
-        raise NotImplementedError(
-            f"app model {app!r} is not ported yet (ROADMAP: the other apps)")
     schema = _APP_PARAMS.get(app)
     assert schema is not None, f"unknown app model {app!r}"
     dns = Dns.from_groups(groups, host_vertex)
@@ -321,6 +346,11 @@ def build_experiment(doc: dict, base_dir: str = ".") -> tuple[CompiledExperiment
     for pname, (dtype, default, parser) in schema.items():
         model_cfg[pname] = _per_host_array(
             pname, dtype, default, parser, groups, defaults, group_cfg, h)
+    from shadow1_tpu_torch.fault.schedule import parse_faults
+
+    faults = parse_faults(doc.get("faults"), groups, names)
+    if app == "bitcoin":
+        _gen_bitcoin_cfg(model_cfg, h, seed)
     if app == "phold":
         model_cfg.setdefault("mean_delay_ns", float(10 * MS))
         model = "phold"
@@ -339,6 +369,7 @@ def build_experiment(doc: dict, base_dir: str = ".") -> tuple[CompiledExperiment
         model_cfg=model_cfg,
         jitter_vv=jitter_vv,
         aqm_pmax=aqm_pmax,
+        faults=faults,
         dns=dns,
         vertex_names=[str(n) for n in names],
         **per_host,

@@ -35,8 +35,6 @@ from shadow1_tpu_torch.core.events import I32_FREE
 
 # Ctx fields indexed by LOCAL host lane (everything else — vertex tables,
 # host_vertex (global-id-indexed), scalars, static flags — stays as is).
-# The port's Ctx has only the first three; the rest name the reference's
-# fault, CPU and queue tables, which the port refuses today.
 _CTX_HOST_FIELDS = (
     "hosts", "bw_up", "bw_dn", "fault_down", "fault_up", "cpu_cost",
     "tx_qlen_ns", "rx_qlen_ns", "aqm_min_ns", "aqm_span_ns", "aqm_pmax_thr",

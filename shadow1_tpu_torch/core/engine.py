@@ -18,6 +18,13 @@ per round the continue test (``any_eligible``) and one read of which
 handler kinds popped, plus the model's own (``tcp/tcp.py``, ``apps/*``);
 with ``compact_cap`` one more per window (``core/compact.py``).
 
+The fidelity gates run where the reference runs them: host churn (the
+fault plane's down intervals) and the virtual CPU between pop and
+dispatch (``run_round``; the CPU's deferrals go back through
+``popk.push_back``), edge jitter, link outages and loss ramps in
+``route_outbox``, dead destinations in ``deliver_flat``, and the restart
+reset before a window's rounds (``ph_prepare``).
+
 Module and function names follow the reference so each counterpart is found
 under the same name. Parts of the reference this slice does not run raise
 ``NotImplementedError`` when a config asks for them (``check_supported``).
@@ -38,7 +45,9 @@ from shadow1_tpu_torch.config.compiled import NO_STOP, CompiledExperiment
 from shadow1_tpu_torch.consts import (
     K_NONE,
     KIND_METRIC_FIELDS,
+    R_JITTER,
     R_LOSS,
+    SEC,
     EngineParams,
     packet_tb,
 )
@@ -56,6 +65,7 @@ from shadow1_tpu_torch.core.outbox import (
     outbox_fill,
     outbox_init,
 )
+from shadow1_tpu_torch.core import popk
 from shadow1_tpu_torch.core.popk import pop_until
 
 
@@ -145,9 +155,22 @@ class Ctx:
     # An app's static tables that are not per-host (Tor's path tables),
     # set by the net model's make_handlers on the ctx its handlers see.
     app_tables: Any = None
-    # The reference's fidelity flags. ``check_supported`` refuses every
-    # configuration that sets one, so they are all False here; the net
-    # model reads them where the reference does.
+    # Fidelity tables (``fidelity_ctx_kwargs``), [H] or [V, V] on the
+    # device, and the fault plane's: host h is down at t iff some k has
+    # fault_down[k, h] <= t < fault_up[k, h].
+    jitter_vv: torch.Tensor = None    # i64 [V, V]
+    fault_down: torch.Tensor = None   # i64 [K, H]
+    fault_up: torch.Tensor = None     # i64 [K, H] (window-quantized)
+    link_fault: Any = None            # (src, dst, t0, t1) [L] or None
+    loss_ramp: Any = None             # (src, dst, t0, t1, thr) [R] or None
+    init_model: Any = None            # post-init model state (restarts)
+    cpu_cost: torch.Tensor = None     # i64 [H] virtual CPU ns per event
+    tx_qlen_ns: torch.Tensor = None   # i64 [H] uplink bound (backlog ns)
+    rx_qlen_ns: torch.Tensor = None   # i64 [H]
+    aqm_min_ns: torch.Tensor = None   # i64 [H] RED min (backlog ns)
+    aqm_span_ns: torch.Tensor = None  # i64 [H] RED max − min (≥ 1)
+    aqm_pmax_thr: torch.Tensor = None # i64 [H] threshold at pmax (≤ 2**32)
+    # Which gates run; a gate that is off runs no operation.
     has_jitter: bool = False
     has_stop: bool = False
     has_restart: bool = False
@@ -185,30 +208,17 @@ def check_supported(exp: CompiledExperiment, params: EngineParams) -> None:
 
     from shadow1_tpu_torch.net import APPS
 
-    gates = "fault plane and fidelity gates"
     if exp.model == "net" and exp.model_cfg.get("app") not in APPS:
-        no(f"app {exp.model_cfg.get('app')!r}", "the other apps")
+        raise ValueError(f"unknown app {exp.model_cfg.get('app')!r}")
     if exp.model not in ("phold", "net"):
         raise ValueError(f"unknown model {exp.model!r}")
-    queues = "NIC queue bounds and RED AQM"
-    if np.asarray(exp.aqm_max_bytes).max() > 0:
-        no("aqm_max_bytes (RED AQM, has_aqm)", queues)
-    if np.asarray(exp.tx_qlen_bytes).max() > 0:
-        no("tx_queue_bytes (has_tx_qlen)", queues)
-    if np.asarray(exp.rx_qlen_bytes).max() > 0:
-        no("rx_queue_bytes (has_rx_qlen)", queues)
-    if exp.faults is not None:
-        no("faults:", gates)
-    if (np.asarray(exp.stop_time) < NO_STOP).any():
-        no("host stop_time (has_stop)", gates)
-    if np.asarray(exp.cpu_ns_per_event).max() > 0:
-        no("cpu_per_event (has_cpu)", gates)
-    if np.asarray(exp.jitter_vv).max() > 0:
-        no("network.jitter (has_jitter)", gates)
     if params.probes or params.link_telem:
         no("probes / link_telem", "checkpoint and observability")
     if params.auto_caps or params.on_overflow != "drop":
         no("auto_caps / on_overflow other than 'drop'", "recovery planes")
+    if params.selfcheck:
+        no("selfcheck (the drop-accounting identity at every boundary)",
+           "recovery planes")
 
 
 def check_digest_params(params: EngineParams) -> None:
@@ -221,11 +231,80 @@ def check_digest_params(params: EngineParams) -> None:
             "automatically)")
 
 
+_QLEN_INF = 1 << 62
+
+
+def qlen_ns_np(qlen_bytes, bw_bits) -> np.ndarray:
+    """NIC queue bound in serialization-time ns (0 bytes = unbounded)."""
+    q = np.asarray(qlen_bytes, np.int64)
+    bw = np.asarray(bw_bits, np.int64)
+    return np.where(q > 0, (q * 8 * SEC + bw - 1) // bw, _QLEN_INF)
+
+
+def aqm_tables_np(exp) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """RED per-host tables (min_ns, span_ns, pmax_thr), in numpy, once:
+    thresholds as uplink backlog ns (the drop-tail bound's ceil, but 0
+    bytes is 0 ns here), span clamped to ≥ 1 so the division is safe,
+    pmax_thr 0 wherever AQM is off."""
+    bw = np.asarray(exp.bw_up, np.int64)
+
+    def to_ns(b):
+        return (np.asarray(b, np.int64) * 8 * SEC + bw - 1) // bw
+
+    on = np.asarray(exp.aqm_max_bytes) > 0
+    min_ns = np.where(on, to_ns(exp.aqm_min_bytes), 0)
+    span_ns = np.maximum(np.where(on, to_ns(exp.aqm_max_bytes) - min_ns, 1), 1)
+    pmax_thr = np.where(on, rng.prob_threshold(exp.aqm_pmax), np.uint64(0))
+    return (min_ns.astype(np.int64), span_ns.astype(np.int64),
+            pmax_thr.astype(np.int64))
+
+
+def fidelity_ctx_kwargs(exp, device) -> dict:
+    """The Ctx fidelity tables and has_* flags of a CompiledExperiment,
+    the fault plane's tables included (``fault/schedule.py``: host down/up
+    intervals with the legacy stop_time merged in, link outages, loss
+    ramps), put on ``device`` once."""
+    from shadow1_tpu_torch.fault.schedule import (
+        host_interval_tensors,
+        link_tables,
+        ramp_tables,
+    )
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a).astype(np.int64), device=device)
+
+    aqm_min_ns, aqm_span_ns, aqm_pmax_thr = aqm_tables_np(exp)
+    fault_down, fault_up = host_interval_tensors(exp)
+    lf, rt = link_tables(exp), ramp_tables(exp)
+    return dict(
+        jitter_vv=t(exp.jitter_vv),
+        fault_down=t(fault_down),
+        fault_up=t(fault_up),
+        link_fault=tuple(t(a) for a in lf) if lf is not None else None,
+        loss_ramp=tuple(t(a) for a in rt) if rt is not None else None,
+        cpu_cost=t(exp.cpu_ns_per_event),
+        tx_qlen_ns=t(qlen_ns_np(exp.tx_qlen_bytes, exp.bw_up)),
+        rx_qlen_ns=t(qlen_ns_np(exp.rx_qlen_bytes, exp.bw_dn)),
+        aqm_min_ns=t(aqm_min_ns),
+        aqm_span_ns=t(aqm_span_ns),
+        aqm_pmax_thr=t(aqm_pmax_thr),
+        has_jitter=bool(np.asarray(exp.jitter_vv).max() > 0),
+        has_stop=bool(fault_down.min() < NO_STOP),
+        has_restart=bool((fault_up < NO_STOP).any()),
+        has_link_fault=lf is not None,
+        has_loss_ramp=rt is not None,
+        has_cpu=bool(np.asarray(exp.cpu_ns_per_event).max() > 0),
+        has_tx_qlen=bool(np.asarray(exp.tx_qlen_bytes).max() > 0),
+        has_rx_qlen=bool(np.asarray(exp.rx_qlen_bytes).max() > 0),
+        has_aqm=bool(np.asarray(exp.aqm_max_bytes).max() > 0),
+    )
+
+
 def build_base_ctx(exp: CompiledExperiment, params: EngineParams,
                    device, window: int | None = None) -> Ctx:
     """The single-device Ctx for a CompiledExperiment: topology constants,
     integer loss thresholds (computed host-side once, as the reference
-    does) and the per-experiment RNG key."""
+    does), the fidelity and fault tables and the per-experiment RNG key."""
     dev = torch.device(device)
 
     def t(a, dtype):
@@ -246,6 +325,7 @@ def build_base_ctx(exp: CompiledExperiment, params: EngineParams,
         model_cfg=exp.model_cfg,
         hosts=torch.arange(exp.n_hosts, dtype=torch.int32, device=dev),
         device=dev,
+        **fidelity_ctx_kwargs(exp, dev),
     )
 
 
@@ -287,14 +367,40 @@ def _kind_column(kinds: tuple, device: torch.device) -> torch.Tensor:
 def run_round(st: SimState, ctx: Ctx, handlers: dict, win_end) -> SimState:
     """One inner round: per-host pop-min, then the handler passes.
 
+    Two fidelity gates apply between pop and dispatch, as in the
+    reference: under churn an event of a host that is down at its time is
+    discarded (``down_events``); under the virtual CPU an event runs at
+    ``eff = max(time, cpu_busy)`` and charges ``cpu_busy = eff + cost``,
+    or, where ``eff`` reaches the window's end, goes back into the buffer
+    unexecuted at (eff, its own tie-break) through ``popk.push_back``,
+    called every round (the reference's unconditional push).
+
     With several handler kinds, each pass runs only if some host popped its
     kind (the reference's ``lax.cond``) and counts its ``fires_*``; which
-    kinds popped is known once the pop is done (a pass never changes the
-    popped events), so one device read serves every kind. A single handler
-    runs unconditionally, as in the reference."""
+    kinds popped is known once the gates are done (a pass never changes
+    the popped events), so one device read serves every kind. A single
+    handler runs unconditionally, as in the reference."""
     evbuf, ev = pop_until(st.evbuf, win_end, extract=ctx.params.pop_extract)
     st = st._replace(evbuf=evbuf)
     m = st.metrics
+    if ctx.has_stop:
+        from shadow1_tpu_torch.fault.plane import hosts_down_at
+
+        supp = ev.mask & hosts_down_at(ctx.fault_down, ctx.fault_up, ev.time)
+        m = m._replace(down_events=m.down_events + supp.sum(dtype=torch.int64))
+        ev = ev._replace(mask=ev.mask & ~supp,
+                         kind=torch.where(supp, K_NONE, ev.kind))
+    if ctx.has_cpu:
+        eff = torch.maximum(ev.time, st.cpu_busy)
+        defer = ev.mask & (eff >= win_end)
+        run = ev.mask & ~defer
+        evbuf, over = popk.push_back(st.evbuf, defer, eff, ev.tb, ev.kind,
+                                     ev.p)
+        st = st._replace(evbuf=evbuf, cpu_busy=torch.where(
+            run, eff + ctx.cpu_cost, st.cpu_busy))
+        m = m._replace(ev_overflow=m.ev_overflow + over.sum(dtype=torch.int64))
+        ev = ev._replace(mask=run, time=torch.where(run, eff, ev.time),
+                         kind=torch.where(defer, K_NONE, ev.kind))
     pops = {
         f[0]: getattr(m, f[0]) + (ev.mask & (ev.kind == k)).sum(dtype=torch.int64)
         for k, f in KIND_METRIC_FIELDS.items() if k in handlers
@@ -321,8 +427,13 @@ def run_round(st: SimState, ctx: Ctx, handlers: dict, win_end) -> SimState:
 
 
 def route_outbox(ctx: Ctx, ob: Outbox):
-    """Route this window's outbox: latency gather and loss draws. Returns
-    (flat_packets, n_sent, n_lost)."""
+    """Route this window's outbox: latency gather, the fault plane's gates
+    and the loss draws, in the reference's order. Edge jitter moves each
+    arrival by a draw in [-J, +J]; a packet departing inside a link outage
+    is dropped (``link_down_pkts``, never in ``pkts_lost``); otherwise the
+    loss draw applies at the path's threshold, or an active loss ramp's —
+    the same coin either way. Returns (flat_packets, n_sent, n_lost,
+    n_linkdown)."""
     cap, h = ob.dst.shape
     dev = ob.dst.device
     mask = torch.arange(cap, device=dev)[:, None] < ob.cnt[None, :]
@@ -339,34 +450,57 @@ def route_outbox(ctx: Ctx, ob: Outbox):
     vs = ctx.host_vertex[fsrc.long()].long()
     vd = ctx.host_vertex[fdst_safe.long()].long()
     arrival = fdep + ctx.lat_vv[vs, vd]
+    if ctx.has_jitter:
+        jit = ctx.jitter_vv[vs, vd]
+        jbits = rng.bits(ctx.key, R_JITTER, fsrc, fctr)
+        arrival = arrival + rng.randint(jbits, 2 * jit + 1).to(torch.int64) - jit
+    linkdown = torch.zeros_like(fmask)
+    if ctx.has_link_fault:
+        from shadow1_tpu_torch.fault.plane import link_down_mask
+
+        linkdown = fmask & link_down_mask(ctx.link_fault, vs, vd, fdep)
     thr = ctx.loss_thr_vv[vs, vd]
+    if ctx.has_loss_ramp:
+        from shadow1_tpu_torch.fault.plane import ramp_loss_thr
+
+        thr = ramp_loss_thr(ctx.loss_ramp, vs, vd, fdep, thr)
     bits = rng.bits(ctx.key, R_LOSS, fsrc, fctr)
-    lost = fmask & rng.uniform_lt(bits, thr)
-    keep = fmask & ~lost
+    lost = fmask & ~linkdown & rng.uniform_lt(bits, thr)
+    keep = fmask & ~lost & ~linkdown
     tb = packet_tb(fsrc.to(torch.int64), fctr)
     fp = FlatPackets(dst=fdst_safe, arrival=arrival, tb=tb, kind=flat(ob.kind),
                      p=flat(ob.p), keep=keep)
-    return fp, fmask.sum(dtype=torch.int64), lost.sum(dtype=torch.int64)
+    return (fp, fmask.sum(dtype=torch.int64), lost.sum(dtype=torch.int64),
+            linkdown.sum(dtype=torch.int64))
 
 
 def deliver_flat(evbuf: EventBuf, ctx: Ctx, fp: FlatPackets):
-    """Scatter the routed packets into this block's event buffers. Returns
-    (evbuf, n_delivered, n_overflow)."""
+    """Scatter the routed packets into this block's event buffers; under
+    churn a packet that arrives while its destination is down is dropped
+    here. Returns (evbuf, n_delivered, n_overflow, n_down)."""
     local = fp.dst - ctx.hosts[0]
     mine = fp.keep & (local >= 0) & (local < ctx.n_hosts)
     local = torch.where(mine, local, 0)
+    n_down = torch.zeros((), dtype=torch.int64, device=fp.dst.device)
+    if ctx.has_stop:
+        from shadow1_tpu_torch.fault.plane import hosts_down_at_idx
+
+        to_down = mine & hosts_down_at_idx(ctx.fault_down, ctx.fault_up,
+                                           local, fp.arrival)
+        n_down = to_down.sum(dtype=torch.int64)
+        mine = mine & ~to_down
     evbuf, n_over = deliver_batch(evbuf, local, fp.arrival, fp.tb, fp.kind,
                                   fp.p, mine)
-    return evbuf, mine.sum(dtype=torch.int64) - n_over, n_over
+    return evbuf, mine.sum(dtype=torch.int64) - n_over, n_over, n_down
 
 
 def deliver_window(st: SimState, ctx: Ctx) -> SimState:
     """Window-end packet exchange: route, then scatter; clears the outbox."""
-    fp, n_sent, n_lost = route_outbox(ctx, st.outbox)
+    fp, n_sent, n_lost, n_linkdown = route_outbox(ctx, st.outbox)
     # Read before the window-end clear.
     ob_fill = outbox_fill(st.outbox)
     ob_hosts = (st.outbox.cnt > 0).sum(dtype=torch.int64)
-    evbuf, n_deliv, n_over = deliver_flat(st.evbuf, ctx, fp)
+    evbuf, n_deliv, n_over, n_down = deliver_flat(st.evbuf, ctx, fp)
     m = st.metrics
     return st._replace(
         evbuf=evbuf,
@@ -377,6 +511,8 @@ def deliver_window(st: SimState, ctx: Ctx) -> SimState:
             pkts_lost=m.pkts_lost + n_lost,
             ev_overflow=m.ev_overflow + n_over,
             ob_max_fill=torch.maximum(m.ob_max_fill, ob_fill),
+            down_pkts=m.down_pkts + n_down,
+            link_down_pkts=m.link_down_pkts + n_linkdown,
             outbox_hosts=m.outbox_hosts + ob_hosts,
         ),
     )
@@ -419,6 +555,25 @@ def window_phases(ctx: Ctx, handlers: dict, make_handlers, pre_window=None):
 
     def ph_prepare(fr: WindowFrame) -> WindowFrame:
         st, win_end = fr.st, fr.win_end
+        if ctx.has_restart:
+            # Hosts whose window-quantized up time is this window's start
+            # get their model columns restored to the post-init capture
+            # and their virtual-CPU clock zeroed, before the rounds. The
+            # event buffer is left alone: stale events of the down
+            # interval are discarded at pop.
+            from shadow1_tpu_torch.fault.plane import (
+                reset_host_columns,
+                restart_mask,
+            )
+
+            rs = restart_mask(ctx.fault_up, st.win_start)
+            mr = st.metrics
+            st = st._replace(
+                model=reset_host_columns(st.model, ctx.init_model, rs,
+                                         ctx.n_hosts),
+                cpu_busy=torch.where(rs, 0, st.cpu_busy),
+                metrics=mr._replace(host_restarts=mr.host_restarts
+                                    + rs.sum(dtype=torch.int64)))
         n_act = n_el = None
         if pre_window is not None:
             # Work gauges BEFORE the hook rewrites event times: the raw
@@ -541,6 +696,14 @@ class Engine:
         self.ctx = build_base_ctx(exp, self.params, self.device,
                                   window=self.window)
         self._model = _model_module(exp.model)
+        if self.ctx.has_restart:
+            # The restart target: the model state exactly as init builds
+            # it, a second copy on the device, kept only when some host
+            # restarts.
+            model0, _, _ = self._model.init(
+                self.ctx, evbuf_init(exp.n_hosts, self.params.ev_cap,
+                                     self.device))
+            self.ctx = dataclasses.replace(self.ctx, init_model=model0)
         self._handlers = self._model.make_handlers(self.ctx)
         self._pre_window = getattr(self._model, "make_pre_window",
                                    lambda c: None)(self.ctx)

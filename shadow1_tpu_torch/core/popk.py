@@ -35,34 +35,29 @@ An argument that already has the kernel's dtype, shape and layout is
 handed over as it is; any other is converted first (``_arg``).
 
 Every kernel launch adds one to ``LAUNCHES[name]``, and nothing else does,
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels; the push
+kernel's launches are also counted by public entry in ``PUSH_ENTRIES``
+(``push_local``, ``push_back``).
 
 The port runs PHOLD and the net model with the ``filexfer``, ``tgen``,
-``dgram`` and ``tor`` apps (NIC, TCP, UDP sends, the per-window state
-digests and telemetry ring), with active-host compaction
+``dgram``, ``tor`` and ``bitcoin`` apps (NIC with its queue bounds and RED
+AQM, TCP, UDP sends, the per-window state digests and telemetry ring), the
+fault plane and the fidelity gates, with active-host compaction
 (``core/compact.py``: under it the kernels get the bucket's ``[C, cap]``
 planes, fresh contiguous copies). What it leaves out, and where it is
 refused — each refusal is a ``NotImplementedError`` whose message names
 the ROADMAP item that will add it (``core/engine.py check_supported``,
 ``config/experiment.py build_experiment``, ``cli.py``, ``convert.py``):
 
-* the app ``bitcoin`` — "the other apps";
-* NIC queue bounds (``tx_queue_bytes``, ``rx_queue_bytes``: ``has_tx_qlen``,
-  ``has_rx_qlen``, and with them the per-round K_PKT handler ``on_pkt``)
-  and RED AQM (``aqm_max_bytes``, ``has_aqm``) — "NIC queue bounds and RED
-  AQM";
-* ``faults:``, host stop times (``has_stop``), the virtual CPU
-  (``cpu_per_event``, ``has_cpu``) and edge jitter (``network.jitter``,
-  ``has_jitter``); link faults and loss ramps come only from ``faults:`` —
-  "fault plane and fidelity gates";
 * ``probes`` / ``probes:`` and ``link_telem`` — "checkpoint and
   observability";
-* ``auto_caps`` and ``on_overflow`` other than "drop" — "recovery planes";
+* ``auto_caps``, ``on_overflow`` other than "drop" and ``selfcheck`` —
+  "recovery planes";
 * ``scheduler: sharded`` — "fleet, shard, serve".
 
 ``push_back``'s kernel is the push kernel with the original tie-break; the
-engine reaches it only under ``has_cpu``, which is refused, so the PHOLD
-and net paths launch the push kernel through ``push_local`` alone.
+engine reaches it under the virtual CPU (``has_cpu``), once per round, to
+put back the events it defers past the window's end.
 """
 
 from __future__ import annotations
@@ -81,6 +76,8 @@ from shadow1_tpu_torch.core.outbox import Outbox, outbox_append_plain
 
 # Kernel launches on CUDA tensors, by kernel name; set to 0 to start a count.
 LAUNCHES = {"pop": 0, "push": 0, "obox": 0}
+# The push kernel's launches by public entry; they sum to LAUNCHES["push"].
+PUSH_ENTRIES = {"push_local": 0, "push_back": 0}
 
 _I32, _I64 = torch.int32, torch.int64
 
@@ -162,7 +159,8 @@ def pop_until(buf: EventBuf, until, extract: str = "sum") -> tuple[EventBuf, Pop
 def _push_cuda(buf: EventBuf, mask, time, tb, kind, p, *, advance_ctr: bool):
     """One launch of the push kernel: where ``mask``, the event goes into
     the host's first free slot, in place. Returns (buf with the new
-    ``n_elig`` — and ``self_ctr`` when ``advance_ctr`` — , overflow)."""
+    ``n_elig`` — and ``self_ctr`` when ``advance_ctr`` (``push_local``) —,
+    overflow)."""
     from shadow1_tpu_torch.core._build import library
 
     cap, h = buf.kind.shape
@@ -187,6 +185,7 @@ def _push_cuda(buf: EventBuf, mask, time, tb, kind, p, *, advance_ctr: bool):
             buf.u32, buf.n_elig, buf.time_hi, buf.time_lo, buf.t32,
             buf.tb_hi, buf.tb_lo, buf.kind, buf.p, over, n_elig, ctr, cap, h,
             int(advance_ctr), _stream(dev))
+    PUSH_ENTRIES["push_local" if advance_ctr else "push_back"] += 1
     if advance_ctr:
         return buf._replace(n_elig=n_elig, self_ctr=ctr), over
     return buf._replace(n_elig=n_elig), over

@@ -1,19 +1,21 @@
 """The "net" workload model: NIC + TCP transport + a model application
 (port of ``net/__init__.py``).
 
-Per arrived packet: the NIC receive queue (batched once per window by
-``make_pre_window``, which turns each window's K_PKT arrivals into
-K_PKT_DELIVER events at their queue-cleared times) → TCP processing
+Per arrived packet: the NIC receive queue → TCP processing
 (``K_PKT_DELIVER``) → app notification → app reaction (sends, closes) in
 the same round. Retransmit timers (``K_TCP_TIMER``), transmit resumes
 (``K_TX_RESUME``) and app wakeups (``K_APP``) are events of their own.
 
+The receive queue runs one of two ways, as in the reference. By default
+``make_pre_window`` batches it once per window, turning each window's
+K_PKT arrivals into K_PKT_DELIVER events at their queue-cleared times.
+With an rx queue bound or the virtual CPU on, every arrival is a K_PKT
+event of its own, and the per-round handler ``on_pkt`` stamps the queue
+(dropping where the bound says) and pushes its K_PKT_DELIVER.
+
 model_cfg: ``{"app": <name>, ...app-specific numpy arrays}``. The port
-runs the ``filexfer``, ``tgen``, ``dgram`` (through ``udp_send``) and
-``tor`` apps. Not ported yet, and refused by ``core/engine.py
-check_supported``: the ``bitcoin`` app, and the per-round K_PKT handler
-(``on_pkt``), which the reference runs only with an rx queue bound or the
-virtual CPU.
+runs the ``filexfer``, ``tgen``, ``dgram`` (through ``udp_send``), ``tor``
+and ``bitcoin`` apps.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from shadow1_tpu_torch.consts import (
     F_DGRAM,
     K_APP,
+    K_NONE,
     K_PKT,
     K_PKT_DELIVER,
     K_TCP_TIMER,
@@ -36,8 +39,15 @@ from shadow1_tpu_torch.consts import (
 )
 from shadow1_tpu_torch.core.dense import payload
 from shadow1_tpu_torch.core.events import I64_MAX, tb_join, tb_split
+from shadow1_tpu_torch.core import popk
 from shadow1_tpu_torch.core.popk import outbox_append
-from shadow1_tpu_torch.net.nic import NicState, nic_init, tx_stamp
+from shadow1_tpu_torch.net.nic import (
+    NicState,
+    ctx_aqm,
+    nic_init,
+    rx_stamp,
+    tx_stamp,
+)
 from shadow1_tpu_torch.tcp import tcp as T
 
 
@@ -48,13 +58,12 @@ class NetState(NamedTuple):
 
 
 # The apps the port runs (``apps/<name>.py``).
-APPS = ("filexfer", "dgram", "tgen", "tor")
+APPS = ("filexfer", "dgram", "tgen", "tor", "bitcoin")
 
 
 def _app_module(name: str):
     if name not in APPS:
-        raise NotImplementedError(
-            f"app {name!r} is not ported yet (ROADMAP: the other apps)")
+        raise ValueError(f"unknown app {name!r}")
     import importlib
 
     return importlib.import_module(f"shadow1_tpu_torch.apps.{name}")
@@ -72,16 +81,17 @@ def init(ctx, evbuf):
 
 def udp_send(st, ctx, mask, dst_host, dst_sock, length, meta, meta2, now):
     """Datagram send: NIC uplink stamp, then an outbox packet with
-    F_DGRAM; no handshake, no reliability (loss and latency still apply).
-    The reference's link-telemetry branch is not ported:
-    ``check_supported`` refuses ``link_telem``."""
+    F_DGRAM; no handshake, no reliability (loss and latency still apply;
+    so do the uplink queue bound and RED). The reference's link-telemetry
+    branch is not ported: ``check_supported`` refuses ``link_telem``."""
     length = torch.as_tensor(length).to(torch.int32)
     p = payload(ctx.n_hosts, ctx.hosts, T.pack_meta(0, dst_sock, F_DGRAM),
                 None, None, length, None, None, meta, meta2,
                 device=ctx.device)
     wire = length.to(torch.int64) + WIRE_OVERHEAD
-    nic, depart, sent, red = tx_stamp(st.model.nic, mask, wire, now,
-                                      ctx.bw_up)
+    nic, depart, sent, red = tx_stamp(
+        st.model.nic, mask, wire, now, ctx.bw_up,
+        ctx.tx_qlen_ns if ctx.has_tx_qlen else None, aqm=ctx_aqm(ctx))
     k = torch.full((ctx.n_hosts,), K_PKT, dtype=torch.int32,
                    device=ctx.device)
     outbox, ok = outbox_append(st.outbox, sent, dst_host, k, depart, p)
@@ -117,13 +127,31 @@ def make_pre_window(ctx):
     closed form: with ``P_j = cumsum(ser)`` and ``q_i = t_i + ser_i``
     (``-2**62`` on invalid slots, whose ser is 0),
     ``free_j = P_j + max(free0, cummax_{i<=j}(q_i - P_i))`` — the
-    reference's prefix term for term, exact in i64."""
+    reference's prefix term for term, exact in i64.
+
+    Returns None (the per-round ``on_pkt`` then runs) with an rx queue
+    bound, whose drops feed back into the clock recurrence, or with the
+    virtual CPU, under which every arrival is charged CPU time. Under the
+    fault plane a down host discards its arrivals here, unprocessed and
+    counted in ``down_events``: they reserve no downlink."""
+    if ctx.has_rx_qlen or ctx.has_cpu:
+        return None
     neg = -(1 << 62)
 
     def pre_window(st, _ctx, win_end):
         buf = st.evbuf
         abs_t = buf.abs_time()
         sel = (buf.kind == K_PKT) & (abs_t < win_end)
+        kind0, time0, m = buf.kind, abs_t, st.metrics
+        if ctx.has_stop:
+            from shadow1_tpu_torch.fault.plane import hosts_down_at
+
+            down = sel & hosts_down_at(ctx.fault_down, ctx.fault_up, abs_t)
+            sel = sel & ~down
+            kind0 = torch.where(down, K_NONE, kind0)
+            time0 = torch.where(down, I64_MAX, time0)
+            m = m._replace(down_events=m.down_events
+                           + down.sum(dtype=torch.int64))
         t_key = torch.where(sel, abs_t, I64_MAX)
         tb = tb_join(buf.tb_hi, buf.tb_lo)
         perm = torch.sort(tb, dim=0, stable=True).indices
@@ -147,10 +175,11 @@ def make_pre_window(ctx):
             rx_free=free[-1, :],
             rx_bytes=st.model.nic.rx_bytes + wire.sum(dim=0),
         )
-        thi, tlo = tb_split(torch.where(vo, ready_o, abs_t))
-        evbuf = buf._replace(kind=torch.where(vo, K_PKT_DELIVER, buf.kind),
+        thi, tlo = tb_split(torch.where(vo, ready_o, time0))
+        evbuf = buf._replace(kind=torch.where(vo, K_PKT_DELIVER, kind0),
                              time_hi=thi, time_lo=tlo)
-        return st._replace(evbuf=evbuf, model=st.model._replace(nic=nic))
+        return st._replace(evbuf=evbuf, model=st.model._replace(nic=nic),
+                           metrics=m)
 
     return pre_window
 
@@ -160,6 +189,26 @@ def make_handlers(ctx):
     if hasattr(app_mod, "tables"):
         ctx = dataclasses.replace(
             ctx, app_tables=app_mod.tables(ctx.model_cfg, ctx.device))
+
+    def on_pkt(st, ev):
+        """K_PKT: the packet reached the destination NIC — stamp the
+        receive queue (drop-tail under its bound), then one push of its
+        K_PKT_DELIVER at the queue-cleared time."""
+        m = ev.mask & (ev.kind == K_PKT)
+        wire = ev.p[4].to(torch.int64) + WIRE_OVERHEAD
+        nic, ready, okq = rx_stamp(
+            st.model.nic, m, wire, ev.time, ctx.bw_dn,
+            ctx.rx_qlen_ns if ctx.has_rx_qlen else None)
+        k = torch.full((ctx.n_hosts,), K_PKT_DELIVER, dtype=torch.int32,
+                       device=ctx.device)
+        evbuf, over = popk.push_local(st.evbuf, okq, ready, k, ev.p)
+        met = st.metrics
+        return st._replace(
+            evbuf=evbuf, model=st.model._replace(nic=nic),
+            metrics=met._replace(
+                ev_overflow=met.ev_overflow + over.sum(dtype=torch.int64),
+                nic_rx_drops=met.nic_rx_drops
+                + (m & ~okq).sum(dtype=torch.int64)))
 
     def on_deliver(st, ev):
         """K_PKT_DELIVER: the packet cleared the NIC — TCP, then the app."""
@@ -179,9 +228,12 @@ def make_handlers(ctx):
     def on_app(st, ev):
         return app_mod.on_wakeup(st, ctx, ev, ev.mask & (ev.kind == K_APP))
 
-    # No K_PKT pass: make_pre_window converts every arrival.
-    return {K_PKT_DELIVER: on_deliver, K_TCP_TIMER: on_timer,
-            K_TX_RESUME: on_txr, K_APP: on_app}
+    handlers = {K_PKT: on_pkt, K_PKT_DELIVER: on_deliver,
+                K_TCP_TIMER: on_timer, K_TX_RESUME: on_txr, K_APP: on_app}
+    if not (ctx.has_rx_qlen or ctx.has_cpu):
+        # make_pre_window converts every arrival: no K_PKT reaches a round.
+        del handlers[K_PKT]
+    return handlers
 
 
 def summary(model: NetState, ctx) -> dict:

@@ -3,10 +3,11 @@
 
 One "link free at" clock per direction per host: a packet of wire length L
 departs at ``max(now, tx_free)`` and holds the link ``ceil(8·L / bw)`` ns;
-the receive side delays packet processing the same way. The drop-tail
-queue bound (``qlen_ns``) is ported; RED AQM (``tx_stamp``'s ``aqm``, a u64
-Q16 pipeline) is not — ``core/engine.py check_supported`` refuses it, and
-``aqm_ctr`` stays 0.
+the receive side delays packet processing the same way. Two drop gates,
+both off by default: the drop-tail queue bound (``qlen_ns``) on either
+direction, and RED AQM on the uplink (``tx_stamp``'s ``aqm``). The RED
+pipeline is the reference's u64 Q16 one in int64: every product stays
+below 2**63 (``pmax_thr`` ≤ 2**32, the Q16 ratio ≤ 2**16).
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import NamedTuple
 
 import torch
 
-from shadow1_tpu_torch.consts import SEC
+from shadow1_tpu_torch import rng
+from shadow1_tpu_torch.consts import R_AQM, SEC
 
 
 class NicState(NamedTuple):
@@ -31,20 +33,52 @@ def nic_init(n_hosts: int, device) -> NicState:
                       for _ in NicState._fields))
 
 
+def ctx_aqm(ctx):
+    """The ``aqm`` argument of ``tx_stamp`` from an engine Ctx (None: off)."""
+    if not ctx.has_aqm:
+        return None
+    return (ctx.key, ctx.hosts, ctx.aqm_min_ns, ctx.aqm_span_ns,
+            ctx.aqm_pmax_thr)
+
+
+_RED_CERTAIN = 1 << 32  # the threshold meaning "always"
+
+
 def ser_delay(wire_bytes, bw_bits):
     """ceil(8e9 · bytes / bw) ns, in integers."""
     w = torch.as_tensor(wire_bytes).to(torch.int64)
     return (w * (8 * SEC) + bw_bits - 1) // bw_bits
 
 
-def tx_stamp(nic: NicState, mask, wire_bytes, now, bw_up, qlen_ns=None):
+def tx_stamp(nic: NicState, mask, wire_bytes, now, bw_up, qlen_ns=None,
+             aqm=None):
     """Reserve the uplink: returns (nic', depart_time[H], ok[H], red[H]).
-    With ``qlen_ns`` (the queue bound as serialization backlog) a packet
-    is dropped (ok False, link not reserved) when the backlog already
-    exceeds it. ``red`` (RED early drops) is all False: AQM is not
-    ported."""
+
+    Two drop gates, in order:
+
+    * **RED early drop** (``aqm`` from ``ctx_aqm``): with backlog q the
+      drop probability ramps linearly from 0 to pmax over [min, min + span)
+      and is 1 from min + span on. The coin is ``rng.bits`` at (R_AQM,
+      host, the host's attempt counter), and the counter advances on every
+      masked attempt, dropped or not;
+    * **drop-tail** (``qlen_ns``, the bound as serialization backlog): a
+      packet is dropped (ok False, link not reserved) when the backlog
+      already exceeds the bound.
+    """
     red = torch.zeros_like(mask)
     now = torch.as_tensor(now).to(torch.int64)
+    if aqm is not None:
+        key, hosts, min_ns, span_ns, pmax_thr = aqm
+        coin = rng.bits(key, R_AQM, hosts, nic.aqm_ctr)
+        nic = nic._replace(aqm_ctr=nic.aqm_ctr + mask.to(torch.int64))
+        backlog = torch.clamp(nic.tx_free - now, min=0)
+        delta = torch.minimum(torch.clamp(backlog - min_ns, min=0), span_ns)
+        ratio_q16 = (delta << 16) // span_ns
+        thr = (pmax_thr * ratio_q16) >> 16
+        thr = torch.where(delta >= span_ns, _RED_CERTAIN, thr)
+        thr = torch.where(pmax_thr > 0, thr, 0)
+        red = mask & rng.uniform_lt(coin, thr)
+        mask = mask & ~red
     if qlen_ns is not None:
         mask = mask & ((nic.tx_free - now) <= qlen_ns)
     depart = torch.maximum(now, nic.tx_free)

@@ -79,7 +79,7 @@ from shadow1_tpu_torch.core.engine import push_local_event
 from shadow1_tpu_torch.core.events import tb_join, tb_split
 from shadow1_tpu_torch.core.outbox import outbox_space
 from shadow1_tpu_torch.core.popk import outbox_append
-from shadow1_tpu_torch.net.nic import tx_stamp
+from shadow1_tpu_torch.net.nic import ctx_aqm, tx_stamp
 
 # Fields of the TCP state dict, all [S, H]. ``snd_max`` is the highest
 # sequence ever sent: cumulative-ACK acceptance tests against it, not the
@@ -222,7 +222,9 @@ def _emit(st, ctx, r: Sock, mask, flags, seq, length, mend, mmeta, now):
                 seq, r.g("rcv_nxt"), length, ctx.params.rcvbuf, mend, mmeta,
                 device=ctx.device)
     wire = length.to(torch.int64) + WIRE_OVERHEAD
-    nic, depart, sent, red = tx_stamp(st.model.nic, mask, wire, now, ctx.bw_up)
+    nic, depart, sent, red = tx_stamp(
+        st.model.nic, mask, wire, now, ctx.bw_up,
+        ctx.tx_qlen_ns if ctx.has_tx_qlen else None, aqm=ctx_aqm(ctx))
     # A queue-dropped segment behaves like path loss: sequence state
     # advanced, packet never routed.
     outbox, ok = outbox_append(st.outbox, sent, r.g("peer_host"), _k_pkt(ctx),
@@ -298,6 +300,8 @@ def tcp_flush(st, ctx, mask, sock, now):
     ob = st.outbox
     k_pkt = _k_pkt(ctx)
     p1 = pack_meta(sock, peer_sock, 0)
+    aqm = ctx_aqm(ctx)
+    qlen = ctx.tx_qlen_ns if ctx.has_tx_qlen else None
     end = app_end + fin_p
     for _ in range(pr.send_burst):
         pending = (nxt - end) < 0
@@ -328,7 +332,7 @@ def tcp_flush(st, ctx, mask, sock, now):
         length = torch.where(has_m, dmin, length)
         wire = length.to(torch.int64) + WIRE_OVERHEAD
         nic_run, depart, sent, red = tx_stamp(nic_run, can, wire, now64,
-                                              ctx.bw_up)
+                                              ctx.bw_up, qlen, aqm=aqm)
         n_tx_drop = n_tx_drop + (can & ~sent & ~red).sum(dtype=torch.int64)
         n_red = n_red + red.sum(dtype=torch.int64)
         p = payload(h, ctx.hosts, p1 | (flags << 16), nxt, rcv_nxt, length,

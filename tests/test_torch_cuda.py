@@ -26,7 +26,10 @@ version again: pop over many 48-slot batches, with the best slot in a
 later batch and ties across batches; push into nearly full 512-slot
 buffers; the outbox at P = 64. A filexfer engine run on CUDA equals the
 same run on the CPU, its per-window digest words included, and so do
-small tgen, Tor and dgram runs with active-host compaction on.
+small tgen, Tor and dgram runs with active-host compaction on, a small
+Bitcoin flood, and a two-tile run with every fidelity gate on, whose
+virtual CPU launches the push kernel through ``push_back`` every round
+and defers events through it.
 """
 
 import numpy as np
@@ -470,3 +473,63 @@ def test_apps_cuda_match_cpu(dev, app):
     assert runs[1] == runs[0]
     if app != "dgram":
         assert runs[1][3]["compact"] > 0 and runs[1][3]["full"] > 0
+
+
+def _run_both(dev, exp, params):
+    """(metrics, ring rows, summary, push launches by entry) of a run on
+    the CPU and of the same run on the card."""
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+
+    runs = []
+    for d in ("cpu", dev):
+        eng = Engine(exp, params, device=d)
+        for counts in (popk.LAUNCHES, popk.PUSH_ENTRIES):
+            for k in counts:
+                counts[k] = 0
+        st = eng.run()
+        runs.append((Engine.metrics_dict(st), drain_ring(st, eng.window),
+                     {k: v.tolist()
+                      for k, v in eng.model_summary(st).items()}))
+    assert all(n > 0 for n in popk.LAUNCHES.values()), popk.LAUNCHES
+    assert runs[1] == runs[0]
+    return runs[1][0], dict(popk.PUSH_ENTRIES)
+
+
+def test_bitcoin_cuda_matches_cpu(dev):
+    """A 40-host Bitcoin flood (ring-chord k = 4, 6 transactions): metrics,
+    the summary (who saw which tx, and when) and every ring row on CUDA
+    equal the CPU's."""
+    from shadow1_tpu_torch.config.compiled import bitcoin_experiment
+
+    exp = bitcoin_experiment(40, 3, 40 * 20 * MS, latency_ns=20 * MS,
+                             bw_bits=10**7, k=4, n_tx=6, tx_start=100 * MS,
+                             tx_interval=50 * MS)
+    m, _ = _run_both(dev, exp, EngineParams(
+        ev_cap=96, sockets_per_host=16, msgq_cap=16, max_rounds=1024,
+        metrics_ring=40, state_digest=1))
+    assert m["events"] > 0
+
+
+def test_push_back_in_path_cuda_matches_cpu(dev):
+    """Two tiles of the fidelity16k layout (every gate on, compact_cap 8):
+    on CUDA the virtual CPU launches the push kernel through push_back
+    once per round, defers events through it, and the run equals the
+    CPU's."""
+    from shadow1_tpu_torch.config.compiled import fidelity_filexfer_experiment
+
+    exp = fidelity_filexfer_experiment(2, 42, 400 * MS)
+    seen = []
+    push_back = popk.push_back
+
+    def counting(buf, mask, *args):
+        seen.append(int(mask.sum()))
+        return push_back(buf, mask, *args)
+
+    popk.push_back = counting
+    try:
+        m, entries = _run_both(dev, exp, EngineParams(
+            ev_cap=512, compact_cap=8, metrics_ring=11, state_digest=1))
+    finally:
+        popk.push_back = push_back
+    assert entries["push_back"] == m["rounds"] and entries["push_local"] > 0
+    assert sum(seen) > 0 and m["host_restarts"] == 6

@@ -256,7 +256,8 @@ def test_pre_window_matches_jax(seed, c, h):
     st_j = _State(_evbuf_j(kind, time, tb, p, h),
                   _Model(nic_j.NicState(*(jnp.asarray(a) for a in nic))), 0)
     want = net_j.make_pre_window(ctx_j)(st_j, ctx_j, jnp.asarray(WIN_END))
-    ctx_t = types.SimpleNamespace(bw_dn=torch.from_numpy(bw))
+    ctx_t = types.SimpleNamespace(has_rx_qlen=False, has_cpu=False,
+                                  has_stop=False, bw_dn=torch.from_numpy(bw))
     st_t = _State(
         convert._convert(_np_tree(st_j.evbuf),
                          lambda a: torch.from_numpy(np.array(a))),
@@ -328,17 +329,20 @@ def _refused_doc(kind):
 @pytest.mark.parametrize("kind", ["tor", "bitcoin", "dgram", "aqm",
                                   "tx_queue_bytes", "rx_queue_bytes"])
 def test_net_refusals_name_roadmap(kind):
-    """What the net slice does not run yet fails loudly, naming its ROADMAP
-    item: Bitcoin (the other apps), NIC queue bounds and RED AQM. The Tor
-    and dgram apps run since the app slice: their configs are accepted."""
-    if kind in ("tor", "dgram"):
-        exp, params, _ = xt.build_experiment(_refused_doc(kind),
-                                             base_dir=str(RUNG1.parent))
-        EngineT(exp, params, device="cpu")
-        return
-    item = "the other apps" if kind == "bitcoin" else \
-        "NIC queue bounds and RED AQM"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
-        exp, params, _ = xt.build_experiment(_refused_doc(kind),
-                                             base_dir=str(RUNG1.parent))
-        EngineT(exp, params, device="cpu")
+    """The name is historical: these are the configs the net slice once
+    refused, and the test keeps its name and its cases so that its record
+    holds; it refuses nothing now (``test_torch_app_configs.py
+    test_check_supported_refuses`` holds the refusals that stand). The
+    Tor and dgram apps run since the app slice, and Bitcoin, RED AQM and
+    the NIC queue bounds since the fault and fidelity slice. Each builds
+    its engine; rung1 under each NIC knob runs two windows, its ``Ctx``
+    gate set."""
+    exp, params, _ = xt.build_experiment(_refused_doc(kind),
+                                         base_dir=str(RUNG1.parent))
+    eng = EngineT(exp, params, device="cpu")
+    if kind in ("aqm", "tx_queue_bytes", "rx_queue_bytes"):
+        gate = {"aqm": "has_aqm", "tx_queue_bytes": "has_tx_qlen",
+                "rx_queue_bytes": "has_rx_qlen"}[kind]
+        assert getattr(eng.ctx, gate)
+        st = eng.run(n_windows=2)
+        assert EngineT.metrics_dict(st)["windows"] == 2

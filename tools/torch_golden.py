@@ -22,7 +22,8 @@ travels as these files.
     JAX_PLATFORMS=cpu python tools/torch_golden.py [NAME ...]
 
 Names: ``bench``, ``lossy`` (PHOLD), ``filexfer16k``, ``rung1``,
-``tgen50k``, ``rung2``, ``tor10k``, ``dgram4k`` (net). ``filexfer16k``
+``tgen50k``, ``rung2``, ``tor10k``, ``dgram4k``, ``bitcoin5k``, ``churn8``,
+``fidelity16k`` (net). ``filexfer16k``
 (16,384 hosts) takes about 35 minutes on 8 CPU cores; each golden records
 its own wall time and peak memory.
 
@@ -113,7 +114,20 @@ def run_reference(spec: dict) -> tuple[dict, float]:
 #   compact_cap 1280), cut to 40 windows (1.2 s), a depth at which clients
 #   have received cells;
 # * ``dgram4k``: a 4,096-host dgram ring (20 datagrams of 1,200 B every
-#   2 ms to the next host, 10 ms paths with 1 % loss), 20 windows.
+#   2 ms to the next host, 10 ms paths with 1 % loss), 20 windows;
+# * ``bitcoin5k``: configs/rung5_bitcoin5k.yaml at its full width (5,000
+#   hosts), cut to 60 windows (3 s): the first transaction is created in
+#   window 40, and the flood of the first ones must show;
+# * ``churn8``: configs/churn_filexfer.yaml whole, its faults: included
+#   (150 windows);
+# * ``fidelity16k``: filexfer16k's layout with every fidelity gate on
+#   (``fidelity_filexfer_experiment``: NIC queue bounds, RED AQM, the
+#   virtual CPU, jitter and the fault plane), 11 windows of 39 ms (the
+#   1 ms jitter shortens the window; the last restart is at 390 ms).
+#
+# ``at_least`` gives a least value for summary entries (summed over hosts)
+# or metrics at the end: a golden too short to reach the path it is meant
+# to check, a gate that must fire or a flood that must spread fails.
 NET_CONFIGS = {
     "filexfer16k": dict(build={"tiled_filexfer_experiment": dict(
                             n_groups=2048, seed=42, end_time=20 * 40 * MS)},
@@ -145,12 +159,30 @@ NET_CONFIGS = {
                        ct_cap=1024)},
                    params=dict(ev_cap=256, sockets_per_host=128, msgq_cap=64,
                                max_rounds=1024, compact_cap=1280),
-                   windows=40, nonzero=["total_cells_rx"]),
+                   windows=40, at_least={"total_cells_rx": 1}),
+    "bitcoin5k": dict(build={"bitcoin_experiment": dict(
+                          n_hosts=5000, seed=55, end_time=60_000 * MS,
+                          latency_ns=50 * MS, bw_bits=50_000_000, k=8,
+                          n_tx=200, tx_start=2000 * MS, tx_interval=250 * MS)},
+                      params=dict(ev_cap=96, sockets_per_host=32, msgq_cap=64,
+                                  max_rounds=1024),
+                      windows=60,
+                      at_least={"total_tx_rx": 1, "total_seen": 5}),
+    "churn8": dict(yaml="configs/churn_filexfer.yaml", windows=150,
+                   at_least={"host_restarts": 3, "link_down_pkts": 1}),
+    "fidelity16k": dict(build={"fidelity_filexfer_experiment": dict(
+                            n_groups=2048, seed=42, end_time=400 * MS)},
+                        params=dict(ev_cap=512), windows=11,
+                        at_least={"nic_tx_drops": 1, "nic_rx_drops": 1,
+                                  "nic_aqm_drops": 1, "down_pkts": 1,
+                                  "link_down_pkts": 1,
+                                  "host_restarts": 3 * 2048,
+                                  "fires_pkt": 1}),
     "dgram4k": dict(build={"dgram_ring_experiment": dict(
                         n_hosts=4096, seed=5, end_time=20 * 10 * MS,
                         latency_ns=10 * MS, loss=0.01, payload=1200,
                         interval=2 * MS, count=20, start_time=1 * MS)},
-                    params={}, windows=20, nonzero=["total_rx"]),
+                    params={}, windows=20, at_least={"total_rx": 1}),
 }
 
 
@@ -189,6 +221,10 @@ def run_net_reference(spec: dict) -> tuple[dict, float]:
         # The reference memoizes caches into model_cfg; keep the port's
         # dict as built.
         exp.model_cfg = dict(exp.model_cfg)
+        if exp_t.faults is not None:
+            from shadow1_tpu.fault.schedule import FaultSchedule
+
+            exp.faults = FaultSchedule(**dataclasses.asdict(exp_t.faults))
         params = EngineParams(**spec["params"])
         rec = {"build": spec["build"], "params": spec["params"]}
         if "compact_caps" in spec:
@@ -207,14 +243,14 @@ def run_net_reference(spec: dict) -> tuple[dict, float]:
     t0 = time.perf_counter()
     st = eng.run(n_windows=windows)
     summ = {k: np.asarray(v) for k, v in eng.model_summary(st).items()}
-    # ``nonzero``: summary entries that must not be 0 at the end (a golden
-    # too short to reach the path it is meant to check).
-    short = [k for k in spec.get("nonzero", ()) if summ[k].sum() == 0]
-    assert not short, f"golden run too short: {short} still 0"
     metrics = Engine.metrics_dict(st)
     seconds = time.perf_counter() - t0
     for k in ("ev_overflow", "ob_overflow", "round_cap_hits"):
         assert metrics[k] == 0, f"golden run overflowed: {k} = {metrics[k]}"
+    got = {**metrics, **{k: int(v.sum()) for k, v in summ.items()}}
+    low = {k: (got[k], n) for k, n in spec.get("at_least", {}).items()
+           if got[k] < n}
+    assert not low, f"golden run: (value, least) {low}"
     rows = drain_ring(st, eng.window)
     assert len(rows) == windows and all(r["type"] == "ring" for r in rows)
     rec.update(

@@ -3,9 +3,9 @@
     python tools/torch_net_profile.py [NAME] [--warmup N] [--windows N]
         [--profiled N] [--trace PATH]
 
-NAME is a net golden of ``shadow1_tpu_torch/golden/`` built in code
-(default ``filexfer16k``; also ``tgen50k``, ``tor10k``, ``rung2``,
-``dgram4k``): the experiment and the engine parameters come from the
+NAME is a net golden of ``shadow1_tpu_torch/golden/`` (default
+``filexfer16k``; also ``tgen50k``, ``tor10k``, ``rung2``, ``dgram4k``,
+``bitcoin5k``, ``churn8``, ``fidelity16k``): the experiment and the engine parameters come from the
 golden file, with its depth widened to what the run needs. After
 ``--warmup`` windows (default per configuration, ``WARMUP``: past the
 start-up, where the traffic is in full swing), it measures:
@@ -36,9 +36,11 @@ ROOT = Path(__file__).resolve().parents[1]
 # Windows to run before measuring, by configuration: filexfer16k's clients
 # start 10-190 ms in (40 ms windows); tgen50k's streams start at 10 ms
 # (10 ms windows); tor10k's clients start from 200 ms on and its first
-# cells arrive near window 32 (30 ms windows).
+# cells arrive near window 32 (30 ms windows); bitcoin5k's first
+# transaction is created in window 40 (50 ms windows); fidelity16k's
+# faults start in window 2 (39 ms windows, 11 in all).
 WARMUP = {"filexfer16k": 6, "tgen50k": 6, "tor10k": 30, "rung2": 20,
-          "dgram4k": 1}
+          "dgram4k": 1, "bitcoin5k": 41, "churn8": 20, "fidelity16k": 3}
 
 
 def main() -> int:
@@ -79,8 +81,11 @@ def profile(name: str, warmup: int, windows: int, profiled: int,
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     gold = json.loads((ROOT / "shadow1_tpu_torch" / "golden"
                        / f"net_{name}.json").read_text())
-    (builder, kwargs), = gold["build"].items()
-    exp = getattr(ct, builder)(**kwargs)
+    if "build" in gold:
+        (builder, kwargs), = gold["build"].items()
+        exp = getattr(ct, builder)(**kwargs)
+    else:
+        exp = ct.experiment_from_arrays(gold["experiment"])
     eng = E.Engine(exp, EngineParams(**gold["params"]), device="cuda")
     t0 = time.perf_counter()
     st = eng.run(n_windows=warmup)
@@ -88,8 +93,9 @@ def profile(name: str, warmup: int, windows: int, profiled: int,
     warmup_s = time.perf_counter() - t0
 
     phases = {}
-    for k in popk.LAUNCHES:
-        popk.LAUNCHES[k] = 0
+    for counts in (popk.LAUNCHES, popk.PUSH_ENTRIES):
+        for k in counts:
+            counts[k] = 0
     for k in compact.WINDOWS:
         compact.WINDOWS[k] = 0
     m0 = E.Engine.metrics_dict(st)
@@ -108,7 +114,7 @@ def profile(name: str, warmup: int, windows: int, profiled: int,
     m1 = E.Engine.metrics_dict(st)
     events = m1["events"] - m0["events"]
     rounds = m1["rounds"] - m0["rounds"]
-    launches = dict(popk.LAUNCHES)
+    launches = {**popk.LAUNCHES, **popk.PUSH_ENTRIES}
     compact_windows = dict(compact.WINDOWS)
 
     from torch.profiler import ProfilerActivity
