@@ -85,6 +85,26 @@ fails:
    (at least one) and about half the most; on each the kernel must equal
    ``push_back_plain`` bit for bit, timed with a cold L2 against that
    data's byte bound.
+13. checkpoint and observability: (a) ``fidelity16k`` with 8 flow probes
+   and the link accumulator through ``obs.run_with_heartbeat`` with a
+   ``Lineage`` snapshot every 3 windows to window 6, then a fresh
+   ``Engine`` resumed from ``Lineage.resolve()`` to window 11: every
+   digest word, metric and summary must equal ``net_fidelity16k.json``
+   (the planes leave them as they were, and the resume is exact), the
+   flow and link records must equal ``net_fidelity16k_obs.json`` (their
+   SHA-256; its link totals have lost, link-down and NIC-backlog drops),
+   and pop, push (``push_local`` and ``push_back``) and obox must launch;
+   it prints the snapshot's bytes, save and load seconds, the drains'
+   seconds, ms per round with the planes off and on, and device→host
+   reads over the same rounds with the planes off and on, which must be
+   equal; (b) the JAX package's snapshot of ``churn8`` at window 75
+   (``golden/ckpt_churn8_w75.npz``) resumed on the card: every ring row
+   of windows 75-150 must equal ``net_churn8.json``; (c) one chunk of
+   (a) under ``telemetry.profiler.device_trace``: the Chrome trace (in
+   ``build/``, removed after) must hold the run-chunk and the four window
+   phases' spans and at least 90 % of each kernel's launches; (d) in a
+   fresh process that builds the kernels into an empty directory, the
+   ``run_with_heartbeat`` compile span must hold nvcc's whole build.
 
 Each phase's wall time is printed. It then prints a ``{"kernels": [...]}``
 line, the card's name and power limit, and last ``{"ok": true, "device":
@@ -95,6 +115,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -843,16 +864,40 @@ def run_net_golden(name: str, dev, *, count: bool = False,
     wall = time.perf_counter() - t0
     launches = dict(popk.LAUNCHES) if count else None
     entries = dict(popk.PUSH_ENTRIES) if count else None
+    got = check_net_golden(name, gold, eng, st, drain_ring(st, eng.window))
+    return dict(wall_s=wall, events=metrics["events"],
+                rounds=metrics["rounds"], windows=metrics["windows"],
+                hosts=exp.n_hosts, launches=launches, push_entries=entries,
+                init_push=init_push if count else None, metrics=metrics,
+                compact_windows=dict(compact.WINDOWS), summary=got)
+
+
+def check_net_golden(name: str, gold: dict, eng, st, rows,
+                     first: int = 0) -> dict:
+    """Hold a net run to its golden: the ring ``rows`` of windows ``first``
+    on (every digest word; the first differing (window, subsystem) is
+    named), every Metrics field, the summary entries (each summed over
+    hosts) and the SHA-256 of each per-host summary array. Returns the
+    summary sums."""
+    import numpy as np
+
+    from shadow1_tpu_torch.core.engine import Engine
+
     fields = gold["digest_fields"]
-    rows = drain_ring(st, eng.window)
-    require(len(rows) == windows, f"{name}: {len(rows)} ring rows")
-    for w, (want, row) in enumerate(zip(gold["digests"], rows)):
+    rows = [r for r in rows if r["type"] == "ring"]
+    require(len(rows) == gold["windows"] - first,
+            f"{name}: {len(rows)} ring rows from window {first}")
+    for w, (want, row) in enumerate(zip(gold["digests"][first:], rows),
+                                    start=first):
+        require(row["window"] == w, f"{name}: ring row {row['window']} "
+                f"where window {w} was due")
         for f, x in zip(fields, want):
             if row[f] != x:
                 raise AssertionError(
                     f"{name}: first differing digest word: window {w}, "
                     f"subsystem {f.removeprefix('dg_')}: golden {x}, port "
                     f"{row[f]}")
+    metrics = Engine.metrics_dict(st)
     diff = {k: (gold["metrics"][k], v) for k, v in metrics.items()
             if gold["metrics"].get(k) != v}
     require(not diff and set(metrics) == set(gold["metrics"]),
@@ -867,11 +912,7 @@ def run_net_golden(name: str, dev, *, count: bool = False,
     for k, want in gold["sha256"].items():
         h = hashlib.sha256(np.asarray(summ[k], "<i8").tobytes()).hexdigest()
         require(h == want, f"{name}: per-host {k} differs from the golden")
-    return dict(wall_s=wall, events=metrics["events"],
-                rounds=metrics["rounds"], windows=metrics["windows"],
-                hosts=exp.n_hosts, launches=launches, push_entries=entries,
-                init_push=init_push if count else None, metrics=metrics,
-                compact_windows=dict(compact.WINDOWS), summary=got)
+    return got
 
 
 class NetPathCapture:
@@ -988,6 +1029,414 @@ class NetPathCapture:
         self._end_round()
         for mod, name, fn in self._saved:
             setattr(mod, name, fn)
+
+
+# -- phase 13: checkpoint and observability ---------------------------------
+
+OBS_DIR = ROOT / "build" / "chip_smoke_obs"
+# The lineage of phase 13's split run: a generation every OBS_CHUNK
+# windows; the run stops at window OBS_SPLIT and a fresh engine resumes
+# from the lineage's head to the golden's end.
+OBS_CHUNK, OBS_SPLIT = 3, 6
+
+
+def obs_params(gold: dict, obs: dict, on: bool):
+    """fidelity16k's params with the ring and the digest words, and with
+    ``on`` the golden's probes and the link accumulator."""
+    from shadow1_tpu_torch.consts import EngineParams
+
+    extra = (dict(probes=tuple(tuple(p) for p in obs["probes"]),
+                  link_telem=1) if on else {})
+    return EngineParams(**gold["params"], metrics_ring=gold["windows"],
+                        state_digest=1, **extra)
+
+
+def clone_state(st):
+    """A deep copy of a state on its device (the kernels update the event
+    buffer and outbox planes in place)."""
+    from shadow1_tpu_torch.convert import flatten_like_jax, unflatten_like_jax
+
+    return unflatten_like_jax(st, [x.clone() for x in flatten_like_jax(st)])
+
+
+def sync_reads(run) -> int:
+    """Device→host synchronizations while ``run()`` runs, counted by
+    ``torch.cuda.set_sync_debug_mode``'s warnings (one per synchronizing
+    call: every read of a flag or count back to the host). Some of those
+    warnings are issued once a process, so compare counts only after a
+    counted warm-up run."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def run_obs_split(dev) -> dict:
+    """Phase 13 (a): fidelity16k with 8 probes and the link accumulator
+    through ``obs.run_with_heartbeat`` with a lineage snapshot every
+    OBS_CHUNK windows to window OBS_SPLIT, then a fresh engine resumed
+    from ``Lineage.resolve()`` to the end. Held to both goldens; the
+    kernels' launches are counted over the two runs (the first with its
+    init, the second without the template state's)."""
+    import shutil
+
+    from shadow1_tpu_torch import ckpt
+    from shadow1_tpu_torch.core import popk
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.lineage import Lineage
+    from shadow1_tpu_torch.obs import run_with_heartbeat
+    from shadow1_tpu_torch.telemetry import PhaseProfiler
+    from shadow1_tpu_torch.telemetry.registry import LINK_FIELDS
+    # The golden's record hash (the tool's JAX imports are in its
+    # functions).
+    from tools.torch_golden import records_sha256
+
+    gold, obs = net_golden("fidelity16k"), net_golden("fidelity16k_obs")
+    exp = net_experiment("fidelity16k", gold)
+    params = obs_params(gold, obs, on=True)
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    OBS_DIR.mkdir(parents=True)
+    path = str(OBS_DIR / "fidelity16k.npz")
+    windows = gold["windows"]
+    prof = PhaseProfiler()
+    eng = Engine(exp, params, device=dev)
+    sync(dev)
+    for counts in (popk.LAUNCHES, popk.PUSH_ENTRIES):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    st, hb1 = run_with_heartbeat(eng, n_windows=OBS_SPLIT,
+                                 every_windows=OBS_CHUNK, stream=False,
+                                 ckpt_path=path, ckpt_every_s=0.0,
+                                 profiler=prof)
+    sync(dev)
+    first_s = time.perf_counter() - t0
+    first = {**popk.LAUNCHES, **popk.PUSH_ENTRIES}
+    del st, eng
+    resolved = Lineage(path).resolve()
+    require(resolved is not None and resolved.path == path
+            and resolved.meta["done_windows"] == OBS_SPLIT
+            and not resolved.skipped, f"lineage resolve: {resolved}")
+    snap_bytes = os.path.getsize(path)
+    eng = Engine(exp, params, device=dev)
+    t1 = time.perf_counter()
+    st = ckpt.load_state(eng.init_state(), resolved.path)
+    sync(dev)
+    load_s = time.perf_counter() - t1
+    require(int(st.metrics.windows) == OBS_SPLIT,
+            f"resumed at window {int(st.metrics.windows)}")
+    st6 = clone_state(st)
+    # The template state's init launched the seed pushes into a state that
+    # load_state threw away: count the resumed run from here.
+    sync(dev)
+    for counts in (popk.LAUNCHES, popk.PUSH_ENTRIES):
+        for k in counts:
+            counts[k] = 0
+    t1 = time.perf_counter()
+    st, hb2 = run_with_heartbeat(eng, st, n_windows=windows - OBS_SPLIT,
+                                 every_windows=OBS_CHUNK, stream=False,
+                                 profiler=prof)
+    sync(dev)
+    second_s = time.perf_counter() - t1
+    launches = {k: first[k] + n for k, n in popk.LAUNCHES.items()}
+    entries = {k: first[k] + n for k, n in popk.PUSH_ENTRIES.items()}
+    missing = [k for k, n in {**launches, **entries}.items() if n <= 0]
+    require(not missing, f"phase 13: kernels not launched: {missing}")
+    check_net_golden("fidelity16k", gold, eng, st,
+                     hb1.ring_records + hb2.ring_records)
+    flows = hb1.flow_records + hb2.flow_records
+    links = hb1.link_records + hb2.link_records
+    require(len(flows) == obs["flow_count"]
+            and records_sha256(flows) == obs["flow_sha256"],
+            f"flow records differ from the JAX golden ({len(flows)} vs "
+            f"{obs['flow_count']})")
+    require(len(links) == obs["link_count"]
+            and records_sha256(links) == obs["link_sha256"],
+            f"link records differ from the JAX golden ({len(links)} vs "
+            f"{obs['link_count']})")
+    last = [r for r in links if r["window"] == windows - 1]
+    totals = {f: sum(r[f] for r in last) for f in LINK_FIELDS}
+    require(totals == obs["link_totals"], f"link totals {totals}")
+    low = {k: totals[k] for k, n in obs["at_least"].items() if totals[k] < n}
+    require(not low, f"link columns below their least values: {low}")
+    spans = {}
+    for e in prof.chrome_trace()["traceEvents"]:
+        if e.get("ph") == "X":
+            spans.setdefault(e["name"], []).append(e["dur"] / 1e6)
+    return dict(first_s=first_s, second_s=second_s, load_s=load_s,
+                snap_bytes=snap_bytes, spans=spans, launches=launches,
+                push_entries=entries, rounds=int(st.metrics.rounds),
+                flows=len(flows), links=len(links), totals=totals,
+                heartbeats=len(hb1.records) + len(hb2.records),
+                st6=st6, windows=windows)
+
+
+def obs_plane_cost(dev, st6) -> dict:
+    """Phase 13 (a), the planes' cost: windows 6-8 of fidelity16k (the
+    busiest) from ``st6``, the window-6 snapshot loaded, with the planes
+    off and on — timed in turns (off, on, on, off: the host sets the pace
+    and drifts), in ms per round, and then with their device→host reads
+    counted, which must be equal (the same rounds)."""
+    from shadow1_tpu_torch.core.engine import Engine
+
+    gold, obs = net_golden("fidelity16k"), net_golden("fidelity16k_obs")
+    exp = net_experiment("fidelity16k", gold)
+    engines = {on: Engine(exp, obs_params(gold, obs, on), device=dev)
+               for on in (False, True)}
+
+    def start(on):
+        st = clone_state(st6)
+        return st if on else st._replace(probes=None, links=None)
+
+    out = {}
+    for on in (False, True):
+        warm = start(on)
+        sync_reads(lambda: engines[on].run(warm, n_windows=1))
+    del warm
+    for on in (False, True, True, False):
+        st = start(on)
+        r0 = int(st.metrics.rounds)
+        sync(dev)
+        t0 = time.perf_counter()
+        st = engines[on].run(st, n_windows=2)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        out.setdefault(f"ms_per_round_{'on' if on else 'off'}", []).append(
+            wall / (int(st.metrics.rounds) - r0) * 1e3)
+    for label, on in (("off", False), ("on", True)):
+        st = start(on)
+        r0 = int(st.metrics.rounds)
+        box = {}
+
+        def run(eng=engines[on], st=st):
+            box["st"] = eng.run(st, n_windows=2)
+            sync(dev)
+
+        out[f"reads_{label}"] = sync_reads(run)
+        out[f"read_rounds_{label}"] = int(box["st"].metrics.rounds) - r0
+    require(out["read_rounds_on"] == out["read_rounds_off"],
+            f"the planes changed the rounds: {out}")
+    require(out["reads_on"] == out["reads_off"] > 0,
+            f"device→host reads differ with the planes on: {out}")
+    out["reads_per_round"] = out["reads_on"] / out["read_rounds_on"]
+    return out
+
+
+def obs_churn8_from_jax(dev) -> dict:
+    """Phase 13 (b): the JAX package's snapshot of churn8 at window 75
+    (``golden/ckpt_churn8_w75.npz``), loaded into the port and run to the
+    end; every ring row of windows 75-150, the metrics and the summary
+    equal ``golden/net_churn8.json``."""
+    from shadow1_tpu_torch import ckpt
+    from shadow1_tpu_torch.consts import EngineParams
+    from shadow1_tpu_torch.core import popk
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+
+    gold = net_golden("churn8")
+    exp = net_experiment("churn8", gold)
+    params = EngineParams(**gold["params"], metrics_ring=gold["windows"],
+                          state_digest=1)
+    eng = Engine(exp, params, device=dev)
+    snap = ROOT / "shadow1_tpu_torch" / "golden" / "ckpt_churn8_w75.npz"
+    ok, why = ckpt.verify_file(str(snap))
+    require(ok, f"{snap.name}: {why}")
+    st = ckpt.load_state(eng.init_state(), str(snap))
+    first = int(st.metrics.windows)
+    require(first == 75, f"{snap.name} holds window {first}")
+    r0 = int(st.metrics.rounds)
+    for k in popk.LAUNCHES:
+        popk.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    st = eng.run(st, n_windows=gold["windows"] - first)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(popk.LAUNCHES)
+    require(all(n > 0 for n in launches.values()),
+            f"churn8 resume: kernels not launched: {launches}")
+    check_net_golden("churn8", gold, eng, st,
+                     drain_ring(st, eng.window, start=first), first=first)
+    return dict(wall_s=wall, windows=gold["windows"] - first,
+                launches=launches, rounds=int(st.metrics.rounds) - r0)
+
+
+def trace_kernels(trace: dict) -> dict:
+    """Launches of each kernel that a Chrome trace holds."""
+    counts = {}
+    for e in trace["traceEvents"]:
+        if e.get("cat") == "kernel":
+            for k in ("pop", "push", "obox"):
+                if f"{k}_kernel" in e.get("name", ""):
+                    counts[k] = counts.get(k, 0) + 1
+    return counts
+
+
+def obs_device_trace(dev, st6, attempts: int = 3) -> dict:
+    """Phase 13 (c): one chunk of (a) — windows 6-9 from ``st6``, the
+    window-6 snapshot loaded — under ``telemetry.profiler.device_trace``,
+    written to
+    ``build/``. Its Chrome trace must hold the run-chunk span, the four
+    window phases' spans and the three kernels, at least 90 % of each
+    kernel's counted launches (CUPTI drops a few records; a short trace
+    is taken again)."""
+    from shadow1_tpu_torch.ckpt import run_chunked
+    from shadow1_tpu_torch.core import popk
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.telemetry import PhaseProfiler, device_trace
+    from shadow1_tpu_torch.telemetry.profiler import (
+        PH_RUN_CHUNK,
+        TRACE_FILE,
+        WINDOW_PHASES,
+    )
+
+    gold, obs = net_golden("fidelity16k"), net_golden("fidelity16k_obs")
+    exp = net_experiment("fidelity16k", gold)
+    eng = Engine(exp, obs_params(gold, obs, True), device=dev)
+    log_dir = OBS_DIR / "trace"
+    want = [PH_RUN_CHUNK, *WINDOW_PHASES.values()]
+    seen = []
+    for _ in range(attempts):
+        st = clone_state(st6)
+        sync(dev)
+        before = dict(popk.LAUNCHES)
+        t0 = time.perf_counter()
+        with device_trace(str(log_dir)):
+            run_chunked(eng, st, n_windows=OBS_CHUNK, chunk=OBS_CHUNK,
+                        profiler=PhaseProfiler())
+        wall = time.perf_counter() - t0
+        launched = {k: popk.LAUNCHES[k] - before[k] for k in before}
+        path = log_dir / TRACE_FILE
+        size = path.stat().st_size
+        trace = json.loads(path.read_text())
+        names = {e.get("name") for e in trace["traceEvents"]}
+        lacking = [n for n in want if n not in names]
+        require(not lacking, f"device trace lacks spans: {lacking}")
+        got = trace_kernels(trace)
+        del trace
+        seen.append(got)
+        if all(0.9 * n <= got.get(k, 0) <= n for k, n in launched.items()):
+            return dict(wall_s=wall, trace_bytes=size, kernels=got,
+                        launched=launched, attempts=len(seen))
+    raise AssertionError(f"device trace saw kernels {seen}, launched "
+                         f"{launched}, in {attempts} traces")
+
+
+def compile_span_child(build_dir: str) -> None:
+    """Phase 13 (d), run in a fresh process: the kernel build pointed at
+    an empty ``build_dir``, then two windows of a 1,024-host PHOLD through
+    ``obs.run_with_heartbeat`` with a PhaseProfiler. Prints one JSON line:
+    the profiler's spans (seconds) and what ``_build.build`` reported."""
+    from shadow1_tpu_torch.config.compiled import single_vertex_experiment
+    from shadow1_tpu_torch.consts import EngineParams
+    from shadow1_tpu_torch.core import _build
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.obs import run_with_heartbeat
+    from shadow1_tpu_torch.telemetry import PhaseProfiler
+
+    _build.BUILD_DIR = Path(build_dir)
+    _build.LIBRARY = _build.BUILD_DIR / "libpopk.so"
+    builds, build = [], _build.build
+
+    def counted_build():
+        builds.append(build())
+        return builds[-1]
+
+    _build.build = counted_build
+    exp = single_vertex_experiment(
+        n_hosts=1024, seed=7, end_time=2_000_000, latency_ns=1_000_000,
+        model="phold", model_cfg={"mean_delay_ns": 2_000_000,
+                                  "init_events": 8})
+    eng = Engine(exp, EngineParams(ev_cap=32, outbox_cap=16), device="cuda")
+    prof = PhaseProfiler()
+    st, _ = run_with_heartbeat(eng, n_windows=2, every_windows=1,
+                               stream=False, profiler=prof)
+    require(int(st.metrics.windows) == 2, "the child ran no window")
+    spans = {}
+    for e in prof.chrome_trace()["traceEvents"]:
+        if e.get("ph") == "X":
+            spans.setdefault(e["name"], []).append(e["dur"] / 1e6)
+    print(json.dumps({"spans": spans, "builds": [
+        {"seconds": b["seconds"], "built": b["built"]} for b in builds]}))
+
+
+def obs_compile_span() -> dict:
+    """Phase 13 (d): in a process that has not built the kernels
+    (``compile_span_child``), the compile span holds the whole nvcc
+    build, and it is the only compile span."""
+    build_dir = OBS_DIR / "fresh_build"
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.compile_span_child(sys.argv[1])", str(build_dir)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0,
+            f"compile-span child failed: {proc.stderr[-3000:]}")
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(len(r["builds"]) == 1 and r["builds"][0]["built"],
+            f"the child did not build the kernels: {r}")
+    nvcc_s = r["builds"][0]["seconds"]
+    compile_s = r["spans"].get("compile", [])
+    require(len(compile_s) == 1 and compile_s[0] >= nvcc_s > 0,
+            f"the compile span does not hold the build: {r}")
+    return dict(compile_s=compile_s[0], nvcc_s=nvcc_s,
+                init_s=sum(r["spans"].get("init", [])))
+
+
+def phase_obs(dev, card: str) -> dict:
+    """Phase 13's three parts in order, each printed; returns (a)'s run."""
+    import shutil
+
+    split = run_obs_split(dev)
+    sp = split["spans"]
+    n_probes = len(net_golden("fidelity16k_obs")["probes"])
+    log(f"checkpoint and observability, fidelity16k with {n_probes} "
+        f"probes and the link accumulator: windows 0-{OBS_SPLIT} in "
+        f"{split['first_s']:.3f} s through run_with_heartbeat with a "
+        f"lineage snapshot every {OBS_CHUNK} windows, resumed from "
+        f"Lineage.resolve() in a fresh engine, windows {OBS_SPLIT}-"
+        f"{split['windows']} in "
+        f"{split['second_s']:.3f} s; every digest word, metric and summary "
+        f"equal to net_fidelity16k.json, {split['flows']} flow and "
+        f"{split['links']} link records equal to net_fidelity16k_obs.json "
+        f"(final link totals {split['totals']}); launches "
+        f"{split['launches']}, push by entry {split['push_entries']} over "
+        f"{split['rounds']} rounds, on {card}")
+    log(f"  snapshot {split['snap_bytes']} bytes; save s "
+        f"{[round(x, 4) for x in sp.get('checkpoint', [])]}; load "
+        f"{split['load_s']:.4f} s; drain s per chunk "
+        f"{[round(x, 4) for x in sp.get('drain', [])]}; run-chunk s "
+        f"{[round(x, 4) for x in sp.get('run-chunk', [])]}")
+    cs = obs_compile_span()
+    log(f"  compile span in a fresh process (a 1,024-host PHOLD, the "
+        f"kernels built into an empty directory): {cs['compile_s']:.4f} s, "
+        f"holding nvcc's {cs['nvcc_s']:.4f} s; init {cs['init_s']:.4f} s")
+    cost = obs_plane_cost(dev, split["st6"])
+    off, on = cost["ms_per_round_off"], cost["ms_per_round_on"]
+    log(f"  planes off / on: {sum(off) / 2:.3f} / {sum(on) / 2:.3f} ms per "
+        f"round (fidelity16k windows 6-8, run off, on, on, off: "
+        f"{off[0]:.3f}, {on[0]:.3f}, {on[1]:.3f}, {off[1]:.3f}); "
+        f"device→host reads {cost['reads_off']} / {cost['reads_on']} over "
+        f"{cost['read_rounds_on']} rounds of windows 6-8 "
+        f"({cost['reads_per_round']:.2f} per round, equal)")
+    c8 = obs_churn8_from_jax(dev)
+    log(f"  churn8 from the JAX package's window-75 snapshot: windows "
+        f"75-150 ({c8['rounds']} rounds) in {c8['wall_s']:.3f} s, every "
+        f"ring row, metric and summary equal to net_churn8.json; launches "
+        f"{c8['launches']}")
+    tr = obs_device_trace(dev, split.pop("st6"))
+    log(f"  device trace of windows 6-9: {tr['trace_bytes']} bytes, the "
+        f"run-chunk and four window-phase spans, kernels {tr['kernels']} of "
+        f"{tr['launched']} launched ({tr['attempts']} trace(s)), "
+        f"{tr['wall_s']:.3f} s")
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    return split
 
 
 # -- phase 5: the kernels on the arguments of the main path -----------------
@@ -1331,6 +1780,10 @@ def main() -> int:
     del bcap, flush
     phase_done("virtual-CPU path", t0)
 
+    t0 = time.perf_counter()
+    split = phase_obs(dev, card)
+    phase_done("checkpoint and observability", t0)
+
     kernels = []
     for name, r in checks.items():
         n = net_checks[name]
@@ -1374,6 +1827,9 @@ def main() -> int:
             "fid_launches": {k: a["launches"][name] for k, a in fid.items()},
             "fid_launches_per_round": {
                 k: a["launches"][name] / a["rounds"] for k, a in fid.items()},
+            "obs_launches": split["launches"][name],
+            "obs_launches_per_round": split["launches"][name]
+            / split["rounds"],
         })
         if name == "push":
             kernels[-1].update({

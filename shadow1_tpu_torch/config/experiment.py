@@ -19,9 +19,9 @@ each schema parameter takes its ``defaults:`` value, then each host group's
 The ``faults:`` section compiles to a ``FaultSchedule``
 (``fault/schedule.py``), and bitcoin's ``graph:`` / ``tx:`` generator specs
 to its ``peers``, ``tx_origin`` and ``tx_time`` arrays
-(``_gen_bitcoin_cfg``). ``probes:`` is not ported yet and fails loudly with
-a ``NotImplementedError`` naming the ROADMAP item that adds it (checkpoint
-and observability). The ``params:`` scalars (``fixed_size`` for tgen,
+(``_gen_bitcoin_cfg``). The top-level ``probes:`` watchlist resolves to
+``EngineParams.probes`` (``resolve_watchlist``; a typo raises
+``WatchlistError``). The ``params:`` scalars (``fixed_size`` for tgen,
 ``ct_cap``, ``cells_max`` and ``consensus_bytes`` for Tor, ``tx_size`` and
 ``inv_size`` for bitcoin) pass through into ``model_cfg`` as written.
 ``sweep:`` runs the base experiment, as a solo run of the reference does.
@@ -246,6 +246,99 @@ def _vertex_assignment(groups, vertex_names, n_hosts) -> np.ndarray:
     return hv
 
 
+class WatchlistError(ValueError):
+    """A probe watchlist entry (``probes:`` section / ``--watch``) failed to
+    resolve: unknown host or group name, bad index, or out-of-range socket.
+    Raised at config time; the CLI turns it into its config error."""
+
+
+def _resolve_probe_host(spec, dns) -> int:
+    """One watchlist host spec → global host id.
+
+    Accepted forms: an int host id; ``"name"`` / ``"@name"`` (any hostname
+    or group name the Dns registry knows — bare group name = its first
+    host); ``"name[i]"`` (the group's i-th host, via the registry's
+    ``name-i`` convention)."""
+    txt = str(spec).strip()
+    if isinstance(spec, int) or txt.lstrip("-").isdigit():
+        hid = int(txt)
+        if not 0 <= hid < len(dns):
+            raise WatchlistError(
+                f"probe host id {hid} out of range (hosts 0..{len(dns) - 1})")
+        return hid
+    name = txt[1:] if txt.startswith("@") else txt
+    if name.endswith("]") and "[" in name:
+        base, _, idx_s = name[:-1].partition("[")
+        try:
+            idx = int(idx_s)
+        except ValueError:
+            raise WatchlistError(
+                f"probe target {txt!r}: index {idx_s!r} is not an integer"
+            ) from None
+        name = base if (idx == 0 and f"{base}-0" not in dns._by_name) \
+            else f"{base}-{idx}"
+    try:
+        return dns.resolve(name)
+    except KeyError:
+        import difflib
+
+        close = difflib.get_close_matches(name, dns._by_name, n=3)
+        hint = f" — did you mean {', '.join(map(repr, close))}?" if close \
+            else ""
+        raise WatchlistError(
+            f"unknown probe target {txt!r}: no host or group by that "
+            f"name{hint}") from None
+
+
+def resolve_watchlist(entries, dns, sockets_per_host: int) -> tuple:
+    """Watchlist specs → the EngineParams.probes tuple of (host, sock) ints.
+
+    ``entries`` come from the ``probes:`` config section (a list of
+    ``"host[:sock]"`` strings, int ids, or ``{host:, sock:}`` dicts) or
+    repeated ``--watch`` flags. sock defaults to −1 (the host-only
+    NIC/event view). Duplicates collapse, the first occurrence keeps its
+    place. Every failure raises WatchlistError."""
+    if isinstance(entries, (str, int, dict)):
+        entries = [entries]
+    if not isinstance(entries, (list, tuple)):
+        raise WatchlistError(
+            f"probes: must be a list of host[:sock] targets, "
+            f"got {type(entries).__name__}")
+    probes: list[tuple[int, int]] = []
+    for e in entries:
+        if isinstance(e, dict):
+            unknown = set(e) - {"host", "sock"}
+            if unknown:
+                raise WatchlistError(
+                    f"unknown probe entry keys {sorted(map(str, unknown))} "
+                    f"(allowed: host, sock)")
+            if "host" not in e:
+                raise WatchlistError(f"probe entry {e!r} is missing 'host'")
+            spec, sock_s = e["host"], e.get("sock", -1)
+        else:
+            txt = str(e)
+            spec, sep, tail = txt.rpartition(":")
+            if not sep:
+                spec, sock_s = txt, -1
+            else:
+                sock_s = tail
+        host = _resolve_probe_host(spec, dns)
+        try:
+            sock = int(sock_s)
+        except (TypeError, ValueError):
+            raise WatchlistError(
+                f"probe target {e!r}: socket {sock_s!r} is not an integer"
+            ) from None
+        if not -1 <= sock < sockets_per_host:
+            raise WatchlistError(
+                f"probe target {e!r}: socket {sock} out of range "
+                f"(-1 = host view, else 0..{sockets_per_host - 1})")
+        pr = (host, sock)
+        if pr not in probes:
+            probes.append(pr)
+    return tuple(probes)
+
+
 def build_experiment(doc: dict, base_dir: str = ".") -> tuple[CompiledExperiment, EngineParams, str]:
     """YAML document → (CompiledExperiment, EngineParams, scheduler)."""
     import os
@@ -253,10 +346,6 @@ def build_experiment(doc: dict, base_dir: str = ".") -> tuple[CompiledExperiment
     _reject_unknown("top-level config", doc,
                     ("general", "engine", "network", "hosts", "app",
                      "faults", "sweep", "probes"))
-    if doc.get("probes") is not None:
-        raise NotImplementedError(
-            "probes: is not ported yet (ROADMAP: checkpoint and "
-            "observability)")
     gen = doc.get("general", {})
     _reject_unknown("general:", gen, ("seed", "stop_time"))
     seed = int(gen.get("seed", 1))
@@ -375,6 +464,14 @@ def build_experiment(doc: dict, base_dir: str = ".") -> tuple[CompiledExperiment
         **per_host,
     )
     exp.validate()
+    # -- probes ------------------------------------------------------------
+    # Flow-probe watchlist, resolved through the host name registry into
+    # static (host, sock) pairs (telemetry/probes.py samples them).
+    watch = doc.get("probes")
+    if watch is not None:
+        params = dataclasses.replace(
+            params,
+            probes=resolve_watchlist(watch, exp.dns, params.sockets_per_host))
     return exp, params, scheduler
 
 

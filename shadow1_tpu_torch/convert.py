@@ -15,8 +15,15 @@ TCP and app dicts), so this module needs nothing of the JAX package. A
 state carries PHOLD's or the net model's state (NIC rows, the TCP dict of
 ``[S, H]`` and ``[Q, S, H]`` planes, the app's dict — filexfer, tgen,
 dgram or Tor, whose ``[ct_cap, H]`` circuit tables ride as leaves too)
-and the telemetry ring; states that carry the probe ring or the link
-accumulator are refused: the port does not run them.
+and the telemetry planes (the ring, the flow-probe ring and the link
+accumulator).
+
+Checkpoints (``ckpt.py``) store the leaves in the order
+``jax.tree_util.tree_flatten`` gives the reference's tree:
+``flatten_like_jax`` lists them so (NamedTuple fields in declaration
+order, dict keys SORTED, ``None`` dropped — the port's dicts keep their
+insertion order, which is not the same), and ``unflatten_like_jax`` puts
+such a list back into a port state.
 """
 
 from __future__ import annotations
@@ -32,12 +39,14 @@ from shadow1_tpu_torch.core.outbox import Outbox
 from shadow1_tpu_torch.core.phold import PholdState
 from shadow1_tpu_torch.net import NetState
 from shadow1_tpu_torch.net.nic import NicState
+from shadow1_tpu_torch.telemetry.links import LinkAccum
+from shadow1_tpu_torch.telemetry.probes import ProbeRing
 from shadow1_tpu_torch.telemetry.ring import TelemetryRing
 
 # Port NamedTuple for each reference NamedTuple, by class name.
 _TYPES = {c.__name__: c for c in (SimState, EventBuf, Outbox, Metrics,
                                   PholdState, NetState, NicState,
-                                  TelemetryRing)}
+                                  TelemetryRing, ProbeRing, LinkAccum)}
 
 
 def _is_namedtuple(x) -> bool:
@@ -65,11 +74,6 @@ def _convert(node: Any, leaf) -> Any:
 def state_from_numpy(tree, device) -> SimState:
     """A reference SimState with numpy leaves → the port's SimState on
     ``device``, leaf for leaf with the same dtypes."""
-    for f in ("probes", "links"):
-        if getattr(tree, f, None) is not None:
-            raise NotImplementedError(
-                f"SimState.{f} is not ported yet (ROADMAP: checkpoint and "
-                "observability)")
     dev = torch.device(device)
     return _convert(tree, lambda a: torch.from_numpy(
         np.array(a, copy=True)).to(dev))
@@ -78,3 +82,54 @@ def state_from_numpy(tree, device) -> SimState:
 def state_to_numpy(st: SimState) -> SimState:
     """The port's SimState → the same tree with numpy leaves."""
     return _convert(st, lambda t: t.detach().cpu().numpy())
+
+
+def _walk(node, out: list) -> None:
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], out)
+    elif isinstance(node, (tuple, list)):
+        for x in node:
+            _walk(x, out)
+    else:
+        out.append(node)
+
+
+def flatten_like_jax(st) -> list:
+    """The tensor leaves of a port state in the order
+    ``jax.tree_util.tree_flatten`` gives the reference's state: NamedTuple
+    fields in declaration order, dict keys sorted, ``None`` dropped. The
+    leaves are the state's own tensors, not copies."""
+    out: list = []
+    _walk(st, out)
+    return out
+
+
+def unflatten_like_jax(template, leaves):
+    """``template`` (a port state) with its leaves replaced, in
+    ``flatten_like_jax`` order, by ``leaves`` (numpy arrays or tensors),
+    each put on its template leaf's device. Dicts keep the template's key
+    order."""
+    it = iter(leaves)
+
+    def rebuild(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            new = {k: rebuild(node[k]) for k in sorted(node)}
+            return {k: new[k] for k in node}
+        if _is_namedtuple(node):
+            return type(node)(*(rebuild(x) for x in node))
+        if isinstance(node, (tuple, list)):
+            return type(node)(rebuild(x) for x in node)
+        x = next(it)
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.array(x, copy=True))
+        return x.to(node.device)
+
+    out = rebuild(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out

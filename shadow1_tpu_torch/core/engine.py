@@ -25,6 +25,14 @@ dispatch (``run_round``; the CPU's deferrals go back through
 ``route_outbox``, dead destinations in ``deliver_flat``, and the restart
 reset before a window's rounds (``ph_prepare``).
 
+With ``probes`` the telem phase also samples the watched entities into the
+flow-probe ring (``telemetry/probes.py``), and with ``link_telem`` the
+route phase and the NIC drop sites add to the per-edge link accumulator
+(``telemetry/links.py``); neither reads from the device. Each phase runs
+inside a ``record_function`` scope named as the reference names its
+``jax.named_scope`` (``telemetry.profiler.WINDOW_PHASES``), so a
+``device_trace`` shows which phase launched each kernel.
+
 Module and function names follow the reference so each counterpart is found
 under the same name. Parts of the reference this slice does not run raise
 ``NotImplementedError`` when a config asks for them (``check_supported``).
@@ -125,9 +133,10 @@ class SimState(NamedTuple):
     model: Any               # workload-model state (PholdState, NetState)
     metrics: Metrics
     cpu_busy: torch.Tensor   # i64 [H] virtual CPU free-at (0: no cpu model)
-    # The telemetry ring (telemetry/ring.TelemetryRing), None when
-    # metrics_ring is 0. The reference's probe ring and link accumulator:
-    # refused, always None.
+    # The telemetry planes, each None when off: the ring
+    # (telemetry/ring.TelemetryRing, metrics_ring > 0), the flow-probe ring
+    # (telemetry/probes.ProbeRing, probes and metrics_ring > 0) and the
+    # link accumulator (telemetry/links.LinkAccum, link_telem).
     telem: Any = None
     probes: Any = None
     links: Any = None
@@ -155,6 +164,9 @@ class Ctx:
     # An app's static tables that are not per-host (Tor's path tables),
     # set by the net model's make_handlers on the ctx its handlers see.
     app_tables: Any = None
+    # The [K] index tensors of ``params.probes`` (telemetry/probes.
+    # ProbeIndex), or None without probes.
+    probe_index: Any = None
     # Fidelity tables (``fidelity_ctx_kwargs``), [H] or [V, V] on the
     # device, and the fault plane's: host h is down at t iff some k has
     # fault_down[k, h] <= t < fault_up[k, h].
@@ -212,8 +224,6 @@ def check_supported(exp: CompiledExperiment, params: EngineParams) -> None:
         raise ValueError(f"unknown app {exp.model_cfg.get('app')!r}")
     if exp.model not in ("phold", "net"):
         raise ValueError(f"unknown model {exp.model!r}")
-    if params.probes or params.link_telem:
-        no("probes / link_telem", "checkpoint and observability")
     if params.auto_caps or params.on_overflow != "drop":
         no("auto_caps / on_overflow other than 'drop'", "recovery planes")
     if params.selfcheck:
@@ -229,6 +239,16 @@ def check_digest_params(params: EngineParams) -> None:
             "state_digest=1 requires metrics_ring > 0 — the per-window "
             "digest words are ring columns (CLI --state-digest sets a ring "
             "automatically)")
+
+
+def check_probe_params(params: EngineParams) -> None:
+    """The probe ring reuses the telemetry ring's depth knob: watched flows
+    need metrics_ring > 0."""
+    if params.probes and params.metrics_ring <= 0:
+        raise ValueError(
+            "probes require metrics_ring > 0 — the [W, K, F] probe ring "
+            "depth is the metrics_ring window count (CLI --watch sets a "
+            "ring automatically)")
 
 
 _QLEN_INF = 1 << 62
@@ -310,6 +330,8 @@ def build_base_ctx(exp: CompiledExperiment, params: EngineParams,
     def t(a, dtype):
         return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
 
+    from shadow1_tpu_torch.telemetry.probes import probe_index
+
     return Ctx(
         n_hosts=exp.n_hosts,
         n_total=exp.n_hosts,
@@ -325,6 +347,8 @@ def build_base_ctx(exp: CompiledExperiment, params: EngineParams,
         model_cfg=exp.model_cfg,
         hosts=torch.arange(exp.n_hosts, dtype=torch.int32, device=dev),
         device=dev,
+        probe_index=(probe_index(params.probes, exp.n_hosts, dev)
+                     if params.probes else None),
         **fidelity_ctx_kwargs(exp, dev),
     )
 
@@ -426,14 +450,16 @@ def run_round(st: SimState, ctx: Ctx, handlers: dict, win_end) -> SimState:
     return st
 
 
-def route_outbox(ctx: Ctx, ob: Outbox):
+def route_outbox(ctx: Ctx, ob: Outbox, links=None, win_start=None):
     """Route this window's outbox: latency gather, the fault plane's gates
     and the loss draws, in the reference's order. Edge jitter moves each
     arrival by a draw in [-J, +J]; a packet departing inside a link outage
     is dropped (``link_down_pkts``, never in ``pkts_lost``); otherwise the
     loss draw applies at the path's threshold, or an active loss ramp's —
     the same coin either way. Returns (flat_packets, n_sent, n_lost,
-    n_linkdown)."""
+    n_linkdown), and with the link plane on (``links`` a LinkAccum,
+    ``win_start`` the window start) the accumulator with every offered
+    packet's edge contribution added, as a fifth element."""
     cap, h = ob.dst.shape
     dev = ob.dst.device
     mask = torch.arange(cap, device=dev)[:, None] < ob.cnt[None, :]
@@ -470,8 +496,17 @@ def route_outbox(ctx: Ctx, ob: Outbox):
     tb = packet_tb(fsrc.to(torch.int64), fctr)
     fp = FlatPackets(dst=fdst_safe, arrival=arrival, tb=tb, kind=flat(ob.kind),
                      p=flat(ob.p), keep=keep)
-    return (fp, fmask.sum(dtype=torch.int64), lost.sum(dtype=torch.int64),
-            linkdown.sum(dtype=torch.int64))
+    out = (fp, fmask.sum(dtype=torch.int64), lost.sum(dtype=torch.int64),
+           linkdown.sum(dtype=torch.int64))
+    if links is None:
+        return out
+    from shadow1_tpu_torch.consts import WIRE_OVERHEAD
+    from shadow1_tpu_torch.telemetry.links import link_route_accum
+
+    links = link_route_accum(
+        links, vs, vd, fmask, lost, linkdown, queued=fdep - win_start,
+        wire=fp.p[4].to(torch.int64) + WIRE_OVERHEAD)
+    return out + (links,)
 
 
 def deliver_flat(evbuf: EventBuf, ctx: Ctx, fp: FlatPackets):
@@ -496,7 +531,12 @@ def deliver_flat(evbuf: EventBuf, ctx: Ctx, fp: FlatPackets):
 
 def deliver_window(st: SimState, ctx: Ctx) -> SimState:
     """Window-end packet exchange: route, then scatter; clears the outbox."""
-    fp, n_sent, n_lost, n_linkdown = route_outbox(ctx, st.outbox)
+    links = st.links
+    if links is not None:
+        fp, n_sent, n_lost, n_linkdown, links = route_outbox(
+            ctx, st.outbox, links=links, win_start=st.win_start)
+    else:
+        fp, n_sent, n_lost, n_linkdown = route_outbox(ctx, st.outbox)
     # Read before the window-end clear.
     ob_fill = outbox_fill(st.outbox)
     ob_hosts = (st.outbox.cnt > 0).sum(dtype=torch.int64)
@@ -505,6 +545,7 @@ def deliver_window(st: SimState, ctx: Ctx) -> SimState:
     return st._replace(
         evbuf=evbuf,
         outbox=outbox_clear(st.outbox),
+        links=links,
         metrics=m._replace(
             pkts_sent=m.pkts_sent + n_sent,
             pkts_delivered=m.pkts_delivered + n_deliv,
@@ -645,6 +686,17 @@ def window_phases(ctx: Ctx, handlers: dict, make_handlers, pre_window=None):
                 digests = state_digests(st, ctx, fr.dg_ob)
             st = st._replace(telem=ring_record(st.telem, fr.m_entry,
                                                st.metrics, ev_fill, digests))
+        if st.probes is not None:
+            # The same post-delivery boundary state the digests hash;
+            # ``fr.win_end`` anchors the NIC backlog columns and the
+            # window-entry metrics pick the ring slot.
+            from shadow1_tpu_torch.telemetry.probes import (
+                probe_record,
+                probe_sample,
+            )
+
+            row = probe_sample(st, ctx, fr.win_end)
+            st = st._replace(probes=probe_record(st.probes, fr.m_entry, row))
         return fr._replace(st=st)
 
     return [("prepare", ph_prepare), ("rounds", ph_rounds),
@@ -653,10 +705,14 @@ def window_phases(ctx: Ctx, handlers: dict, make_handlers, pre_window=None):
 
 def window_step(st: SimState, ctx: Ctx, handlers: dict, make_handlers,
                 pre_window=None) -> SimState:
-    """One conservative window: the four phases in order."""
+    """One conservative window: the four phases in order, each in its
+    ``record_function`` scope."""
+    from shadow1_tpu_torch.telemetry.profiler import WINDOW_PHASES
+
     fr = window_frame(st, ctx)
-    for _name, fn in window_phases(ctx, handlers, make_handlers, pre_window):
-        fr = fn(fr)
+    for name, fn in window_phases(ctx, handlers, make_handlers, pre_window):
+        with torch.profiler.record_function(WINDOW_PHASES[name]):
+            fr = fn(fr)
     return fr.st
 
 
@@ -689,6 +745,10 @@ class Engine:
         self.exp = exp
         self.params = params or EngineParams()
         check_digest_params(self.params)
+        check_probe_params(self.params)
+        from shadow1_tpu_torch.telemetry.links import check_link_params
+
+        check_link_params(self.params, np.asarray(exp.lat_vv).shape[0])
         check_supported(exp, self.params)
         self.device = resolve_device(device)
         self.window = exp.window
@@ -709,6 +769,8 @@ class Engine:
                                    lambda c: None)(self.ctx)
 
     def init_state(self) -> SimState:
+        from shadow1_tpu_torch.telemetry.links import link_init
+        from shadow1_tpu_torch.telemetry.probes import probe_init
         from shadow1_tpu_torch.telemetry.ring import ring_init
 
         dev, h = self.device, self.exp.n_hosts
@@ -723,6 +785,10 @@ class Engine:
             metrics=metrics._replace(ev_overflow=metrics.ev_overflow + seed_over),
             cpu_busy=torch.zeros(h, dtype=torch.int64, device=dev),
             telem=ring_init(self.params.metrics_ring, dev),
+            probes=probe_init(self.params.metrics_ring, self.params.probes,
+                              dev),
+            links=link_init(self.params.link_telem,
+                            np.asarray(self.exp.lat_vv).shape[0], dev),
         )
 
     def run(self, st: SimState | None = None,
@@ -737,6 +803,11 @@ class Engine:
             st = window_step(st, self.ctx, self._handlers,
                              self._model.make_handlers, self._pre_window)
         return st
+
+    def synchronize(self) -> None:
+        """Wait for the device's queued work (a no-op on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     @staticmethod
     def metrics_dict(st: SimState) -> dict[str, int]:

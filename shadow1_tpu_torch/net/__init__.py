@@ -49,6 +49,7 @@ from shadow1_tpu_torch.net.nic import (
     tx_stamp,
 )
 from shadow1_tpu_torch.tcp import tcp as T
+from shadow1_tpu_torch.telemetry.links import link_nic_drops
 
 
 class NetState(NamedTuple):
@@ -82,8 +83,9 @@ def init(ctx, evbuf):
 def udp_send(st, ctx, mask, dst_host, dst_sock, length, meta, meta2, now):
     """Datagram send: NIC uplink stamp, then an outbox packet with
     F_DGRAM; no handshake, no reliability (loss and latency still apply;
-    so do the uplink queue bound and RED). The reference's link-telemetry
-    branch is not ported: ``check_supported`` refuses ``link_telem``."""
+    so do the uplink queue bound and RED). With the link plane on, the
+    drop-tail drops, which never reach ``route_outbox``, are added to their
+    egress edge here."""
     length = torch.as_tensor(length).to(torch.int32)
     p = payload(ctx.n_hosts, ctx.hosts, T.pack_meta(0, dst_sock, F_DGRAM),
                 None, None, length, None, None, meta, meta2,
@@ -105,6 +107,7 @@ def udp_send(st, ctx, mask, dst_host, dst_sock, length, meta, meta2, now):
             + (mask & ~sent & ~red).sum(dtype=torch.int64),
             nic_aqm_drops=m.nic_aqm_drops + red.sum(dtype=torch.int64),
         ),
+        links=link_nic_drops(st.links, ctx, mask & ~sent & ~red, dst_host),
     )
 
 

@@ -80,6 +80,7 @@ from shadow1_tpu_torch.core.events import tb_join, tb_split
 from shadow1_tpu_torch.core.outbox import outbox_space
 from shadow1_tpu_torch.core.popk import outbox_append
 from shadow1_tpu_torch.net.nic import ctx_aqm, tx_stamp
+from shadow1_tpu_torch.telemetry.links import link_nic_drops
 
 # Fields of the TCP state dict, all [S, H]. ``snd_max`` is the highest
 # sequence ever sent: cumulative-ACK acceptance tests against it, not the
@@ -238,6 +239,9 @@ def _emit(st, ctx, r: Sock, mask, flags, seq, length, mend, mmeta, now):
             nic_aqm_drops=m.nic_aqm_drops + red.sum(dtype=torch.int64),
             ob_overflow=m.ob_overflow + (sent & ~ok).sum(dtype=torch.int64),
         ),
+        # Link plane: egress-edge attribution of the drop-tail drops.
+        links=link_nic_drops(st.links, ctx, mask & ~sent & ~red,
+                             r.g("peer_host")),
     )
 
 
@@ -293,6 +297,11 @@ def tcp_flush(st, ctx, mask, sock, now):
     rtx_armed = g64("rtx_t") != 0
     zero64 = torch.zeros((), dtype=torch.int64, device=ctx.device)
     n_tx_drop = n_red = n_ob_over = zero64
+    # Link plane: per-host drop-tail counts across the burst lanes (a host
+    # flushes one socket per call, so peer_host is every lane's egress
+    # edge); None when the plane is off.
+    tx_drop_h = (torch.zeros(h, dtype=torch.int64, device=ctx.device)
+                 if st.links is not None else None)
     ts_seq = g("ts_seq")
     ts_time = g64("ts_time")
     ts_first = torch.zeros(h, dtype=torch.bool, device=ctx.device)
@@ -334,6 +343,8 @@ def tcp_flush(st, ctx, mask, sock, now):
         nic_run, depart, sent, red = tx_stamp(nic_run, can, wire, now64,
                                               ctx.bw_up, qlen, aqm=aqm)
         n_tx_drop = n_tx_drop + (can & ~sent & ~red).sum(dtype=torch.int64)
+        if tx_drop_h is not None:
+            tx_drop_h = tx_drop_h + (can & ~sent & ~red)
         n_red = n_red + red.sum(dtype=torch.int64)
         p = payload(h, ctx.hosts, p1 | (flags << 16), nxt, rcv_nxt, length,
                     pr.rcvbuf, mend, mmeta, device=ctx.device)
@@ -381,6 +392,9 @@ def tcp_flush(st, ctx, mask, sock, now):
             ob_overflow=m.ob_overflow + n_ob_over,
         ),
     )
+    if tx_drop_h is not None:
+        st = st._replace(links=link_nic_drops(st.links, ctx, tx_drop_h,
+                                              peer_host))
     st = push_local_event(st, ctx, need_ev, now64 + rto, K_TCP_TIMER, p0=sock)
 
     # Still pending but could not send: one TX_RESUME per socket (deduped).

@@ -1,24 +1,268 @@
-"""The telemetry ring's schema — a copy of the ring part of the JAX
-package's ``telemetry/registry.py`` (the port imports nothing of that
-package), so a ring row means the same thing to both: its record types and
-its columns, in order. Keep the two in step.
+"""The metrics registry — one named-counter namespace (port of
+``telemetry/registry.py``, a copy: the port imports nothing of the JAX
+package), so a record means the same thing to both packages:
 
-Counter columns are per-window DELTAS of the ``Metrics`` counters of the
-same name; gauge columns are per-window occupancy gauges; digest columns
-are the per-window state-digest words (``core/digest.py``), all 0 when
-``state_digest`` is off.
+* ``METRIC_SPECS`` — the canonical counter namespace: name → (kind, help),
+  in the order of the engine's ``Metrics`` fields;
+* ``normalize(d)`` — project a metrics dict onto the canonical namespace
+  (missing counters → 0, unknown extras kept);
+* ``to_prometheus(d)`` — Prometheus text exposition (counters get the
+  ``_total`` suffix, gauges don't), served by ``ExpositionServer``;
+* the JSONL record types (``REC_*``) and the column schemas of the
+  telemetry ring (``RING_FIELDS``), the flow-probe ring
+  (``PROBE_FIELDS``) and the link accumulator (``LINK_FIELDS``).
+
+Torch-free, like the reference's jax-free original: report code imports
+it without an accelerator runtime. Keep the two files in step.
 """
 
+from __future__ import annotations
+
+import threading
+
+COUNTER = "counter"
+GAUGE = "gauge"
+
+# name → (kind, help). Order is the canonical export order.
+METRIC_SPECS: dict[str, tuple[str, str]] = {
+    "events": (COUNTER, "events executed"),
+    "rounds": (COUNTER, "inner scheduler rounds run (batch engines)"),
+    "windows": (COUNTER, "conservative windows completed"),
+    "pkts_sent": (COUNTER, "packets routed out of host outboxes"),
+    "pkts_delivered": (COUNTER, "packets scattered into destination event buffers"),
+    "pkts_lost": (COUNTER, "packets dropped by path loss draws"),
+    "ev_overflow": (COUNTER, "events dropped: full event buffer"),
+    "ob_overflow": (COUNTER, "packets dropped: full outbox"),
+    "round_cap_hits": (COUNTER, "windows that hit the max_rounds safety cap"),
+    "tcp_fast_rtx": (COUNTER, "TCP fast-retransmit (3 dup-ACK) episodes"),
+    "tcp_rto": (COUNTER, "TCP retransmit-timeout episodes"),
+    "tcp_ooo_drops": (COUNTER, "out-of-order segments dropped (GBN receiver)"),
+    "x2x_overflow": (COUNTER, "packets dropped: all_to_all bucket full (sharded)"),
+    "x2x_max_fill": (GAUGE, "high-water demanded all_to_all bucket fill"),
+    "ev_max_fill": (GAUGE, "high-water window-end event-slot fill (vs ev_cap)"),
+    "ob_max_fill": (GAUGE, "high-water per-window outbox fill (vs outbox_cap)"),
+    "compact_max_fill": (GAUGE, "high-water window active-host count: demanded "
+                                "compaction-bucket lanes (vs compact_cap; "
+                                "per-shard block count under sharding)"),
+    "down_events": (COUNTER, "events discarded: host stopped (churn)"),
+    "down_pkts": (COUNTER, "packets dropped: destination host stopped"),
+    "nic_tx_drops": (COUNTER, "packets dropped: NIC uplink queue full"),
+    "nic_rx_drops": (COUNTER, "packets dropped: NIC downlink queue full"),
+    "nic_aqm_drops": (COUNTER, "packets dropped: RED early-drop (uplink)"),
+    "pops_pkt": (COUNTER, "K_PKT events popped"),
+    "pops_deliver": (COUNTER, "K_PKT_DELIVER events popped"),
+    "pops_timer": (COUNTER, "K_TCP_TIMER events popped"),
+    "pops_txr": (COUNTER, "K_TX_RESUME events popped"),
+    "pops_app": (COUNTER, "K_APP events popped"),
+    "fires_pkt": (COUNTER, "rounds where the K_PKT pass fired"),
+    "fires_deliver": (COUNTER, "rounds where the K_PKT_DELIVER pass fired"),
+    "fires_timer": (COUNTER, "rounds where the K_TCP_TIMER pass fired"),
+    "fires_txr": (COUNTER, "rounds where the K_TX_RESUME pass fired"),
+    "fires_app": (COUNTER, "rounds where the K_APP pass fired"),
+    "link_down_pkts": (COUNTER, "packets dropped: link outage window (fault plane)"),
+    "host_restarts": (COUNTER, "host restart resets applied (fault plane churn)"),
+    # Wasted-work accounting (performance attribution plane): per-window
+    # boundary samples accumulated as running sums, so the per-window value
+    # rides the telemetry ring as a delta like any counter. All three are
+    # engine-independent boundary quantities (the window-start pending set
+    # and the per-window send set are the same on every engine — the digest
+    # contract's argument), so they are bit-exact cpu<->tpu<->sharded.
+    "active_hosts": (COUNTER, "sum over windows of hosts with >=1 eligible "
+                              "event at window start (vs n_hosts: the "
+                              "fraction of the [cap, H] plane passes doing "
+                              "real work)"),
+    "elig_events": (COUNTER, "sum over windows of events eligible at window "
+                             "start (the work actually available to the "
+                             "round loop)"),
+    "outbox_hosts": (COUNTER, "sum over windows of hosts with >=1 outbox "
+                              "slot used (vs n_hosts: the live fraction of "
+                              "the route/deliver pass)"),
+    "chunk_retries": (COUNTER, "chunks discarded and replayed after overflow "
+                               "(--on-overflow retry; txn.OverflowGuard)"),
+    "retry_windows_rerun": (COUNTER, "windows re-executed by overflow "
+                                     "chunk retries"),
+}
+
+# HOST-side counters (txn.OverflowGuard): maintained by the chunk runner on
+# the host, never in the device Metrics tuple — they ride the canonical
+# namespace (normalize/Prometheus) but are excluded from the Metrics-fields
+# sync contract, from heartbeat deltas (the retries block carries them) and
+# from ring percentile stats (chunk-level, not per-window).
+HOST_FIELDS = ("chunk_retries", "retry_windows_rerun")
+
+# JSONL record types every consumer recognises (docs/OBSERVABILITY.md).
+# ``digest`` is the CPU oracle's per-window state-digest row (the batched
+# engines carry the same words as ring columns instead). Fleet mode
+# (shadow1_tpu/fleet/) emits one ``fleet_exp`` final record per experiment
+# plus one ``fleet_summary``; its ring records are the solo schema with an
+# added ``exp`` experiment-id field — consumers group by it and keep it out
+# of any value math.
+REC_HEARTBEAT = "heartbeat"
+REC_TRACKER = "tracker"
 REC_RING = "ring"
 REC_RING_GAP = "ring_gap"
+REC_DIGEST = "digest"
+REC_FLEET_EXP = "fleet_exp"
+REC_FLEET_SUMMARY = "fleet_summary"
+# Fleet recovery plane (fleet/run.py, docs/OBSERVABILITY.md §"Fleet
+# recovery records"): ``fleet_retry`` = one record per discarded+replayed
+# fleet chunk (windows, caps grown, offending lanes per counter);
+# ``fleet_quarantine`` = one record per lane sliced out of the sweep
+# (exp/seed/reason/window/knob + the solo-resumable checkpoint path).
+# Chunk-level events, never per-window rows — like the retry counters,
+# they stay out of ring percentile math by being their own record types
+# (tools/heartbeat_report.py's fleet-recovery section reads them).
+REC_FLEET_RETRY = "fleet_retry"
+REC_FLEET_QUARANTINE = "fleet_quarantine"
+# Preemption plane: ``resume`` = one record per lineage resume (which
+# generation, corrupt newer ones skipped); ``lineage`` = supervisor events
+# (watchdog_kill / preempted / corrupt_head / discard_all) — both on stderr,
+# summarized by tools/heartbeat_report.py's lineage section.
+REC_RESUME = "resume"
+REC_LINEAGE = "lineage"
+# Memory plane (shadow1_tpu/mem.py): one ``mem`` record per batched run on
+# stderr (event = estimate | downshift | final) — estimated per-plane bytes
+# vs the device budget, applied downshifts, and the backend's measured peak
+# when it reports one. Like the digest/retry columns, mem fields never
+# enter ring percentile math: they are their own record type, summarized by
+# tools/heartbeat_report.py's "memory" section.
+REC_MEM = "mem"
+# Performance attribution plane: ``work`` is the CPU oracle's per-window
+# wasted-work row (the batched engines carry the same values as the
+# RING_WORK ring columns instead — one schema, two carriers, exactly like
+# the digest words). Fields: window, active_hosts, elig_events,
+# outbox_hosts. Summarized by tools/heartbeat_report.py's work-efficiency
+# section; never enters ring percentile math.
+REC_WORK = "work"
+# Serve plane (shadow1_tpu/serve/, docs/OBSERVABILITY.md §"Serve
+# records"): ``serve`` = daemon-level events (start / accept / reject /
+# batch_start / batch_done / evict / shutdown — each with a ``cache``
+# hit|miss field on batch_start); ``serve_job`` = one record per job
+# state transition (queued → running → done|failed|rejected|evicted),
+# the rows heartbeat_report's serve section tabulates. Daemon-level
+# events, never per-window rows — like the digest/retry columns they
+# stay out of ring percentile math by being their own record types.
+REC_SERVE = "serve"
+REC_SERVE_JOB = "serve_job"
+# Serve resilience planes (docs/OBSERVABILITY.md §"Serve records"):
+# ``serve_queue`` = admission backpressure events (enqueue /
+# waiting_headroom / reject_full) each with the queue's depth, queued
+# est_peak bytes and oldest-wait age at that instant; ``serve_deadline``
+# = one record per expiry (kind = queue_ttl | running — a running expiry
+# names the committed-prefix checkpoint and ran_s); ``serve_retry`` = the
+# transient-failure retry plane (event = retry | bisect | exhausted, with
+# the batch, job list, attempt count and backoff). All daemon-level, out
+# of ring percentile math like every serve record.
+REC_SERVE_QUEUE = "serve_queue"
+REC_SERVE_DEADLINE = "serve_deadline"
+REC_SERVE_RETRY = "serve_retry"
+# Flow-probe plane (telemetry/probes.py, EngineParams.probes): ``flow`` =
+# one per-window sample of one watched (host, sock) entity — the PROBE_FIELDS
+# columns plus window/sim_time_s/host/sock (sock −1 = host-only view). The
+# batched engines carry the samples in the [W, K, F] probe ring and drain
+# them at chunk boundaries; the CPU oracle emits the same rows at window
+# boundaries (probe_rows) — bit-identical streams, like the digest words.
+# ``flow_gap`` mirrors ``ring_gap``: windows overwritten before a drain.
+# Fleet rows add the ``exp`` id, same rule as ring records.
+REC_FLOW = "flow"
+REC_FLOW_GAP = "flow_gap"
+# Link-telemetry plane (telemetry/links.py, EngineParams.link_telem):
+# ``link`` = one CUMULATIVE per-edge snapshot per chunk boundary per active
+# (src_vertex, dst_vertex) edge — the LINK_FIELDS columns plus
+# window/sim_time_s/src_vertex/dst_vertex. Snapshots are running totals
+# (diff consecutive records per edge for rates), so a drain is a pure
+# function of device state and every engine's stream at the same boundary
+# is bit-identical (the digest-words argument). ``link_gap`` marks a
+# stream rebase: the window cursor regressed below the last drained
+# boundary (fleet lane rebind / mid-sweep lane lifecycle), so earlier
+# snapshots and later ones belong to different runs of the lane.
+# Fleet rows add the ``exp`` id, same rule as ring records.
+REC_LINK = "link"
+REC_LINK_GAP = "link_gap"
+RECORD_TYPES = (REC_HEARTBEAT, REC_TRACKER, REC_RING, REC_RING_GAP,
+                REC_DIGEST, REC_FLEET_EXP, REC_FLEET_SUMMARY,
+                REC_FLEET_RETRY, REC_FLEET_QUARANTINE,
+                REC_RESUME, REC_LINEAGE, REC_MEM, REC_WORK,
+                REC_SERVE, REC_SERVE_JOB, REC_SERVE_QUEUE,
+                REC_SERVE_DEADLINE, REC_SERVE_RETRY,
+                REC_FLOW, REC_FLOW_GAP,
+                REC_LINK, REC_LINK_GAP)
 
+# Serve-plane job-ledger namespace (shadow1_tpu/serve/daemon.py): exported
+# on the daemon's Prometheus endpoint (--metrics-port) with the
+# ``shadow1_serve`` prefix, DISTINCT from the engine counter namespace
+# above — the engines' Metrics-fields sync contract never sees these.
+SERVE_SPECS: dict[str, tuple[str, str]] = {
+    "jobs_submitted": (COUNTER, "job submissions accepted into the spool"),
+    "jobs_rejected": (COUNTER, "jobs rejected at admission (config/memory)"),
+    "jobs_done": (COUNTER, "jobs finished successfully"),
+    "jobs_failed": (COUNTER, "jobs failed (quarantined lane / runtime error)"),
+    "jobs_evicted": (COUNTER, "job evictions (priority preemption drains)"),
+    "jobs_queued": (GAUGE, "jobs waiting in the lane-packing queue"),
+    "jobs_waiting": (GAUGE, "jobs in waiting_headroom (fit idle, not live)"),
+    "jobs_running": (GAUGE, "jobs in the in-flight fleet batch"),
+    "queue_depth": (GAUGE, "admitted jobs waiting (queued + waiting_headroom)"),
+    "queue_bytes": (GAUGE, "est_peak bytes of every waiting job, summed"),
+    "oldest_wait_s": (GAUGE, "age of the oldest waiting job"),
+    "jobs_queue_full": (COUNTER, "queue_full rejections (backpressure caps)"),
+    "jobs_expired": (COUNTER, "deadline expiries (queue TTL + running)"),
+    "batch_retries": (COUNTER, "transient-failure batch retries (backoff)"),
+    "jobs_bisected": (COUNTER, "jobs split into solo batches after repeat crashes"),
+    "batches_run": (COUNTER, "fleet batches executed"),
+    "cache_hits": (COUNTER, "hot-engine cache hits (compile skipped)"),
+    "cache_misses": (COUNTER, "hot-engine cache misses (trace + compile paid)"),
+    "cache_evictions": (COUNTER, "hot-engine cache LRU evictions"),
+    "cache_entries": (GAUGE, "compiled engines currently resident in the cache"),
+    # Link-telemetry roll-up (the result router watches ``link`` records as
+    # they demux into per-job result.jsonl streams): the hottest single
+    # edge seen across all tenants — cumulative wire bytes and total drops
+    # (loss + link_down + NIC backlog) of the busiest / lossiest edge.
+    "top_edge_bytes": (GAUGE, "wire bytes on the hottest edge seen (link records)"),
+    "top_edge_drops": (GAUGE, "drops on the lossiest edge seen (link records)"),
+}
+
+# The drop/overflow counter group: every way a modeled event or packet can
+# be discarded, with the human-readable reason. Heartbeat records and the
+# CLI's final JSON group these under one structured ``drops`` block (and
+# tools/heartbeat_report.py prints them as a drop-reason table) instead of
+# eleven flat counters scattered through ``delta``. The fault plane's
+# discards live here too — churn experiments must account for every
+# fault-induced loss through the same table.
+DROP_SPECS: dict[str, str] = {
+    "ev_overflow": "event buffer full",
+    "ob_overflow": "outbox full",
+    "x2x_overflow": "all_to_all bucket full (sharded)",
+    "nic_tx_drops": "NIC uplink queue full",
+    "nic_rx_drops": "NIC downlink queue full",
+    "nic_aqm_drops": "RED early drop (uplink)",
+    "tcp_ooo_drops": "out-of-order segment (GBN receiver)",
+    "down_events": "event at a dead host (churn)",
+    "down_pkts": "destination host dead at arrival (churn)",
+    "link_down_pkts": "link outage window (fault plane)",
+    "pkts_lost": "path loss draw",
+}
+DROP_FIELDS = tuple(DROP_SPECS)
+
+# ---------------------------------------------------------------------------
+# On-device telemetry ring schema (consumed by telemetry/ring.py, which owns
+# the jax side; declared here so report tools stay jax-free).
+# Counter columns are PER-WINDOW DELTAS of the matching METRIC_SPECS
+# counters; gauge columns are per-window occupancy gauges.
+# ---------------------------------------------------------------------------
 RING_COUNTERS = (
     "events", "rounds", "pkts_sent", "pkts_delivered", "pkts_lost",
     "ev_overflow", "ob_overflow", "x2x_overflow", "down_events", "down_pkts",
     "link_down_pkts", "host_restarts",
 )
-# Wasted-work columns: per-window deltas of the running-sum counters, i.e.
-# the window's boundary sample itself.
+# Wasted-work accounting columns (performance attribution plane): per-window
+# DELTAS of the matching METRIC_SPECS counters, i.e. the window's boundary
+# sample itself (the counters are running sums of per-window samples).
+# Additive across shards like the counter deltas (each shard counts its host
+# block; the psum is the global value, bit-equal to single-device), and
+# mirrored bit-exactly by the CPU oracle's boundary sampling (work_rows).
+# Kept OUT of RING_COUNTERS so ring percentile consumers that rank raw
+# counter deltas don't blend utilization samples in — the work-efficiency
+# section (tools/heartbeat_report.py) owns their presentation.
 RING_WORK = (
     "active_hosts",   # hosts with >=1 eligible event at window start
     "elig_events",    # events eligible at window start
@@ -31,5 +275,197 @@ RING_GAUGES = (
     "compact_max_fill", # running high-water compaction-bucket demand
     "x2x_max_fill",     # running high-water all_to_all bucket demand
 )
-RING_DIGESTS = ("dg_evbuf", "dg_outbox", "dg_tcp", "dg_nic", "dg_rng")
+# Determinism flight recorder (core/digest.py, EngineParams.state_digest):
+# one order-independent state-digest word per subsystem per window. All
+# zeros when state_digest is off. Sum-combined (psum'd under sharding),
+# NOT deltas and NOT gauges — compare them across runs, never aggregate.
+RING_DIGESTS = (
+    "dg_evbuf",   # occupied event slots keyed by (host, time, tb, kind, p)
+    "dg_outbox",  # this window's buffered sends (before the window-end clear)
+    "dg_tcp",     # live sockets: every tcp-plane field + message-boundary FIFO
+    "dg_nic",     # per-host NIC clocks and byte/AQM counters
+    "dg_rng",     # per-host deterministic counters (self_ctr/pkt_ctr/cpu_busy
+                  # + model draw counters)
+)
 RING_FIELDS = RING_COUNTERS + RING_WORK + RING_GAUGES + RING_DIGESTS
+
+# ---------------------------------------------------------------------------
+# Flow-probe column schema (consumed by telemetry/probes.py, which owns the
+# jax side; declared here so report tools stay jax-free). One [K, F] row per
+# window per watched entity, F = len(PROBE_FIELDS), sampled at the window
+# boundary — the same engine-independent boundary state the digest hashes,
+# so cpu/tpu/sharded/fleet streams compare bit-exact. TCP columns are zero
+# for host-only probes (sock == −1) and for non-net models; NIC backlogs are
+# ns of serialization debt relative to the window end (max(free_at − end, 0)).
+# There are no per-host NIC drop counters in NicState (drops are global
+# metrics), so the byte counters carry the per-host wire activity instead.
+# ---------------------------------------------------------------------------
+PROBE_FIELDS = (
+    "tcp_state",          # TCP_* state enum (0 = free/closed)
+    "cwnd",               # congestion window, bytes
+    "ssthresh",           # slow-start threshold, bytes
+    "srtt",               # smoothed RTT, ns (0 until first sample)
+    "rttvar",             # RTT variance, ns
+    "rto",                # retransmit timeout, ns
+    "inflight",           # snd_nxt − snd_una (signed seq distance), bytes
+    "snd_max",            # highest sequence ever sent (u32 window)
+    "peer_wnd",           # last advertised peer receive window, bytes
+    "nic_tx_backlog_ns",  # uplink serialization backlog past window end, ns
+    "nic_rx_backlog_ns",  # downlink serialization backlog past window end, ns
+    "nic_tx_bytes",       # lifetime wire bytes sent by the host
+    "nic_rx_bytes",       # lifetime wire bytes received by the host
+    "pending_events",     # events queued at the host at the boundary
+)
+
+# ---------------------------------------------------------------------------
+# Link-telemetry column schema (consumed by telemetry/links.py, which owns
+# the jax side; declared here so tools/netreport.py stays jax-free). One
+# [V, V, F] i64 accumulator keyed (src_vertex, dst_vertex); every column is
+# a RUNNING TOTAL since sim start. ``pkts``/``bytes`` count packets OFFERED
+# to the edge at routing time (everything that reached an outbox slot —
+# the pkts_sent population; ob_overflow losses never reached an edge);
+# drop columns partition the offered packets that died on the edge;
+# ``queued_ns_*`` measure NIC serialization debt: depart − window_start of
+# the send window, per offered packet (values past the window length mean
+# the uplink is carrying backlog across windows — the saturation signal).
+# The first LINK_MAX_COL columns are additive (psum across shards / diff
+# across snapshots); ``queued_ns_max`` is a high-water gauge (max-reduced,
+# never diffed) — the fill-gauge rule.
+# ---------------------------------------------------------------------------
+LINK_FIELDS = (
+    "pkts",               # packets offered to the edge (routing time)
+    "bytes",              # wire bytes offered (payload + WIRE_OVERHEAD)
+    "loss_drops",         # path-loss draws lost on the edge
+    "link_down_drops",    # fault-plane outage drops on the edge
+    "nic_backlog_drops",  # NIC uplink drop-tail drops, egress-edge attributed
+    "queued_ns_sum",      # sum of per-packet NIC queueing (depart - win_start)
+    "queued_ns_max",      # high-water per-packet NIC queueing (gauge)
+)
+LINK_MAX_COL = LINK_FIELDS.index("queued_ns_max")
+
+
+def counter_names() -> tuple[str, ...]:
+    return tuple(n for n, (k, _) in METRIC_SPECS.items() if k == COUNTER)
+
+
+def gauge_names() -> tuple[str, ...]:
+    return tuple(n for n, (k, _) in METRIC_SPECS.items() if k == GAUGE)
+
+
+def normalize(metrics: dict) -> dict[str, int]:
+    """Project ``metrics`` onto the canonical namespace.
+
+    Every canonical counter is present (missing → 0, canonical order);
+    engine-specific extras follow, preserved verbatim — so consumers can
+    index any canonical name without guarding, on any engine's dict."""
+    out = {name: int(metrics.get(name, 0)) for name in METRIC_SPECS}
+    out.update({k: v for k, v in metrics.items() if k not in METRIC_SPECS})
+    return out
+
+
+def _escape_help(s: str) -> str:
+    return s.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _escape_label(s: str) -> str:
+    return s.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def to_prometheus(metrics: dict, prefix: str = "shadow1",
+                  labels: dict | None = None,
+                  specs: dict | None = None) -> str:
+    """Prometheus text exposition (version 0.0.4) of a metrics dict.
+
+    Canonical counters are exported as ``<prefix>_<name>_total``, gauges as
+    ``<prefix>_<name>``; unknown extras default to counter kind. ``specs``
+    selects the namespace table (default METRIC_SPECS; the serve daemon's
+    job ledger exports through SERVE_SPECS instead — dicts are then taken
+    as-is, no engine-counter normalization)."""
+    lab = ""
+    if labels:
+        inner = ",".join(f'{k}="{_escape_label(str(v))}"'
+                         for k, v in sorted(labels.items()))
+        lab = "{" + inner + "}"
+    lines = []
+    table = METRIC_SPECS if specs is None else specs
+    rows = normalize(metrics) if specs is None else \
+        {**{n: metrics.get(n, 0) for n in table},
+         **{k: v for k, v in metrics.items() if k not in table}}
+    for name, value in rows.items():
+        kind, help_ = table.get(name, (COUNTER, "engine-specific counter"))
+        metric = f"{prefix}_{name}" + ("_total" if kind == COUNTER else "")
+        lines.append(f"# HELP {metric} {_escape_help(help_)}")
+        lines.append(f"# TYPE {metric} {kind}")
+        # Integral values print as integers; fractional gauges (wait-time
+        # seconds) keep their fraction — int() would floor a sub-second
+        # queue wait to a lying zero.
+        v = float(value or 0)
+        lines.append(f"{metric}{lab} {int(v) if v == int(v) else v}")
+    return "\n".join(lines) + "\n"
+
+
+class ExpositionServer:
+    """Minimal Prometheus-style scrape endpoint (GET /metrics).
+
+    ``get_metrics`` is called per scrape and must return a metrics dict —
+    typically ``lambda: Engine.metrics_dict(latest_state)`` refreshed at
+    chunk boundaries, so scraping never touches the device mid-window.
+
+        srv = ExpositionServer(lambda: metrics, port=0)  # 0 = ephemeral
+        srv.start()
+        ... scrape http://127.0.0.1:{srv.port}/metrics ...
+        srv.stop()
+    """
+
+    def __init__(self, get_metrics, port: int = 0, host: str = "127.0.0.1",
+                 prefix: str = "shadow1", labels: dict | None = None,
+                 specs: dict | None = None):
+        self.get_metrics = get_metrics
+        self._addr = (host, port)
+        self.prefix = prefix
+        self.labels = labels
+        self.specs = specs
+        self._httpd = None
+        self._thread = None
+
+    @property
+    def port(self) -> int:
+        if self._httpd is None:
+            raise RuntimeError("server not started")
+        return self._httpd.server_address[1]
+
+    def start(self) -> "ExpositionServer":
+        import http.server
+
+        reg = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 (stdlib API name)
+                if self.path.rstrip("/") in ("", "/metrics"):
+                    body = to_prometheus(reg.get_metrics(), prefix=reg.prefix,
+                                         labels=reg.labels,
+                                         specs=reg.specs).encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "text/plain; version=0.0.4; charset=utf-8")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                else:
+                    self.send_error(404)
+
+            def log_message(self, *a):  # scrapes must not spam stderr
+                pass
+
+        self._httpd = http.server.ThreadingHTTPServer(self._addr, Handler)
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+            self._thread = None

@@ -11,9 +11,9 @@ JAX package, on the CPU.
   (``tools/torch_golden.py``) equals the YAML compile of the config it
   stands for, and the golden's engine parameters are the config's;
 * ``check_supported`` accepts tgen, dgram, Tor, ``compact_cap``, Bitcoin,
-  the NIC queue bounds, RED AQM and ``faults:``, and refuses ``probes:``,
-  ``selfcheck``, ``auto_caps``, ``on_overflow: retry`` and ``link_telem``,
-  each naming its ROADMAP item;
+  the NIC queue bounds, RED AQM, ``faults:``, ``probes:`` and
+  ``link_telem``, and refuses ``selfcheck``, ``auto_caps`` and
+  ``on_overflow: retry``, each naming its ROADMAP item;
 * the command line runs rung 2 and rung 3 (with its ``compact_cap``).
 """
 
@@ -158,12 +158,21 @@ def test_check_supported():
     exp, par, _ = xt.build_experiment(doc, base_dir=str(CONFIGS))
     assert exp.faults is not None
     check_supported(exp, par)
-    # What still refuses names its ROADMAP item.
+    # Refused until the checkpoint and observability slice, accepted
+    # since: a probes: section resolves as the reference's, and one the
+    # reference cannot resolve fails as it does there.
     doc = _doc("rung2_tgen100")
+    doc["probes"] = [{"host": 0, "sock": 1}, "1"]
+    exp, par, _ = xt.build_experiment(copy.deepcopy(doc),
+                                      base_dir=str(CONFIGS))
+    _, par_j, _ = xj.build_experiment(copy.deepcopy(doc),
+                                      base_dir=str(CONFIGS))
+    assert par.probes == par_j.probes == ((0, 1), (1, -1))
+    check_supported(exp, par)
     doc["probes"] = {"flows": [{"host": 0, "sock": 1}]}
-    with pytest.raises(NotImplementedError, match="checkpoint and "
-                       "observability"):
-        xt.build_experiment(doc, base_dir=str(CONFIGS))
+    for mod in (xt, xj):
+        with pytest.raises(mod.WatchlistError, match="flows"):
+            mod.build_experiment(copy.deepcopy(doc), base_dir=str(CONFIGS))
 
 
 @pytest.mark.parametrize("knob", [dict(selfcheck=1), dict(auto_caps=1),
@@ -171,12 +180,19 @@ def test_check_supported():
                                   dict(link_telem=1)])
 def test_check_supported_refuses(knob):
     """``selfcheck: 1`` (the reference's boundary identity, which the
-    port does not run yet), ``auto_caps``, ``on_overflow: retry`` and
-    ``link_telem`` are refused, naming their ROADMAP item."""
+    port does not run yet), ``auto_caps`` and ``on_overflow: retry`` are
+    refused, naming their ROADMAP item. ``link_telem``, refused until the
+    checkpoint and observability slice, is accepted since: the engine
+    builds with the link accumulator in its state."""
     _, _, exp, _ = _both("rung2_tgen100")
-    item = ("checkpoint and observability" if "link_telem" in knob
-            else "recovery planes")
-    with pytest.raises(NotImplementedError, match=item):
+    if "link_telem" in knob:
+        from shadow1_tpu_torch.core.engine import Engine
+
+        check_supported(exp, EngineParams(**knob))
+        st = Engine(exp, EngineParams(**knob), device="cpu").init_state()
+        assert tuple(st.links.buf.shape) == (1, 1, 7)
+        return
+    with pytest.raises(NotImplementedError, match="recovery planes"):
         check_supported(exp, EngineParams(**knob))
 
 

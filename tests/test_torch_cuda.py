@@ -533,3 +533,69 @@ def test_push_back_in_path_cuda_matches_cpu(dev):
         popk.push_back = push_back
     assert entries["push_back"] == m["rounds"] and entries["push_local"] > 0
     assert sum(seen) > 0 and m["host_restarts"] == 6
+
+
+def _obs_params():
+    return EngineParams(ev_cap=512, compact_cap=8, metrics_ring=11,
+                        state_digest=1, link_telem=1,
+                        probes=((0, -1), (1, 0), (2, 0), (9, 0)))
+
+
+def _obs_records(st, eng):
+    from shadow1_tpu_torch.telemetry.links import drain_links
+    from shadow1_tpu_torch.telemetry.probes import drain_probes
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+
+    return (Engine.metrics_dict(st), drain_ring(st, eng.window),
+            drain_probes(st, eng.window, eng.params.probes),
+            drain_links(st, eng.window))
+
+
+def test_cuda_snapshot_continues_on_cpu(dev, tmp_path):
+    """Two fidelity tiles with the probes and the link accumulator on: a
+    state saved on the card at window 5 loads into the CPU port, which
+    runs on equal to the card's own run — metrics, ring rows, flow and
+    link records — and to a straight CPU run."""
+    from shadow1_tpu_torch.ckpt import load_state, save_state
+    from shadow1_tpu_torch.config.compiled import fidelity_filexfer_experiment
+
+    exp = fidelity_filexfer_experiment(2, 42, 400 * MS)
+    eng_c = Engine(exp, _obs_params(), device=dev)
+    st = eng_c.run(n_windows=5)
+    path = str(tmp_path / "card.npz")
+    save_state(st, path)
+    st = eng_c.run(st, n_windows=6)
+    card = _obs_records(st, eng_c)
+    eng = Engine(exp, _obs_params(), device="cpu")
+    resumed = eng.run(load_state(eng.init_state(), path), n_windows=6)
+    assert _obs_records(resumed, eng) == card
+    assert _obs_records(eng.run(n_windows=11), eng) == card
+
+
+def test_cuda_lineage_resolves_on_cpu(dev, tmp_path):
+    """A lineage written on the card (obs.run_with_heartbeat, a generation
+    every 2 windows, keep 2) resolves on the CPU to its head, and the
+    generation behind it when the head is torn; each loads into a CPU
+    engine."""
+    import os
+
+    from shadow1_tpu_torch.ckpt import load_state
+    from shadow1_tpu_torch.config.compiled import fidelity_filexfer_experiment
+    from shadow1_tpu_torch.lineage import Lineage
+    from shadow1_tpu_torch.obs import run_with_heartbeat
+
+    exp = fidelity_filexfer_experiment(2, 42, 400 * MS)
+    path = str(tmp_path / "lin.npz")
+    run_with_heartbeat(Engine(exp, _obs_params(), device=dev), n_windows=6,
+                       every_windows=2, stream=False, ckpt_path=path,
+                       ckpt_every_s=0.0, ckpt_keep=2)
+    eng = Engine(exp, _obs_params(), device="cpu")
+    r = Lineage(path, keep=2).resolve()
+    assert r.path == path and r.meta["done_windows"] == 6 and not r.skipped
+    assert int(load_state(eng.init_state(), r.path).metrics.windows) == 6
+    with open(path, "r+b") as f:
+        f.truncate(os.path.getsize(path) // 2)
+    r = Lineage(path, keep=2).resolve()
+    assert r.path != path and r.meta["done_windows"] == 4
+    assert len(r.skipped) == 1
+    assert int(load_state(eng.init_state(), r.path).metrics.windows) == 4

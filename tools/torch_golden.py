@@ -15,6 +15,16 @@ Runs each slice configuration below through the JAX package's ``Engine``
   window in ``core/digest.py``'s subsystem order. The run must be
   overflow-free.
 
+* the observability planes (``net_<name>_obs.json``, ``OBS_CONFIGS``): a
+  net golden's experiment with flow probes and the link accumulator on,
+  drained at the chunk boundaries the spec lists; the SHA-256 and count of
+  the ``flow`` records and of the ``link`` records (each record as
+  ``json.dumps(rec, sort_keys=True)``, one per line), and the final link
+  snapshot's column totals;
+* a snapshot (``ckpt_<name>.npz``, ``CKPT_CONFIGS``): the JAX package's
+  ``ckpt.save_state`` of a YAML config's state at a window, with the
+  telemetry ring and the digest words on.
+
 ``chip_smoke.py`` builds the same experiments in the port, runs them on the
 H100 and compares — the machine with the card has no JAX, so the reference
 travels as these files.
@@ -23,7 +33,8 @@ travels as these files.
 
 Names: ``bench``, ``lossy`` (PHOLD), ``filexfer16k``, ``rung1``,
 ``tgen50k``, ``rung2``, ``tor10k``, ``dgram4k``, ``bitcoin5k``, ``churn8``,
-``fidelity16k`` (net). ``filexfer16k``
+``fidelity16k`` (net), ``fidelity16k_obs`` (the planes; ~8 minutes) and
+``ckpt_churn8_w75`` (the snapshot; seconds). ``filexfer16k``
 (16,384 hosts) takes about 35 minutes on 8 CPU cores; each golden records
 its own wall time and peak memory.
 
@@ -186,6 +197,143 @@ NET_CONFIGS = {
 }
 
 
+# name -> observability spec: ``base`` is the net golden whose experiment
+# and params it takes; ``probes`` the watched (host, sock) pairs; the run
+# drains at the end of each chunk of ``chunks`` windows. ``at_least`` gives
+# a least value for the final link snapshot's column totals.
+#
+# * ``fidelity16k_obs``: fidelity16k with 8 probes (the first tile's server
+#   as a host and its first accepted connection, clients with flows —
+#   hosts 2 and 3 go down and restart, and clients' uplinks drop — one
+#   client in the middle tile and the last host as a host) and the link
+#   accumulator, in chunks of 3 windows (the card resumes at window 6).
+OBS_CONFIGS = {
+    "fidelity16k_obs": dict(
+        base="fidelity16k",
+        probes=[[0, -1], [0, 1], [1, 0], [2, 0], [3, 0], [7, 0],
+                [8193, 0], [16383, -1]],
+        chunks=[3, 3, 3, 2],
+        at_least={"loss_drops": 1, "link_down_drops": 1,
+                  "nic_backlog_drops": 1}),
+}
+
+# name -> snapshot spec: ``yaml`` the config, ``window`` where the JAX run
+# stops and saves; the run has a ``ring_windows`` telemetry ring and the
+# digest words on.
+#
+# * ``ckpt_churn8_w75``: configs/churn_filexfer.yaml (the churn8 golden's)
+#   at window 75 of 150, between the restarts and the link outage.
+CKPT_CONFIGS = {
+    "ckpt_churn8_w75": dict(yaml="configs/churn_filexfer.yaml", window=75,
+                            ring_windows=150),
+}
+
+
+def records_sha256(recs) -> str:
+    """SHA-256 of JSONL records, each as ``json.dumps(rec, sort_keys=True)``
+    on its own line (the form ``chip_smoke.py`` hashes)."""
+    return hashlib.sha256("".join(
+        json.dumps(r, sort_keys=True) + "\n" for r in recs).encode()
+    ).hexdigest()
+
+
+def jax_experiment_from_builder(build: dict):
+    """A port ``config/compiled.py`` builder call, as the JAX package's
+    CompiledExperiment (the fault schedule as its own)."""
+    import dataclasses
+
+    from shadow1_tpu.config import compiled as cj
+
+    from shadow1_tpu_torch.config import compiled as ct
+
+    (builder, kwargs), = build.items()
+    exp_t = getattr(ct, builder)(**kwargs)
+    exp = cj.CompiledExperiment(**{
+        f.name: getattr(exp_t, f.name)
+        for f in dataclasses.fields(cj.CompiledExperiment)})
+    # The reference memoizes caches into model_cfg; keep the port's dict
+    # as built.
+    exp.model_cfg = dict(exp.model_cfg)
+    if exp_t.faults is not None:
+        from shadow1_tpu.fault.schedule import FaultSchedule
+
+        exp.faults = FaultSchedule(**dataclasses.asdict(exp_t.faults))
+    return exp
+
+
+def run_obs_reference(spec: dict) -> tuple[dict, float]:
+    import resource
+
+    import shadow1_tpu  # noqa: F401  (enables x64)
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from shadow1_tpu.consts import EngineParams
+    from shadow1_tpu.core.engine import Engine
+    from shadow1_tpu.telemetry.links import drain_links
+    from shadow1_tpu.telemetry.probes import drain_probes
+    from shadow1_tpu.telemetry.registry import LINK_FIELDS
+
+    base = NET_CONFIGS[spec["base"]]
+    exp = jax_experiment_from_builder(base["build"])
+    windows = sum(spec["chunks"])
+    assert windows == base["windows"], (windows, base["windows"])
+    probes = tuple(tuple(p) for p in spec["probes"])
+    params = EngineParams(**base["params"], metrics_ring=windows,
+                          state_digest=1, probes=probes, link_telem=1)
+    eng = Engine(exp, params)
+    t0 = time.perf_counter()
+    st, done, flows, links = eng.init_state(), 0, [], []
+    for n in spec["chunks"]:
+        st = eng.run(st, n_windows=n)
+        flows += drain_probes(st, eng.window, probes, start=done)
+        links += drain_links(st, eng.window, start=done)
+        done += n
+    seconds = time.perf_counter() - t0
+    metrics = Engine.metrics_dict(st)
+    for k in ("ev_overflow", "ob_overflow", "round_cap_hits"):
+        assert metrics[k] == 0, f"golden run overflowed: {k} = {metrics[k]}"
+    last = [r for r in links if r["window"] == windows - 1]
+    totals = {f: sum(r[f] for r in last) for f in LINK_FIELDS}
+    low = {k: (totals[k], n) for k, n in spec["at_least"].items()
+           if totals[k] < n}
+    assert not low, f"golden run: (value, least) {low}"
+    assert all(r["type"] == "flow" for r in flows)
+    assert len(flows) == windows * len(probes)
+    rec = {
+        "base": spec["base"], "probes": spec["probes"],
+        "chunks": spec["chunks"], "windows": windows,
+        "flow_count": len(flows), "flow_sha256": records_sha256(flows),
+        "link_count": len(links), "link_sha256": records_sha256(links),
+        "link_totals": totals, "at_least": spec["at_least"],
+        "reference": "shadow1_tpu Engine on the CPU",
+        "reference_seconds": round(seconds, 1),
+        "reference_max_rss_mb": resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss // 1024,
+    }
+    return rec, seconds
+
+
+def write_ckpt_reference(spec: dict, path: Path) -> float:
+    import dataclasses
+
+    import shadow1_tpu  # noqa: F401  (enables x64)
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from shadow1_tpu.ckpt import save_state
+    from shadow1_tpu.config.experiment import load_experiment
+    from shadow1_tpu.core.engine import Engine
+
+    exp, params, _ = load_experiment(str(ROOT / spec["yaml"]))
+    params = dataclasses.replace(params, metrics_ring=spec["ring_windows"],
+                                 state_digest=1)
+    t0 = time.perf_counter()
+    st = Engine(exp, params).run(n_windows=spec["window"])
+    save_state(st, str(path))
+    return time.perf_counter() - t0
+
+
 def array_sha256(a) -> str:
     """SHA-256 of an integer array as little-endian int64."""
     import numpy as np
@@ -270,9 +418,24 @@ def run_net_reference(spec: dict) -> tuple[dict, float]:
 
 def main(argv: list[str]) -> int:
     sys.path.insert(0, str(ROOT))
-    names = argv or list(CONFIGS) + list(NET_CONFIGS)
+    names = argv or (list(CONFIGS) + list(NET_CONFIGS) + list(OBS_CONFIGS)
+                     + list(CKPT_CONFIGS))
     GOLDEN.mkdir(parents=True, exist_ok=True)
     for name in names:
+        if name in OBS_CONFIGS:
+            rec, seconds = run_obs_reference(OBS_CONFIGS[name])
+            path = GOLDEN / f"net_{name}.json"
+            path.write_text(json.dumps(rec, indent=1, sort_keys=True) + "\n")
+            print(f"{path.relative_to(ROOT)}: {rec['flow_count']} flow and "
+                  f"{rec['link_count']} link records in {seconds:.1f} s",
+                  file=sys.stderr)
+            continue
+        if name in CKPT_CONFIGS:
+            path = GOLDEN / f"{name}.npz"
+            seconds = write_ckpt_reference(CKPT_CONFIGS[name], path)
+            print(f"{path.relative_to(ROOT)}: {path.stat().st_size} bytes in "
+                  f"{seconds:.1f} s", file=sys.stderr)
+            continue
         if name in NET_CONFIGS:
             rec, seconds = run_net_reference(NET_CONFIGS[name])
             path = GOLDEN / f"net_{name}.json"

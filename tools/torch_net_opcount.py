@@ -1,6 +1,7 @@
 """Count what one round of the port's net slice dispatches, on the CPU.
 
     python tools/torch_net_opcount.py [--groups 2] [--warmup 7] [--windows 3]
+        [--planes]
 
 Runs the ``filexfer16k`` layout (``tiled_filexfer_experiment``) at
 ``--groups`` groups of 8 hosts on the CPU, and over ``--windows`` windows
@@ -8,7 +9,10 @@ after ``--warmup`` counts, per round: the PyTorch ops dispatched (views
 left out; on the CPU the kernels' plain versions run, so pop, push and
 the outbox append count as their plain ops, not as one launch each) and
 the device→host reads (``bool(tensor)`` and ``.tolist()``, by calling
-function). A CPU count, not a device measurement: it says how many eager
+function). With ``--planes`` the run also carries the observability
+planes: a telemetry ring, four flow probes in the first group (the
+server's host view and socket 1, clients 1 and 2) and the link
+accumulator. A CPU count, not a device measurement: it says how many eager
 ops and synchronising reads the round loop issues, which the card's host
 pays for. Prints one JSON line.
 """
@@ -34,6 +38,7 @@ def main() -> int:
     ap.add_argument("--groups", type=int, default=2)
     ap.add_argument("--warmup", type=int, default=7)
     ap.add_argument("--windows", type=int, default=3)
+    ap.add_argument("--planes", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -48,7 +53,10 @@ def main() -> int:
     exp = tiled_filexfer_experiment(
         args.groups, seed=42,
         end_time=(args.warmup + args.windows) * 40_000_000)
-    eng = Engine(exp, EngineParams(ev_cap=512), device="cpu")
+    planes = (dict(metrics_ring=args.warmup + args.windows, link_telem=1,
+                   probes=((0, -1), (0, 1), (1, 0), (2, 0)))
+              if args.planes else {})
+    eng = Engine(exp, EngineParams(ev_cap=512, **planes), device="cpu")
     st = eng.run(n_windows=args.warmup)
 
     class Count(TorchDispatchMode):
@@ -81,6 +89,7 @@ def main() -> int:
     ops = sum(n for k, n in c.ops.items() if k not in VIEWS)
     print(json.dumps({
         "device": "cpu", "hosts": exp.n_hosts, "windows": args.windows,
+        "planes": args.planes,
         "rounds": rounds, "ops_per_round": ops / rounds,
         "reads_per_round": sum(reads.values()) / rounds,
         "reads_by_caller": dict(reads),
