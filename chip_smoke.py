@@ -105,6 +105,35 @@ fails:
    phases' spans and at least 90 % of each kernel's launches; (d) in a
    fresh process that builds the kernels into an empty directory, the
    ``run_with_heartbeat`` compile span must hold nvcc's whole build.
+14. the recovery planes on ``fidelity16k`` at full width, held to
+   ``net_fidelity16k.json`` (overflow-free runs are cap-independent):
+   (1) pop, push (``push_local``, ``push_back``, a full buffer's overflow
+   flag) and obox against their plain versions at the ladder caps C = 24,
+   32 and 64 (H = 16,384), timed against the byte bound (run after phase
+   10's kernel checks, while ``torch.profiler``'s traces are whole); (2)
+   a run from
+   ``ev_cap`` 24 under ``txn.OverflowGuard(mode="retry")`` in chunks of 2
+   windows (its launches counted from 0: the phase's main path), whose
+   every rollback copy must share no storage with the state the chunk
+   runs on; (3) the same under ``halt``: ``CapacityExceededError`` at the
+   chunk the retry replayed, its fields checked; (4) a run from the
+   golden's ``ev_cap`` under ``tune.CapController`` (a retry guard
+   attached) with ``selfcheck``, which must shrink; (5) ``mem.estimate``:
+   the resident bytes within 10 % of ``torch.cuda.memory_allocated``
+   after ``init_state`` (fidelity16k at ``ev_cap`` 512 and 24, tgen50k)
+   and the peak at or above the ``max_memory_allocated`` of runs (2) and
+   (4); (6) a pre-flight budget (``SHADOW1_MEM_BYTES``) between the retry
+   and halt peaks downshifts retry to halt, and that run, signaled
+   (``SHADOW1_OBS_SIGTERM_SELF_AT_NS``) at the window-4 boundary under a
+   ``DrainHandler``, stops with ``PreemptedExit`` after committing the
+   in-flight chunk and writing its snapshot; a fresh ``Engine`` resumes it
+   to the golden's end; (7) a per-process memory fraction that makes
+   ``init_state`` fail: ``mem.is_oom`` must classify the allocator's
+   error. Each step's wall time is printed.
+
+The path phases (8, 10, 12) rerun a golden only to one window past the
+window whose arguments they keep (``run_net_golden(stop_after=)``: the
+digest words of those windows are compared).
 
 Each phase's wall time is printed. It then prints a ``{"kernels": [...]}``
 line, the card's name and power limit, and last ``{"ok": true, "device":
@@ -823,14 +852,18 @@ def sync(dev) -> None:
 
 
 def run_net_golden(name: str, dev, *, count: bool = False,
-                   compact_cap: int | None = None) -> dict:
+                   compact_cap: int | None = None,
+                   stop_after: int | None = None) -> dict:
     """Run a net golden's experiment with state_digest=1 through
     Engine(device=dev) and compare: every digest word (the first differing
     (window, subsystem) is named), every Metrics field, the summary
     entries (each summed over hosts) and the SHA-256 of each per-host
     summary array. ``compact_cap`` overrides the golden's (compaction is
     bit-identical, so one golden serves both); the windows each branch of
-    ``compact_window_rounds`` ran are returned."""
+    ``compact_window_rounds`` ran are returned. With ``stop_after`` the
+    run stops after that many windows and only the digest words of those
+    windows are compared (the path phases rerun a golden for one
+    window's kernel arguments)."""
     import dataclasses
 
     import numpy as np
@@ -858,13 +891,18 @@ def run_net_golden(name: str, dev, *, count: bool = False,
     t0 = time.perf_counter()
     st = eng.init_state()
     init_push = popk.LAUNCHES["push"]
-    st = eng.run(st, n_windows=windows)
+    st = eng.run(st, n_windows=stop_after or windows)
     metrics = Engine.metrics_dict(st)
     sync(dev)
     wall = time.perf_counter() - t0
     launches = dict(popk.LAUNCHES) if count else None
     entries = dict(popk.PUSH_ENTRIES) if count else None
-    got = check_net_golden(name, gold, eng, st, drain_ring(st, eng.window))
+    if stop_after is not None:
+        check_digests(name, gold, drain_ring(st, eng.window), 0, stop_after)
+        got = None
+    else:
+        got = check_net_golden(name, gold, eng, st,
+                               drain_ring(st, eng.window))
     return dict(wall_s=wall, events=metrics["events"],
                 rounds=metrics["rounds"], windows=metrics["windows"],
                 hosts=exp.n_hosts, launches=launches, push_entries=entries,
@@ -883,20 +921,7 @@ def check_net_golden(name: str, gold: dict, eng, st, rows,
 
     from shadow1_tpu_torch.core.engine import Engine
 
-    fields = gold["digest_fields"]
-    rows = [r for r in rows if r["type"] == "ring"]
-    require(len(rows) == gold["windows"] - first,
-            f"{name}: {len(rows)} ring rows from window {first}")
-    for w, (want, row) in enumerate(zip(gold["digests"][first:], rows),
-                                    start=first):
-        require(row["window"] == w, f"{name}: ring row {row['window']} "
-                f"where window {w} was due")
-        for f, x in zip(fields, want):
-            if row[f] != x:
-                raise AssertionError(
-                    f"{name}: first differing digest word: window {w}, "
-                    f"subsystem {f.removeprefix('dg_')}: golden {x}, port "
-                    f"{row[f]}")
+    check_digests(name, gold, rows, first, gold["windows"])
     metrics = Engine.metrics_dict(st)
     diff = {k: (gold["metrics"][k], v) for k, v in metrics.items()
             if gold["metrics"].get(k) != v}
@@ -913,6 +938,26 @@ def check_net_golden(name: str, gold: dict, eng, st, rows,
         h = hashlib.sha256(np.asarray(summ[k], "<i8").tobytes()).hexdigest()
         require(h == want, f"{name}: per-host {k} differs from the golden")
     return got
+
+
+def check_digests(name: str, gold: dict, rows, first: int, last: int) -> None:
+    """The ring ``rows`` are windows ``first`` to ``last`` (exclusive) and
+    their digest words equal the golden's; the first differing (window,
+    subsystem) is named."""
+    fields = gold["digest_fields"]
+    rows = [r for r in rows if r["type"] == "ring"]
+    require(len(rows) == last - first,
+            f"{name}: {len(rows)} ring rows for windows {first}-{last - 1}")
+    for w, (want, row) in enumerate(zip(gold["digests"][first:last], rows),
+                                    start=first):
+        require(row["window"] == w, f"{name}: ring row {row['window']} "
+                f"where window {w} was due")
+        for f, x in zip(fields, want):
+            if row[f] != x:
+                raise AssertionError(
+                    f"{name}: first differing digest word: window {w}, "
+                    f"subsystem {f.removeprefix('dg_')}: golden {x}, port "
+                    f"{row[f]}")
 
 
 class NetPathCapture:
@@ -1051,14 +1096,6 @@ def obs_params(gold: dict, obs: dict, on: bool):
                         state_digest=1, **extra)
 
 
-def clone_state(st):
-    """A deep copy of a state on its device (the kernels update the event
-    buffer and outbox planes in place)."""
-    from shadow1_tpu_torch.convert import flatten_like_jax, unflatten_like_jax
-
-    return unflatten_like_jax(st, [x.clone() for x in flatten_like_jax(st)])
-
-
 def sync_reads(run) -> int:
     """Device→host synchronizations while ``run()`` runs, counted by
     ``torch.cuda.set_sync_debug_mode``'s warnings (one per synchronizing
@@ -1089,6 +1126,7 @@ def run_obs_split(dev) -> dict:
     import shutil
 
     from shadow1_tpu_torch import ckpt
+    from shadow1_tpu_torch.convert import clone_state
     from shadow1_tpu_torch.core import popk
     from shadow1_tpu_torch.core.engine import Engine
     from shadow1_tpu_torch.lineage import Lineage
@@ -1185,6 +1223,7 @@ def obs_plane_cost(dev, st6) -> dict:
     off and on — timed in turns (off, on, on, off: the host sets the pace
     and drifts), in ms per round, and then with their device→host reads
     counted, which must be equal (the same rounds)."""
+    from shadow1_tpu_torch.convert import clone_state
     from shadow1_tpu_torch.core.engine import Engine
 
     gold, obs = net_golden("fidelity16k"), net_golden("fidelity16k_obs")
@@ -1288,6 +1327,7 @@ def obs_device_trace(dev, st6, attempts: int = 3) -> dict:
     kernel's counted launches (CUPTI drops a few records; a short trace
     is taken again)."""
     from shadow1_tpu_torch.ckpt import run_chunked
+    from shadow1_tpu_torch.convert import clone_state
     from shadow1_tpu_torch.core import popk
     from shadow1_tpu_torch.core.engine import Engine
     from shadow1_tpu_torch.telemetry import PhaseProfiler, device_trace
@@ -1437,6 +1477,424 @@ def phase_obs(dev, card: str) -> dict:
         f"{tr['wall_s']:.3f} s")
     shutil.rmtree(OBS_DIR, ignore_errors=True)
     return split
+
+
+# -- phase 14: the recovery planes --------------------------------------------
+
+REC_DIR = ROOT / "build" / "chip_smoke_recovery"
+# The ladder caps a retried or resized fidelity16k run reaches (P and H of
+# fidelity16k).
+LADDER_CAPS = (24, 32, 64)
+REC_START_CAP = 24
+# Chunks of the recovery runs (windows); the drain run is signaled at the
+# boundary of window DRAIN_AT, so it stops one chunk later.
+REC_CHUNK, DRAIN_AT = 2, 4
+
+
+def fid_params(gold: dict, **kw):
+    """fidelity16k's params with the ring and the digest words."""
+    from shadow1_tpu_torch.consts import EngineParams
+
+    return EngineParams(**{**gold["params"], "metrics_ring": gold["windows"],
+                           "state_digest": 1, **kw})
+
+
+def zero_counts() -> None:
+    from shadow1_tpu_torch.core import popk
+
+    for counts in (popk.LAUNCHES, popk.PUSH_ENTRIES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts() -> dict:
+    from shadow1_tpu_torch.core import popk
+
+    return {**popk.LAUNCHES, **popk.PUSH_ENTRIES}
+
+
+def clean_allocator(dev) -> int:
+    """Free what nothing holds, reset the peak; the bytes still allocated."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    sync(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def measured_peak(dev, base: int) -> dict:
+    import torch
+
+    sync(dev)
+    return {"allocated": torch.cuda.max_memory_allocated(dev) - base,
+            "reserved": torch.cuda.max_memory_reserved(dev)}
+
+
+def recovery_kernels(g, dev) -> dict:
+    """Step 1: pop, push (push_local and push_back, a full buffer's
+    overflow flag included) and obox against their plain versions at the
+    ladder caps, H = 16,384, timed against the byte bound."""
+    out = {}
+    for c in LADDER_CAPS:
+        use_shape((c, NET_SHAPE[1], NET_SHAPE[2]))
+        out[c] = {"pop": check_pop(g, dev), "push": check_push(g, dev),
+                  "obox": check_obox(g, dev)}
+    use_shape(BENCH_SHAPE)
+    return out
+
+
+def recovery_retry(dev, gold, exp) -> dict:
+    """Step 2: fidelity16k from ev_cap REC_START_CAP under
+    ``on_overflow=retry`` in chunks of REC_CHUNK windows, held to the
+    golden. Every rollback point must share no storage with the state the
+    chunk then runs on; each clone is timed."""
+    from shadow1_tpu_torch import mem
+    from shadow1_tpu_torch.ckpt import run_chunked
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+    from shadow1_tpu_torch.txn import OverflowGuard
+
+    base = clean_allocator(dev)
+    eng = Engine(exp, fid_params(gold, ev_cap=REC_START_CAP,
+                                 on_overflow="retry"), device=dev)
+    guard = OverflowGuard(eng, make_engine=eng.at_caps, mode="retry")
+    keep, shared, clone_s = guard.rollback_point, [], []
+
+    def rollback_point(st):
+        sync(dev)
+        t = time.perf_counter()
+        copy = keep(st)
+        sync(dev)
+        clone_s.append(time.perf_counter() - t)
+        shared.append(len(set(mem.storage_ptrs(st))
+                          & set(mem.storage_ptrs(copy))))
+        return copy
+
+    guard.rollback_point = rollback_point
+    sync(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    st = run_chunked(eng, n_windows=gold["windows"], chunk=REC_CHUNK,
+                     guard=guard)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = measured_peak(dev, base)
+    missing = [k for k, n in launches.items() if n <= 0]
+    require(not missing, f"retry run: kernels not launched: {missing}")
+    require(guard.chunk_retries >= 1, "retry run: no chunk was retried")
+    require(all(n == 0 for n in shared),
+            f"retry run: a rollback copy shares storage with its state: "
+            f"{shared}")
+    check_net_golden("fidelity16k", gold, guard.engine, st,
+                     drain_ring(st, eng.window))
+    return dict(wall_s=wall, launches=launches, report=guard.report(),
+                resizes=guard.resizes, clones=len(shared), clone_s=clone_s,
+                peak=peak, rounds=int(st.metrics.rounds),
+                final=guard.final_caps)
+
+
+def recovery_halt(dev, gold, exp, tainted) -> dict:
+    """Step 3: the same config under ``on_overflow=halt`` raises the
+    structured error at the chunk the retry run replayed first."""
+    from shadow1_tpu_torch.ckpt import run_chunked
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.tune.ladder import cap_ladder
+    from shadow1_tpu_torch.txn import CapacityExceededError, OverflowGuard
+
+    eng = Engine(exp, fid_params(gold, ev_cap=REC_START_CAP,
+                                 on_overflow="halt"), device=dev)
+    t0 = time.perf_counter()
+    try:
+        run_chunked(eng, n_windows=gold["windows"], chunk=REC_CHUNK,
+                    guard=OverflowGuard(eng, mode="halt"))
+    except CapacityExceededError as e:
+        err = e
+    else:
+        raise AssertionError("halt run: no CapacityExceededError")
+    wall = time.perf_counter() - t0
+    got = dict(knob=err.knob, counter=err.counter, cap=err.cap,
+               windows=list(err.window_range), overflow=err.overflow,
+               recommended=err.recommended)
+    require(got["knob"] == "ev_cap" and got["counter"] == "ev_overflow"
+            and got["cap"] == REC_START_CAP and got["overflow"] > 0
+            and got["windows"] == list(tainted)
+            and got["recommended"] in cap_ladder(1 << 20)
+            and got["recommended"] > REC_START_CAP,
+            f"halt run: {got} (the retry run replayed windows {tainted})")
+    return dict(wall_s=wall, error=got)
+
+
+def recovery_autocaps(dev, gold, exp) -> dict:
+    """Step 4: fidelity16k from the golden's ev_cap under a CapController
+    (a retry guard attached) with ``selfcheck``: it must shrink after its
+    patience and equal the golden, every boundary identity holding."""
+    from shadow1_tpu_torch.ckpt import run_chunked
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+    from shadow1_tpu_torch.tune import CapController
+    from shadow1_tpu_torch.txn import OverflowGuard
+
+    base = clean_allocator(dev)
+    eng = Engine(exp, fid_params(gold, on_overflow="retry"), device=dev)
+    ctl = CapController(eng, eng.at_caps)
+    guard = OverflowGuard(eng, mode="retry", controller=ctl)
+    sync(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    st = run_chunked(eng, n_windows=gold["windows"], chunk=REC_CHUNK,
+                     guard=guard, retune=ctl, selfcheck=True)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = measured_peak(dev, base)
+    require(ctl.resizes and ctl.resizes[0]["ev_cap"][1] < gold["params"]
+            ["ev_cap"], f"auto-caps run: no shrink: {ctl.resizes}")
+    check_net_golden("fidelity16k", gold, guard.engine, st,
+                     drain_ring(st, eng.window))
+    return dict(wall_s=wall, launches=launches, resizes=ctl.resizes,
+                report=guard.report(), peak=peak, final=guard.final_caps)
+
+
+def resident_audit(dev, exp, params) -> dict:
+    """Step 5: the estimate's resident bytes against what ``Engine`` and
+    ``init_state`` allocate, measured from a clean allocator."""
+    from shadow1_tpu_torch import mem
+    from shadow1_tpu_torch.core.engine import Engine
+
+    est = mem.estimate(exp, params)
+    base = clean_allocator(dev)
+    eng = Engine(exp, params, device=dev)
+    st = eng.init_state()
+    sync(dev)
+    import torch
+
+    measured = torch.cuda.memory_allocated(dev) - base
+    del st, eng
+    clean_allocator(dev)
+    ratio = est.resident_bytes / measured
+    return dict(estimated=est.resident_bytes, measured=measured, ratio=ratio,
+                peak=est.peak_bytes, planes=est.planes, peaks=est.peaks)
+
+
+def recovery_drain(dev, gold, exp, cap: int) -> dict:
+    """Steps 5 and 6: a pre-flight with SHADOW1_MEM_BYTES between the
+    retry and the halt peaks at ``cap`` must downshift (drop the rollback
+    copy, retry → halt). That run gets SIGTERM at the window-DRAIN_AT
+    boundary under a DrainHandler: it must commit the in-flight chunk,
+    write its snapshot and stop with PreemptedExit; a fresh Engine resumes
+    from the snapshot and the whole must equal the golden."""
+    from shadow1_tpu_torch import ckpt, mem
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.lineage import Lineage
+    from shadow1_tpu_torch.obs import run_with_heartbeat
+    from shadow1_tpu_torch.preempt import DrainHandler, PreemptedExit
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+    from shadow1_tpu_torch.txn import OverflowGuard
+
+    import shutil
+
+    retry = fid_params(gold, ev_cap=cap, on_overflow="retry")
+    e_retry = mem.estimate(exp, retry)
+    e_halt = mem.estimate(exp, fid_params(gold, ev_cap=cap,
+                                          on_overflow="halt"))
+    card_budget = mem.device_budget(dev)
+    require(card_budget[1] == "backend" and card_budget[0] > e_retry.peak_bytes,
+            f"the card's budget {card_budget}")
+    budget_set = (e_retry.peak_bytes + e_halt.peak_bytes) // 2
+    os.environ[mem.MEM_BYTES_ENV] = str(budget_set)
+    try:
+        budget, source = mem.device_budget(dev)
+    finally:
+        del os.environ[mem.MEM_BYTES_ENV]
+    require((budget, source) == (budget_set, "env"), f"budget {budget}")
+    params, actions = mem.downshift(exp, retry, budget)
+    require([a["action"] for a in actions] == ["drop_rollback"]
+            and params.on_overflow == "halt",
+            f"downshift: {actions}, on_overflow {params.on_overflow}")
+    windows = gold["windows"]
+    shutil.rmtree(REC_DIR, ignore_errors=True)
+    REC_DIR.mkdir(parents=True)
+    path = str(REC_DIR / "fidelity16k.npz")
+    eng = Engine(exp, params, device=dev)
+    drain = DrainHandler().install()
+    os.environ["SHADOW1_OBS_SIGTERM_SELF_AT_NS"] = str(DRAIN_AT * exp.window)
+    t0 = time.perf_counter()
+    try:
+        run_with_heartbeat(eng, n_windows=windows, every_windows=REC_CHUNK,
+                           stream=False, ckpt_path=path, ckpt_every_s=1e9,
+                           guard=OverflowGuard(eng, mode="halt"), drain=drain)
+    except PreemptedExit as e:
+        pre = e
+    else:
+        raise AssertionError("drain run: no PreemptedExit")
+    finally:
+        del os.environ["SHADOW1_OBS_SIGTERM_SELF_AT_NS"]
+        drain.uninstall()
+    first_s = time.perf_counter() - t0
+    done = DRAIN_AT + REC_CHUNK
+    require(pre.signame == "SIGTERM" and pre.done_windows == done
+            and pre.win_start == done * exp.window,
+            f"drain: {pre.signame} after {pre.done_windows} windows")
+    resolved = Lineage(path).resolve()
+    require(resolved is not None and resolved.meta["done_windows"] == done,
+            f"drain: snapshot {resolved}")
+    del pre, eng
+    eng = Engine(exp, params, device=dev)
+    t1 = time.perf_counter()
+    st = ckpt.load_state(eng.init_state(), resolved.path)
+    st = eng.run(st, n_windows=windows - done)
+    sync(dev)
+    second_s = time.perf_counter() - t1
+    check_net_golden("fidelity16k", gold, eng, st, drain_ring(st, eng.window))
+    snap_bytes = os.path.getsize(resolved.path)
+    shutil.rmtree(REC_DIR, ignore_errors=True)
+    return dict(budget=budget, card_budget=card_budget[0],
+                retry_peak=e_retry.peak_bytes,
+                halt_peak=e_halt.peak_bytes, actions=actions, done=done,
+                first_s=first_s, second_s=second_s, snap_bytes=snap_bytes)
+
+
+def recovery_oom(dev, gold, exp) -> dict:
+    """Step 5: the card's own allocator OOM. The per-process memory
+    fraction is lowered to what is reserved now plus 64 MiB, so
+    ``init_state`` of fidelity16k fails; ``mem.is_oom`` must classify the
+    failure. The fraction is restored and the cache emptied after."""
+    import torch
+
+    from shadow1_tpu_torch import mem
+    from shadow1_tpu_torch.core.engine import Engine
+
+    eng = Engine(exp, fid_params(gold), device=dev)
+    clean_allocator(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    frac = (torch.cuda.memory_reserved(dev) + (64 << 20)) / total
+    torch.cuda.set_per_process_memory_fraction(frac)
+    try:
+        eng.init_state()
+        sync(dev)
+    except Exception as e:  # noqa: BLE001 — classified below
+        err = e
+    else:
+        raise AssertionError("oom probe: init_state did not fail")
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    require(mem.is_oom(err), f"mem.is_oom missed: {type(err).__name__}: "
+            f"{str(err)[:300]}")
+    out = dict(fraction=frac, type=type(err).__name__,
+               message=str(err).splitlines()[0][:160])
+    del err, eng
+    clean_allocator(dev)
+    return out
+
+
+def phase_recovery(dev, card: str) -> dict:
+    """Phase 14: the recovery planes on fidelity16k at full width (its
+    step 1, the kernels at the ladder caps, runs among the kernel phases:
+    ``recovery_kernels``)."""
+    step_s = {}
+
+    def step(name, t0):
+        step_s[name] = time.perf_counter() - t0
+        log(f"  recovery step {name}: {step_s[name]:.1f} s wall")
+
+    gold = net_golden("fidelity16k")
+    exp = net_experiment("fidelity16k", gold)
+    t0 = time.perf_counter()
+    retry = recovery_retry(dev, gold, exp)
+    caps = [REC_START_CAP] + [r["ev_cap"][1] for r in retry["resizes"]]
+    log(f"recovery retry: fidelity16k from ev_cap {REC_START_CAP}, chunks "
+        f"of {REC_CHUNK} windows, in {retry['wall_s']:.3f} s "
+        f"({retry['rounds']} committed rounds); equal to the JAX golden; "
+        f"{json.dumps(retry['report'])}; ev_cap sequence {caps}; resizes "
+        f"{json.dumps(retry['resizes'])}; {retry['clones']} rollback "
+        f"clones, none sharing storage, {sum(retry['clone_s']):.4f} s in "
+        f"all (max {max(retry['clone_s']):.4f} s); launches "
+        f"{retry['launches']} on {card}")
+    step("retry", t0)
+
+    t0 = time.perf_counter()
+    tainted = retry["resizes"][0]["windows"]
+    halt = recovery_halt(dev, gold, exp, tainted)
+    log(f"recovery halt: CapacityExceededError {json.dumps(halt['error'])} "
+        f"after {halt['wall_s']:.3f} s")
+    step("halt", t0)
+
+    t0 = time.perf_counter()
+    auto = recovery_autocaps(dev, gold, exp)
+    log(f"recovery auto-caps: fidelity16k from ev_cap "
+        f"{gold['params']['ev_cap']} under CapController with selfcheck and "
+        f"a retry guard in {auto['wall_s']:.3f} s; equal to the JAX golden, "
+        f"every boundary identity held; resizes "
+        f"{json.dumps(auto['resizes'])}; guard {json.dumps(auto['report'])}")
+    step("auto-caps", t0)
+
+    t0 = time.perf_counter()
+    final = retry["final"]["ev_cap"]
+    audits = {
+        "fidelity16k@512": resident_audit(dev, exp, fid_params(
+            gold, on_overflow="retry")),
+        f"fidelity16k@{REC_START_CAP}": resident_audit(dev, exp, fid_params(
+            gold, ev_cap=REC_START_CAP, on_overflow="retry")),
+    }
+    tg = net_golden("tgen50k")
+    from shadow1_tpu_torch.consts import EngineParams
+
+    audits["tgen50k"] = resident_audit(dev, net_experiment("tgen50k", tg),
+                                       EngineParams(**tg["params"]))
+    for name, a in audits.items():
+        log(f"recovery memory {name}: resident estimate {a['estimated']} B "
+            f"vs memory_allocated after init_state {a['measured']} B "
+            f"(ratio {a['ratio']:.4f}); peak estimate {a['peak']} B; planes "
+            f"{json.dumps(a['planes'])}; peaks {json.dumps(a['peaks'])}")
+        require(abs(a["ratio"] - 1) <= 0.10,
+                f"{name}: resident estimate off by more than 10 %")
+    from shadow1_tpu_torch import mem
+
+    peaks = {
+        f"retry (final ev_cap {final})": (
+            mem.estimate(exp, fid_params(gold, ev_cap=final,
+                                         on_overflow="retry")).peak_bytes,
+            retry["peak"]),
+        "auto-caps (from ev_cap 512)": (
+            audits["fidelity16k@512"]["peak"], auto["peak"]),
+    }
+    for name, (est, got) in peaks.items():
+        log(f"recovery memory peak, {name}: estimate {est} B vs "
+            f"max_memory_allocated {got['allocated']} B (ratio "
+            f"{est / got['allocated']:.4f}); max_memory_reserved "
+            f"{got['reserved']} B")
+        require(est >= got["allocated"],
+                f"{name}: the peak estimate is below the measured peak")
+    step("memory audit", t0)
+
+    t0 = time.perf_counter()
+    dr = recovery_drain(dev, gold, exp, final)
+    log(f"recovery budget of the card (mem_get_info free + reserved): "
+        f"{dr['card_budget']} B")
+    log(f"recovery downshift and drain at ev_cap {final}: budget "
+        f"{dr['budget']} B between the retry peak {dr['retry_peak']} B and "
+        f"the halt peak {dr['halt_peak']} B, downshift "
+        f"{json.dumps(dr['actions'])}; SIGTERM at the window-{DRAIN_AT} "
+        f"boundary, PreemptedExit after {dr['done']} committed windows with "
+        f"the snapshot written ({dr['snap_bytes']} B; {dr['first_s']:.3f} "
+        f"s); a fresh Engine "
+        f"resumed it to the end in {dr['second_s']:.3f} s; equal to the JAX "
+        f"golden")
+    step("downshift and drain", t0)
+
+    t0 = time.perf_counter()
+    oom = recovery_oom(dev, gold, exp)
+    log(f"recovery OOM: memory fraction {oom['fraction']:.5f} made "
+        f"init_state fail with {oom['type']}: {oom['message']}; "
+        f"mem.is_oom classified it")
+    step("allocator OOM", t0)
+    return dict(retry=retry, halt=halt, auto=auto, audits=audits, drain=dr,
+                oom=oom, step_s=step_s)
 
 
 # -- phase 5: the kernels on the arguments of the main path -----------------
@@ -1666,6 +2124,15 @@ def main() -> int:
         report_kernel(name, r, "Tor bucket")
     phase_done("kernels at Tor bucket shape", t0)
 
+    # Phase 14's step 1 runs here, while the profiler's traces are whole
+    # (late in the process CUPTI can hand back no device record at all).
+    t0 = time.perf_counter()
+    ladder = recovery_kernels(g, dev)
+    for c, rs in ladder.items():
+        for name, r in rs.items():
+            report_kernel(name, r, f"ladder cap C {c}")
+    phase_done("kernels at ladder caps", t0)
+
     t0 = time.perf_counter()
     net = run_net_golden("filexfer16k", dev, count=True)
     log(f"net slice filexfer16k ({net['hosts']} hosts): {net['events']} "
@@ -1689,7 +2156,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     with NetPathCapture() as ncap:
-        run_net_golden("filexfer16k", dev)
+        run_net_golden("filexfer16k", dev, stop_after=NET_PATH_WINDOW + 2)
     log(f"net path: kept rounds of window {NET_PATH_WINDOW} with "
         f"{ncap.actives()} popping hosts")
     for name, r in net_checks.items():
@@ -1724,7 +2191,7 @@ def main() -> int:
     t0 = time.perf_counter()
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     with NetPathCapture(TOR_PATH_WINDOW) as tcap:
-        run_net_golden("tor10k", dev)
+        run_net_golden("tor10k", dev, stop_after=TOR_PATH_WINDOW + 2)
     log(f"Tor path: kept rounds of window {TOR_PATH_WINDOW} with "
         f"{tcap.actives()} popping hosts")
     for name, r in tor_checks.items():
@@ -1770,7 +2237,7 @@ def main() -> int:
     t0 = time.perf_counter()
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     with NetPathCapture(FID_PATH_WINDOW, rank="push_back") as bcap:
-        run_net_golden("fidelity16k", dev)
+        run_net_golden("fidelity16k", dev, stop_after=FID_PATH_WINDOW + 2)
     log(f"virtual-CPU path: kept rounds of window {FID_PATH_WINDOW} with "
         f"{bcap.actives()} deferred events")
     back = check_path("push_back", bcap.cases("push_back"), dev, flush,
@@ -1784,6 +2251,10 @@ def main() -> int:
     split = phase_obs(dev, card)
     phase_done("checkpoint and observability", t0)
 
+    t0 = time.perf_counter()
+    rec = phase_recovery(dev, card)
+    phase_done("recovery planes", t0)
+
     kernels = []
     for name, r in checks.items():
         n = net_checks[name]
@@ -1792,6 +2263,8 @@ def main() -> int:
                   n["path_err"], tk["max_abs_err"], tk["path_err"])
         if name == "push":
             err = max(err, back["path_err"])
+        lad = {c: rs[name] for c, rs in ladder.items()}
+        err = max(err, *(r["max_abs_err"] for r in lad.values()))
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "design": DESIGN[name],
@@ -1830,6 +2303,14 @@ def main() -> int:
             "obs_launches": split["launches"][name],
             "obs_launches_per_round": split["launches"][name]
             / split["rounds"],
+            "ladder_us": {c: r["ms"] * 1e3 for c, r in lad.items()},
+            "ladder_bound_us": {c: r["bound_ms"] * 1e3
+                                for c, r in lad.items()},
+            "ladder_plain_us": {c: r["plain_ms"] * 1e3
+                                for c, r in lad.items()},
+            "recovery_launches": rec["retry"]["launches"][name],
+            "recovery_launches_per_round": rec["retry"]["launches"][name]
+            / rec["retry"]["rounds"],
         })
         if name == "push":
             kernels[-1].update({

@@ -9,7 +9,8 @@ written as PyTorch tensor code, with the JAX package's Pallas kernels
 Module names follow the JAX package, so each part's counterpart is found
 under the same path. The port imports ``torch`` and never ``jax``, and
 nothing of ``shadow1_tpu``: the jax-free pieces it needs (``consts``,
-``config/``) are its own copies.
+``config/``, ``tune/ladder.py``, the error classes of ``txn.py``) are its
+own copies.
 
 Determinism is the contract: every op is integer arithmetic (the RNG is
 counter-based, ``rng.py``), so the port reproduces the JAX engine's metrics

@@ -8,12 +8,9 @@ the reference's dtype, in one ``.npz``: ``leaf_{i}``, ``format`` =
 leaf's bytes. The file is the reference's format, byte for byte in its
 members, so a snapshot written by either package loads in the other, and
 determinism makes the run that continues bit-identical to one that never
-stopped.
-
-Not ported with this module (ROADMAP, recovery planes): the migration of a
-snapshot saved at other event/outbox caps (``tune/resize.py``), and
-``run_chunked``'s ``retune`` / ``guard`` / ``selfcheck`` / ``drain`` hooks;
-each refuses when asked for.
+stopped. A snapshot saved at other event/outbox caps (an ``--auto-caps`` or
+``--on-overflow retry`` run checkpoints at whatever caps it had grown to)
+loads through the bit-exact cap migration of ``tune/resize.py``.
 """
 
 from __future__ import annotations
@@ -139,10 +136,12 @@ def load_state(template, path: str, migrate_caps: bool = True):
     ``engine.init_state()``), on the template's device. Shapes and dtypes
     must match the engine config.
 
-    A snapshot saved at other event/outbox caps needs the reference's cap
-    migration (``tune/resize.py``), which is not ported: with
-    ``migrate_caps`` it raises NotImplementedError naming the ROADMAP item;
-    without, it fails the shape check like any config mismatch."""
+    One sanctioned mismatch: with ``migrate_caps`` (default), a snapshot
+    saved at another ``ev_cap``/``outbox_cap`` is migrated onto the
+    template's caps (``tune/resize.py``, on the template's device; bit-exact
+    — pop order lives in the (time, tb) keys, not slot indices). A shrink
+    that would drop an event raises ValueError; every other shape or dtype
+    difference fails as a config mismatch."""
     from shadow1_tpu_torch.convert import flatten_like_jax, unflatten_like_jax
 
     tleaves = flatten_like_jax(template)
@@ -171,25 +170,43 @@ def load_state(template, path: str, migrate_caps: bool = True):
             f"checkpoint {path} holds {n_saved} state leaves, engine "
             f"expects {len(tleaves)} — engine config mismatch"
         )
+    leaves = saved
     if migrate_caps:
         i_ev, i_ob = _cap_leaves(template)
         caps = (saved[i_ev].shape[-2], saved[i_ob].shape[-2])
         want = (tleaves[i_ev].shape[-2], tleaves[i_ob].shape[-2])
         if caps != want:
-            raise NotImplementedError(
-                f"checkpoint {path} was saved at (ev_cap, outbox_cap) = "
-                f"{caps}, this engine runs at {tuple(want)}: cap migration "
-                f"(tune/resize.py) is not ported yet (ROADMAP: recovery "
-                f"planes) — rebuild the engine at the snapshot's caps "
-                f"(ckpt.snapshot_caps)")
-    for i, (have, want) in enumerate(zip(saved, tleaves)):
+            _check_leaves(path, saved, tleaves, shapes=False)
+            from shadow1_tpu_torch.tune.resize import resize_state
+
+            try:
+                st = resize_state(unflatten_like_jax(template, saved),
+                                  ev_cap=want[0], outbox_cap=want[1])
+            except ValueError as e:
+                raise ValueError(
+                    f"checkpoint {path} cannot migrate onto this engine's "
+                    f"caps ({e}) — rebuild the engine at the snapshot's "
+                    f"caps (ckpt.snapshot_caps) or resume with "
+                    f"--auto-caps, which does this automatically") from e
+            leaves = flatten_like_jax(st)
+    _check_leaves(path, leaves, tleaves)
+    return unflatten_like_jax(template, leaves)
+
+
+def _check_leaves(path, leaves, tleaves, shapes: bool = True) -> None:
+    """Every leaf (numpy array or tensor) has its template leaf's dtype
+    and, with ``shapes``, its shape."""
+    import torch
+
+    for i, (have, want) in enumerate(zip(leaves, tleaves)):
         wdt = _np_dtype(want)
-        if tuple(have.shape) != tuple(want.shape) or have.dtype != wdt:
+        hdt = _np_dtype(have) if isinstance(have, torch.Tensor) else have.dtype
+        if ((shapes and tuple(have.shape) != tuple(want.shape))
+                or hdt != wdt):
             raise ValueError(
-                f"checkpoint leaf {i}: {have.shape}/{have.dtype} != "
+                f"checkpoint leaf {i}: {tuple(have.shape)}/{hdt} != "
                 f"engine state {tuple(want.shape)}/{wdt} — config mismatch"
             )
-    return unflatten_like_jax(template, saved)
 
 
 def _np_dtype(t) -> np.dtype:
@@ -257,13 +274,6 @@ def snapshot_caps(template, path: str) -> tuple[int, int] | None:
     return int(ev[-2]), int(ob[-2])
 
 
-def _refuse_hooks(**hooks) -> None:
-    on = [k for k, v in hooks.items() if v]
-    if on:
-        raise NotImplementedError(
-            f"{', '.join(on)} is not ported yet (ROADMAP: recovery planes)")
-
-
 def run_chunked(engine, st=None, n_windows: int | None = None,
                 chunk: int = 0, on_chunk=None, profiler=None, retune=None,
                 guard=None, selfcheck: bool = False, drain=None):
@@ -272,27 +282,80 @@ def run_chunked(engine, st=None, n_windows: int | None = None,
 
     ``profiler`` (telemetry.PhaseProfiler) records one ``run-chunk`` span
     per chunk, synchronized with the device so the span covers the work,
-    not its launch. The reference's between-chunk hooks (``retune``,
-    ``guard``, ``selfcheck``, ``drain``) belong to the recovery planes and
-    are refused."""
+    not its launch.
+
+    The between-chunk hooks run in the reference's order: run →
+    ``guard.commit`` → ``selfcheck`` → sample the drain latch →
+    ``on_chunk`` → ``PreemptedExit`` → ``retune``.
+
+    * ``guard`` (txn.OverflowGuard, CLI ``--on-overflow retry|halt``) makes
+      chunks transactional: its rollback point (a device copy: the CUDA
+      kernels update the planes in place) is taken before the chunk runs,
+      and its commit accepts the chunk, replays it at grown caps or raises
+      CapacityExceededError. Commit runs before ``on_chunk``, so
+      heartbeats and checkpoints only see committed states.
+    * ``selfcheck`` (CLI ``--selfcheck``) verifies the drop-accounting
+      identity on every committed boundary (txn.SelfCheckError).
+    * ``drain`` (preempt.DrainHandler): when a SIGTERM/SIGINT asked for a
+      drain, the in-flight chunk is committed, ``on_chunk`` runs (which
+      forces the final snapshot when the run keeps one) and
+      preempt.PreemptedExit is raised — checked only at chunk boundaries.
+    * ``retune(engine, st) -> (engine, st)`` (tune.CapController, CLI
+      ``--auto-caps``) may hand back another engine, at other caps, with
+      the state migrated; never called after the final chunk.
+
+    The state is handed over, not kept: this frame holds no reference
+    while a chunk runs, so the chunk-start leaves go once the chunk's
+    windows replace them, and a guard's replay runs without the tainted
+    result alive (``mem.py`` prices what stays)."""
     from shadow1_tpu_torch.telemetry import PH_INIT, PH_RUN_CHUNK, maybe_span
 
-    _refuse_hooks(retune=retune, guard=guard, selfcheck=selfcheck,
-                  drain=drain)
     if st is None:
         with maybe_span(profiler, PH_INIT):
             st = engine.init_state()
+    if guard is not None:
+        guard.bind(engine, st)
     total = n_windows if n_windows is not None else engine.n_windows
     if chunk <= 0:
         chunk = total
     done = 0
     while done < total:
         step = min(chunk, total - done)
+        # Popping from a list passes the only reference on.
+        rollback = [guard.rollback_point(st) if guard is not None else None]
+        held = [st]
+        st = None
         with maybe_span(profiler, PH_RUN_CHUNK, windows=step, done=done):
-            st = engine.run(st, n_windows=step)
+            held.append(engine.run(held.pop(), n_windows=step))
             if profiler is not None:
                 engine.synchronize()
+        if guard is not None:
+            engine, st = guard.commit(engine, rollback.pop(), held.pop(),
+                                      done, step)
+        else:
+            st = held.pop()
         done += step
+        if selfcheck:
+            from shadow1_tpu_torch.txn import check_boundary_identity
+
+            check_boundary_identity(
+                type(engine).metrics_dict(st),
+                where=f"chunk boundary, window {int(st.metrics.windows)}")
+        # Sample the drain latch before on_chunk: on_chunk's forced save
+        # can only see the latch as more set than this sample, so a raise
+        # below always follows its snapshot; a signal landing inside
+        # on_chunk is honored one boundary later.
+        draining = drain is not None and drain.requested and done < total
         if on_chunk is not None:
             on_chunk(st, done)
+        if draining:
+            from shadow1_tpu_torch.preempt import PreemptedExit
+
+            raise PreemptedExit(st=st, signame=drain.signame,
+                                done_windows=done,
+                                win_start=int(st.win_start))
+        if retune is not None and done < total:
+            engine, st = retune(engine, st)
+            if guard is not None:
+                guard.engine = engine
     return st

@@ -7,6 +7,8 @@ run flags).
         [--tracker PATH] [--profile DIR] [--trace PATH]
         [--metrics-ring W] [--state-digest on|off] [--watch HOST[:SOCK]]...
         [--link-telem on|off] [--faults on|off] [--log-level LEVEL]
+        [--on-overflow drop|retry|halt] [--auto-caps] [--selfcheck]
+        [--on-oom halt|downshift] [--watchdog-s S]
 
 The run goes on CUDA unless ``--device cpu`` is given; with no card it
 fails. Its record stream — heartbeats (``--heartbeat W``), the telemetry
@@ -29,10 +31,24 @@ crash without progress (``SHADOW1_SUPERVISE_BACKOFF_S``, default 1 s),
 and gives up after two crashes at the same sim time. ``--resume PATH``
 takes a snapshot written by either package.
 
-Flags of the recovery planes (``--auto-caps``, ``--on-overflow``,
-``--on-oom``, ``--selfcheck``, ``--watchdog-s``) and of fleet, shard and
-serve (``--fleet``, ``--on-lane-fail``, ``--lane-finalize``, ``--engine
-cpu|sharded``) are parsed and refused, naming their ROADMAP item.
+The recovery planes: ``--on-overflow retry|halt`` (transactional chunks:
+a tainted chunk is replayed at grown caps, or the run halts with
+``EXIT_CAPACITY`` and a ``capacity_exceeded`` record), ``--auto-caps``
+(caps follow the fill gauges between chunks), ``--selfcheck`` (the
+drop-accounting identity at every chunk boundary), the pre-flight memory
+budget (one ``mem`` record on stderr; over budget ``EXIT_MEMORY`` with a
+``memory_budget`` record, or with ``--on-oom downshift`` the rollback copy
+and then the ring give way), a runtime CUDA out-of-memory error
+(``EXIT_MEMORY``, a ``memory_exhausted`` record), the SIGTERM/SIGINT
+drain (the in-flight chunk commits, the snapshot is written,
+``EXIT_PREEMPTED`` with a ``preempted`` record) and, under ``--ckpt``, the
+supervisor's watchdog (``--watchdog-s S`` or ``SHADOW1_WATCHDOG_S``: a
+child whose progress sidecar goes stale is killed and respawned; two
+hangs without progress give ``EXIT_HUNG``).
+
+The flags of fleet, shard and serve (``--fleet``, ``--on-lane-fail``,
+``--lane-finalize``, ``--engine cpu|sharded``) are parsed and refused,
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -45,11 +61,17 @@ import os
 import sys
 import time
 
-from shadow1_tpu_torch.consts import EXIT_OK
+from shadow1_tpu_torch.consts import (
+    EXIT_CAPACITY,
+    EXIT_CODES,
+    EXIT_HUNG,
+    EXIT_MEMORY,
+    EXIT_OK,
+    EXIT_PREEMPTED,
+)
 
 MAX_RESPAWNS = 8
 
-_RECOVERY = "ROADMAP: Queue A item 5, recovery planes"
 _FLEET = "ROADMAP: Queue A item 6, fleet, shard, serve and tools"
 
 
@@ -76,7 +98,8 @@ def _emit_resume_record(ckpt_path, resolved, win_start, lineage) -> None:
     print(json.dumps(rec), file=sys.stderr, flush=True)
 
 
-def _supervise(child_argv, ckpt_path, config_path) -> int:
+def _supervise(child_argv, ckpt_path, config_path,
+               watchdog_s: float = 0.0) -> int:
     """Parent side of ``--ckpt``: run the CLI in a child process; when it
     dies after a snapshot showed forward progress, respawn a fresh child
     that resumes from the lineage (a fault never survives into the next
@@ -88,14 +111,32 @@ def _supervise(child_argv, ckpt_path, config_path) -> int:
       the run restarts from scratch;
     * a lineage left by a run of another config (its ``.meta``
       fingerprint differs) is discarded;
-    * the respawn delay doubles per consecutive crash without progress
-      (``SHADOW1_SUPERVISE_BACKOFF_S`` sets the base);
+    * **preemption** (rc == EXIT_PREEMPTED): a drain is a clean-resume
+      exit — no backoff, no crash accounting, checkpoint kept; the
+      supervisor exits EXIT_PREEMPTED itself. It forwards its own
+      SIGTERM/SIGINT to the child, so signaling either process drains the
+      run;
+    * **watchdog** (``watchdog_s`` > 0): a child whose ``.progress``
+      sidecar goes stale past the deadline (3× before the attempt's first
+      beat: the child is importing and building) is killed and classified
+      hung, with its own backoff lane; two consecutive hangs without
+      forward progress give EXIT_HUNG;
+    * **memory and capacity** (rc == EXIT_MEMORY, or a child that died
+      with a CUDA out-of-memory error in the last lines of its stderr,
+      which is teed through a scanning thread; rc == EXIT_CAPACITY): a
+      deterministic config-vs-device condition, never respawned;
+    * the respawn delay doubles per consecutive failure without progress,
+      per lane (``SHADOW1_SUPERVISE_BACKOFF_S`` sets the base);
     * two consecutive crashes at the same ``win_start`` mean the fault is
       deterministic there: the supervisor gives up with the child's code.
     """
+    import signal
     import subprocess
+    import threading
 
     from shadow1_tpu_torch.lineage import Lineage, write_json_atomic
+    from shadow1_tpu_torch.mem import is_oom_text
+    from shadow1_tpu_torch.preempt import FORCE_GRACE_S
 
     sidecar = ckpt_path + ".progress"
     meta_path = ckpt_path + ".meta"
@@ -123,65 +164,193 @@ def _supervise(child_argv, ckpt_path, config_path) -> int:
     write_json_atomic(meta_path, {"config_sha256": fp})
     backoff_base = float(os.environ.get("SHADOW1_SUPERVISE_BACKOFF_S", "1.0"))
     last_progress = -1
-    no_progress = 0
+    no_progress = 0       # consecutive crashes without forward progress
+    no_progress_hung = 0  # consecutive watchdog kills without progress
     rc = 1
-    for attempt in range(MAX_RESPAWNS + 1):
-        res = lineage.resolve()
-        if res is not None and res.path is None:
-            why = res.skipped[0]["reason"] if res.skipped else "?"
-            print(f"[supervise] discarding corrupt checkpoint {ckpt_path} "
-                  f"({why}; no valid generation of {len(res.skipped)}); "
-                  f"restarting from scratch", file=sys.stderr, flush=True)
-            emit_lineage("discard_all", reason=why,
-                         generations=len(res.skipped))
-            lineage.remove_all()
-            if os.path.exists(sidecar):
-                os.remove(sidecar)
-            last_progress = -1
-        elif res is not None and res.skipped:
-            print(f"[supervise] checkpoint head {res.skipped[0]['file']} is "
-                  f"corrupt ({res.skipped[0]['reason']}); resume will fall "
-                  f"back to generation {res.seq}", file=sys.stderr,
-                  flush=True)
-            emit_lineage("corrupt_head", fallback_seq=res.seq,
-                         skipped=len(res.skipped),
-                         reason=res.skipped[0]["reason"])
-        rc = subprocess.call([sys.executable, "-m", "shadow1_tpu_torch",
-                              *child_argv, "--supervised-child"])
-        if rc == EXIT_OK:
-            # A finished run's snapshot must not resume a later invocation
-            # of the same command into a no-op.
-            lineage.remove_all()
-            for p in (sidecar, meta_path):
-                if os.path.exists(p):
-                    os.remove(p)
-            return EXIT_OK
-        progress = -1
-        try:
-            with open(sidecar) as f:
-                progress = json.load(f).get("win_start", -1)
-        except (OSError, ValueError):
-            pass
-        if progress > last_progress:
-            no_progress = 0
-            last_progress = progress
-        else:
-            no_progress += 1
-            if no_progress >= 2:
-                print(f"[supervise] two consecutive crashes (rc={rc}) with no "
-                      f"forward progress at sim_ns={max(progress, 0)} — the "
-                      f"fault is deterministic at that point; further "
-                      f"respawns would repeat it", file=sys.stderr,
+
+    # Forward the first SIGTERM/SIGINT to the child (it debounces a
+    # duplicate group delivery); a second one past the grace kills it.
+    proc_box: list = [None]
+    sig_seen: list = []
+
+    def forward(signum, frame):
+        now = time.monotonic()
+        child = proc_box[0]
+        if sig_seen and now - sig_seen[0] >= FORCE_GRACE_S:
+            if child is not None and child.poll() is None:
+                child.kill()
+            signal.signal(signum, signal.SIG_DFL)
+            os.kill(os.getpid(), signum)
+            return
+        if not sig_seen:
+            sig_seen.append(now)
+            print(f"[supervise] {signal.Signals(signum).name} received — "
+                  f"forwarding drain request to the child",
+                  file=sys.stderr, flush=True)
+            if child is not None and child.poll() is None:
+                child.send_signal(signal.SIGTERM)
+
+    prev_handlers = {s: signal.signal(s, forward)
+                     for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        for attempt in range(MAX_RESPAWNS + 1):
+            if sig_seen:
+                # The drain request landed while no child was alive: never
+                # respawn past a preemption notice.
+                print("[supervise] preemption requested — not respawning; "
+                      "checkpoint kept; rerun the same command to resume",
+                      file=sys.stderr, flush=True)
+                emit_lineage("preempted", rc=EXIT_PREEMPTED)
+                return EXIT_PREEMPTED
+            res = lineage.resolve()
+            if res is not None and res.path is None:
+                why = res.skipped[0]["reason"] if res.skipped else "?"
+                print(f"[supervise] discarding corrupt checkpoint "
+                      f"{ckpt_path} ({why}; no valid generation of "
+                      f"{len(res.skipped)}); restarting from scratch",
+                      file=sys.stderr, flush=True)
+                emit_lineage("discard_all", reason=why,
+                             generations=len(res.skipped))
+                lineage.remove_all()
+                if os.path.exists(sidecar):
+                    os.remove(sidecar)
+                last_progress = -1
+            elif res is not None and res.skipped:
+                print(f"[supervise] checkpoint head {res.skipped[0]['file']} "
+                      f"is corrupt ({res.skipped[0]['reason']}); resume will "
+                      f"fall back to generation {res.seq}", file=sys.stderr,
                       flush=True)
+                emit_lineage("corrupt_head", fallback_seq=res.seq,
+                             skipped=len(res.skipped),
+                             reason=res.skipped[0]["reason"])
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "shadow1_tpu_torch", *child_argv,
+                 "--supervised-child"],
+                stderr=subprocess.PIPE, text=True, errors="replace")
+            # [lines seen, index of the last out-of-memory line]: the
+            # classifier wants the marker near the child's death.
+            oom_seen = [0, None]
+
+            def tee(pipe=proc.stderr, seen=oom_seen):
+                for line in iter(pipe.readline, ""):
+                    seen[0] += 1
+                    if is_oom_text(line):
+                        seen[1] = seen[0]
+                    sys.stderr.write(line)
+                sys.stderr.flush()
+                pipe.close()
+
+            reader = threading.Thread(target=tee, daemon=True)
+            reader.start()
+            proc_box[0] = proc
+            if sig_seen and proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            spawn_wall = time.time()
+            hung, hung_stale = False, 0.0
+            poll_s = (max(0.1, min(1.0, watchdog_s / 5))
+                      if watchdog_s > 0 else 1.0)
+            while True:
+                try:
+                    rc = proc.wait(timeout=poll_s)
+                    break
+                except subprocess.TimeoutExpired:
+                    pass
+                if watchdog_s <= 0:
+                    continue
+                try:
+                    beat = os.path.getmtime(sidecar)
+                except OSError:
+                    beat = None
+                beaten = beat is not None and beat > spawn_wall
+                deadline = watchdog_s if beaten else 3 * watchdog_s
+                stale_s = time.time() - (beat if beaten else spawn_wall)
+                if stale_s > deadline:
+                    print(f"[supervise] child hung: progress sidecar stale "
+                          f"{stale_s:.1f}s > watchdog {deadline:.1f}s — "
+                          f"killing pid {proc.pid}", file=sys.stderr,
+                          flush=True)
+                    proc.kill()
+                    rc = proc.wait()
+                    hung, hung_stale = True, stale_s
+                    break
+            proc_box[0] = None
+            reader.join(timeout=10.0)
+            raw_oom = (rc > 0 and rc not in EXIT_CODES and not hung
+                       and oom_seen[1] is not None
+                       and oom_seen[0] - oom_seen[1] <= 50)
+            if rc == EXIT_MEMORY or raw_oom:
+                how = ("rc=EXIT_MEMORY" if rc == EXIT_MEMORY
+                       else f"rc={rc}, raw CUDA out-of-memory on stderr")
+                print(f"[supervise] child exhausted device memory ({how}) "
+                      f"— deterministic config-vs-device condition; not "
+                      f"respawning. Apply the memory advice above or rerun "
+                      f"with --on-oom downshift", file=sys.stderr,
+                      flush=True)
+                return EXIT_MEMORY
+            if rc == EXIT_CAPACITY:
+                print(f"[supervise] child halted on a capacity policy "
+                      f"(rc={rc}, CapacityExceededError) — deterministic "
+                      f"config condition; not respawning. Apply the engine: "
+                      f"cap advice above, or rerun with --on-overflow "
+                      f"retry.", file=sys.stderr, flush=True)
                 return rc
-        if attempt == MAX_RESPAWNS:
-            return rc
-        delay = backoff_base * (2 ** no_progress)
-        print(f"[supervise] child died rc={rc} at sim_ns={progress}; "
-              f"respawning ({attempt + 1}/{MAX_RESPAWNS}) after "
-              f"{delay:.1f}s backoff", file=sys.stderr, flush=True)
-        if delay > 0:
-            time.sleep(delay)
+            if rc == EXIT_PREEMPTED:
+                print(f"[supervise] child drained after a preemption signal "
+                      f"(rc={rc}) — checkpoint kept; rerun the same command "
+                      f"to resume", file=sys.stderr, flush=True)
+                emit_lineage("preempted", rc=rc)
+                return EXIT_PREEMPTED
+            if rc == EXIT_OK:
+                # A finished run's snapshot must not resume a later
+                # invocation of the same command into a no-op.
+                lineage.remove_all()
+                for p in (sidecar, meta_path):
+                    if os.path.exists(p):
+                        os.remove(p)
+                return EXIT_OK
+            progress = -1
+            try:
+                with open(sidecar) as f:
+                    progress = json.load(f).get("win_start", -1)
+            except (OSError, ValueError):
+                pass
+            if hung:
+                emit_lineage("watchdog_kill", stale_s=round(hung_stale, 1),
+                             sim_ns=max(progress, 0), attempt=attempt)
+            if progress > last_progress:
+                no_progress = no_progress_hung = 0
+                last_progress = progress
+            elif hung:
+                no_progress_hung += 1
+                if no_progress_hung >= 2:
+                    print(f"[supervise] two consecutive watchdog kills with "
+                          f"no forward progress at sim_ns={max(progress, 0)} "
+                          f"— the hang is deterministic at that point; "
+                          f"further respawns would repeat it",
+                          file=sys.stderr, flush=True)
+                    return EXIT_HUNG
+            else:
+                no_progress += 1
+                if no_progress >= 2:
+                    print(f"[supervise] two consecutive crashes (rc={rc}) "
+                          f"with no forward progress at "
+                          f"sim_ns={max(progress, 0)} — the fault is "
+                          f"deterministic at that point; further respawns "
+                          f"would repeat it", file=sys.stderr, flush=True)
+                    return rc
+            if attempt == MAX_RESPAWNS:
+                return rc
+            delay = backoff_base * (2 ** (no_progress_hung if hung
+                                          else no_progress))
+            kind = "hung (watchdog kill)" if hung else f"died rc={rc}"
+            print(f"[supervise] child {kind} at sim_ns={progress}; "
+                  f"respawning ({attempt + 1}/{MAX_RESPAWNS}) after "
+                  f"{delay:.1f}s backoff", file=sys.stderr, flush=True)
+            if delay > 0:
+                time.sleep(delay)
+    finally:
+        for s, h in prev_handlers.items():
+            signal.signal(s, h)
     return rc
 
 
@@ -255,13 +424,36 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-level", default="message",
                     choices=["error", "warning", "message", "info", "debug"],
                     help="stderr log verbosity")
+    ap.add_argument("--on-overflow", choices=["drop", "retry", "halt"],
+                    default=None, metavar="drop|retry|halt",
+                    help="overflow policy at chunk boundaries (overrides "
+                         "engine.on_overflow): drop counts and goes on; "
+                         "retry discards a tainted chunk, grows the cap one "
+                         "ladder step and replays it; halt exits 4 with cap "
+                         "advice")
+    ap.add_argument("--auto-caps", action="store_true",
+                    help="grow ev_cap before overflow and shrink it after "
+                         "sustained low occupancy, at chunk boundaries, "
+                         "migrating the state bit-exactly (overrides "
+                         "engine.auto_caps)")
+    ap.add_argument("--selfcheck", action="store_true",
+                    help="check the drop-accounting identity at every chunk "
+                         "boundary")
+    ap.add_argument("--on-oom", choices=["halt", "downshift"],
+                    default="halt", metavar="halt|downshift",
+                    help="memory-budget policy: the pre-flight estimate "
+                         "against the card's free memory (SHADOW1_MEM_BYTES "
+                         "overrides); halt exits 7 with advice, downshift "
+                         "drops the retry rollback copy, then shrinks the "
+                         "ring")
+    ap.add_argument("--watchdog-s", type=float, default=None, metavar="S",
+                    help="--ckpt supervisor watchdog: kill a child whose "
+                         "progress sidecar has not ticked for S seconds "
+                         "(3S before its first tick) and respawn it; two "
+                         "hangs without progress exit 6. Default: env "
+                         "SHADOW1_WATCHDOG_S, else off")
     # Parsed so a script written for the reference fails loudly here.
-    for flag, kw in (("--auto-caps", dict(action="store_true")),
-                     ("--on-overflow", dict(default=None)),
-                     ("--on-oom", dict(default=None)),
-                     ("--selfcheck", dict(action="store_true")),
-                     ("--watchdog-s", dict(default=None)),
-                     ("--fleet", dict(action="store_true")),
+    for flag, kw in (("--fleet", dict(action="store_true")),
                      ("--on-lane-fail", dict(default=None)),
                      ("--lane-finalize", dict(action="store_true"))):
         ap.add_argument(flag, help=argparse.SUPPRESS, **kw)
@@ -269,10 +461,8 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(ap, args) -> None:
-    for flag, item in (("auto_caps", _RECOVERY), ("on_overflow", _RECOVERY),
-                       ("on_oom", _RECOVERY), ("selfcheck", _RECOVERY),
-                       ("watchdog_s", _RECOVERY), ("fleet", _FLEET),
-                       ("on_lane_fail", _FLEET), ("lane_finalize", _FLEET)):
+    for flag, item in (("fleet", _FLEET), ("on_lane_fail", _FLEET),
+                       ("lane_finalize", _FLEET)):
         if getattr(args, flag) not in (None, False):
             ap.error(f"--{flag.replace('_', '-')} is not ported yet ({item})")
     if args.engine in ("cpu", "sharded"):
@@ -311,6 +501,10 @@ def _params(ap, args, exp, params):
             and args.metrics_ring is None):
         params = dataclasses.replace(params,
                                      metrics_ring=args.heartbeat or 64)
+    if args.on_overflow is not None:
+        params = dataclasses.replace(params, on_overflow=args.on_overflow)
+    if args.selfcheck:
+        params = dataclasses.replace(params, selfcheck=1)
     return params
 
 
@@ -362,24 +556,81 @@ def main(argv=None) -> int:
     if args.ckpt_keep < 1:
         ap.error("--ckpt-keep must be >= 1")
     if args.ckpt and not args.supervised_child:
-        return _supervise(argv, args.ckpt, args.config)
+        # The parent never touches the card: all device work happens in
+        # the supervised children.
+        watchdog_s = (args.watchdog_s if args.watchdog_s is not None
+                      else float(os.environ.get("SHADOW1_WATCHDOG_S", "0")))
+        return _supervise(argv, args.ckpt, args.config,
+                          watchdog_s=watchdog_s)
 
     import torch
 
+    from shadow1_tpu_torch import mem
     from shadow1_tpu_torch.core.engine import Engine, resolve_device
     from shadow1_tpu_torch.log import SimLogger
     from shadow1_tpu_torch.obs import build_kernels
+    from shadow1_tpu_torch.preempt import DrainHandler, PreemptedExit
+    from shadow1_tpu_torch.txn import CapacityExceededError
 
     log = SimLogger(level=args.log_level)
+    device = resolve_device(args.device)
+    auto_caps = bool(args.auto_caps or params.auto_caps)
+
+    # ---- pre-flight memory budget (mem.py): the estimate from the config
+    # alone (a meta-device init, no state-sized allocation) against what
+    # this process can hold on the card, before the engine is built.
+    pre_downshift_retry = False  # retry demoted by a memory downshift
+    budget, budget_src = mem.device_budget(device)
+    try:
+        mem_est = mem.estimate(exp, params)
+    except Exception as est_err:  # noqa: BLE001 — the estimate fails soft
+        mem_est = None
+        log.warning("memory estimate unavailable", error=repr(est_err))
+    if mem_est is not None:
+        print(json.dumps(mem_est.record(budget, budget_src,
+                                        engine=engine_kind)),
+              file=sys.stderr, flush=True)
+    if (mem_est is not None and budget is not None
+            and mem_est.peak_bytes > budget):
+        try:
+            if args.on_oom != "downshift":
+                mem.check_budget(mem_est, budget, budget_src)
+            pre_downshift_retry = params.on_overflow == "retry"
+            # A shrunk ring would write a snapshot no engine of this config
+            # could load back.
+            params, actions = mem.downshift(
+                exp, params, budget,
+                resumable=bool(args.ckpt or args.resume or args.save_state))
+        except mem.MemoryBudgetError as e:
+            return _memory_exit(e)
+        mem_est = mem.estimate(exp, params)
+        print(json.dumps(mem.downshift_record(actions, mem_est.peak_bytes,
+                                              budget)),
+              file=sys.stderr, flush=True)
+        for a in actions:
+            log.warning("memory downshift", **a)
+    if os.environ.get("SHADOW1_MEM_INJECT_OOM") == "raw":
+        # Test hook for the supervisor's stderr scan: die like a crash the
+        # structured taxonomy never saw.
+        print("torch.OutOfMemoryError: CUDA out of memory. Tried to "
+              "allocate 2.00 GiB (injected raw OOM, test hook)",
+              file=sys.stderr, flush=True)
+        raise SystemExit(1)
+
     phases = None
     if args.trace or args.profile:
         from shadow1_tpu_torch.telemetry import PhaseProfiler
 
         phases = PhaseProfiler()
-    device = resolve_device(args.device)
     # Before the engine: its construction may launch the kernels.
     build_kernels(device, phases)
-    eng = Engine(exp, params, device=device)
+    try:
+        eng = Engine(exp, params, device=device)
+    except Exception as e:
+        # Construction allocates the ctx tables and the restart capture.
+        if mem.is_oom(e):
+            return _memory_exit_runtime(args, e, phase="init")
+        raise
     log.info("experiment loaded", hosts=exp.n_hosts, engine=engine_kind,
              window_ns=exp.window, device=str(eng.device))
     t0 = time.perf_counter()
@@ -387,10 +638,26 @@ def main(argv=None) -> int:
     st = None
     resolved, ckpt_lineage, resume_path = _resolve_ckpt_lineage(args, log)
     if resume_path:
-        from shadow1_tpu_torch.ckpt import CorruptCheckpointError, load_state
+        from shadow1_tpu_torch.ckpt import (
+            CorruptCheckpointError,
+            load_state,
+            snapshot_caps,
+        )
 
+        params0, eng0 = params, eng
         try:
-            st = load_state(eng.init_state(), resume_path)
+            template = eng.init_state()
+            if auto_caps or params.on_overflow == "retry" or pre_downshift_retry:
+                # A retry or auto-caps run checkpoints at the caps it had
+                # grown to, where a host may hold more events than the
+                # config's cap: the engine starts at the snapshot's caps.
+                snap = snapshot_caps(template, resume_path)
+                if snap and snap != (params.ev_cap, params.outbox_cap):
+                    params = dataclasses.replace(
+                        params, ev_cap=snap[0], outbox_cap=snap[1])
+                    eng = Engine(exp, params, device=device)
+                    template = eng.init_state()
+            st = load_state(template, resume_path)
         except CorruptCheckpointError as e:
             # A supervised child falls back to a fresh start; an explicit
             # --resume fails loudly.
@@ -398,7 +665,8 @@ def main(argv=None) -> int:
                 raise
             log.warning("discarding corrupt checkpoint", path=resume_path,
                         reason=str(e))
-            st, resume_path, resolved = None, None, None
+            st, params, eng = None, params0, eng0
+            resume_path, resolved = None, None
         else:
             metrics0 = Engine.metrics_dict(st)
             done = int(st.win_start) // exp.window
@@ -411,6 +679,20 @@ def main(argv=None) -> int:
                 # Supervised respawn: --windows is the whole run's total.
                 args.windows = max(args.windows - done, 0)
     n_windows = args.windows if args.windows is not None else eng.n_windows
+    controller = guard = None
+    if auto_caps:
+        from shadow1_tpu_torch.tune import CapController
+
+        controller = CapController(eng, eng.at_caps, log=log.info,
+                                   initial_state=st)
+    if params.on_overflow in ("retry", "halt"):
+        from shadow1_tpu_torch.txn import OverflowGuard
+
+        # Engines at other caps share this one's device tables; with the
+        # controller, the two planes share one engine cache.
+        guard = OverflowGuard(eng, make_engine=eng.at_caps,
+                              mode=params.on_overflow,
+                              controller=controller, log=log.info)
     if args.profile:
         from shadow1_tpu_torch.telemetry import device_trace
 
@@ -418,24 +700,43 @@ def main(argv=None) -> int:
     else:
         prof = contextlib.nullcontext()
     ring_w = params.metrics_ring
-    with prof:
-        if (args.heartbeat or args.ckpt or ring_w or params.link_telem
-                or phases is not None):
-            from shadow1_tpu_torch.obs import run_with_heartbeat
+    try:
+        with prof:
+            if os.environ.get("SHADOW1_MEM_INJECT_OOM") == "run":
+                raise torch.cuda.OutOfMemoryError(
+                    "CUDA out of memory. Tried to allocate 2.00 GiB "
+                    "(injected, test hook)")
+            if (args.heartbeat or args.ckpt or ring_w or params.link_telem
+                    or phases is not None or controller is not None
+                    or guard is not None or params.selfcheck):
+                from shadow1_tpu_torch.obs import run_with_heartbeat
 
-            st, _hb = run_with_heartbeat(
-                eng, st, n_windows=n_windows,
-                # Ring-only runs chunk at the ring depth, so the drain keeps
-                # up with the overwrites.
-                every_windows=args.heartbeat or (ring_w or None),
-                stream=sys.stdout, ckpt_path=args.ckpt,
-                ckpt_every_s=args.ckpt_every_s, profiler=phases,
-                emit_heartbeat=bool(args.heartbeat),
-                emit_ring=bool(ring_w or params.link_telem),
-                ckpt_keep=args.ckpt_keep)
-        else:
-            st = eng.run(st, n_windows=n_windows)
-        eng.synchronize()
+                # SIGTERM/SIGINT request a drain, honored at the next chunk
+                # boundary (only the chunked path has boundaries).
+                drain = DrainHandler().install()
+                st, _hb = run_with_heartbeat(
+                    eng, st, n_windows=n_windows,
+                    # Ring-only runs chunk at the ring depth, so the drain
+                    # keeps up with the overwrites.
+                    every_windows=args.heartbeat or (ring_w or None),
+                    stream=sys.stdout, ckpt_path=args.ckpt,
+                    ckpt_every_s=args.ckpt_every_s, profiler=phases,
+                    emit_heartbeat=bool(args.heartbeat),
+                    emit_ring=bool(ring_w or params.link_telem),
+                    controller=controller, guard=guard,
+                    selfcheck=bool(params.selfcheck),
+                    ckpt_keep=args.ckpt_keep, drain=drain)
+            else:
+                st = eng.run(st, n_windows=n_windows)
+            eng.synchronize()
+    except CapacityExceededError as e:
+        return _capacity_exit(e)
+    except PreemptedExit as e:
+        return _preempted_exit(args, e, resumed=bool(resume_path))
+    except Exception as e:
+        if mem.is_oom(e):
+            return _memory_exit_runtime(args, e)
+        raise
     if phases is not None:
         if args.trace:
             phases.write(args.trace)
@@ -445,6 +746,16 @@ def main(argv=None) -> int:
         from shadow1_tpu_torch.ckpt import save_state
 
         save_state(st, args.save_state)
+    peak_in_use = mem.device_peak_in_use(eng.device)
+    if peak_in_use is not None:
+        # The allocator's measured high-water beside the pre-flight
+        # estimate.
+        print(json.dumps({"type": "mem", "event": "final",
+                          "peak_in_use": peak_in_use,
+                          "estimated_peak": (mem_est.peak_bytes
+                                             if mem_est is not None
+                                             else None)}),
+              file=sys.stderr, flush=True)
     metrics = Engine.metrics_dict(st)
     summary = eng.model_summary(st)
     if args.tracker:
@@ -454,21 +765,98 @@ def main(argv=None) -> int:
             for rec in tracker_records(eng, st):
                 f.write(json.dumps(rec) + "\n")
     wall = time.perf_counter() - t0
-    print(json.dumps(result_record(
+    out = result_record(
         exp, params, metrics, metrics0, summary, n_windows, wall,
         resumed=bool(resume_path),
         device=(torch.cuda.get_device_name(eng.device)
-                if eng.device.type == "cuda" else "cpu"))))
+                if eng.device.type == "cuda" else "cpu"),
+        guard=guard, controller=controller)
+    print(json.dumps(out))
     return EXIT_OK
 
 
+def _capacity_exit(e) -> int:
+    """Structured halt: the advice on stderr, one parseable error record on
+    stdout, the exit code the supervisor never respawns."""
+    print(f"CapacityExceededError: {e}", file=sys.stderr, flush=True)
+    print(json.dumps({
+        "error": "capacity_exceeded",
+        "knob": e.knob,
+        "counter": e.counter,
+        "cap": e.cap,
+        "overflow": e.overflow,
+        "windows": list(e.window_range),
+        "recommended": e.recommended,
+    }))
+    return EXIT_CAPACITY
+
+
+def _preempted_exit(args, e, resumed=False) -> int:
+    """Graceful-drain exit: the in-flight chunk was committed (and the final
+    snapshot written under --ckpt) before this point."""
+    e.ckpt = args.ckpt
+    print(f"[preempt] drain complete after {e.signame}: {e.done_windows} "
+          f"window(s) committed, sim_ns={e.win_start}"
+          + (f", snapshot {args.ckpt}" if args.ckpt
+             else ", no checkpoint path"), file=sys.stderr, flush=True)
+    print(json.dumps({
+        "preempted": True,
+        "signal": e.signame,
+        "windows_done": e.done_windows,
+        "win_start": e.win_start,
+        "ckpt": args.ckpt,
+        "resumed": bool(resumed),
+    }))
+    return EXIT_PREEMPTED
+
+
+def _memory_exit(e) -> int:
+    """Pre-flight budget rejection: the advice on stderr, one parseable
+    error record on stdout, the exit code the supervisor never respawns."""
+    print(f"MemoryBudgetError: {e}", file=sys.stderr, flush=True)
+    print(json.dumps({
+        "error": "memory_budget",
+        "estimated": e.estimated,
+        "budget": e.budget,
+        "budget_source": e.budget_source,
+        "planes": e.planes,
+        "peaks": e.peaks,
+        "advice": e.advice,
+    }))
+    return EXIT_MEMORY
+
+
+def _memory_exit_runtime(args, e, phase: str = "run") -> int:
+    """A CUDA out-of-memory error past the estimate (transients beyond the
+    model, other tenants of the card): a phase-tagged record on stdout,
+    EXIT_MEMORY for the supervisor."""
+    print(f"[mem] device memory exhausted during {phase}: {str(e)[:2000]}",
+          file=sys.stderr, flush=True)
+    print("[mem] deterministic config-vs-device condition — rerun with "
+          "--on-oom downshift or shrink the dominant plane (the mem record "
+          "above attributes bytes per plane)", file=sys.stderr, flush=True)
+    print(json.dumps({
+        "error": "memory_exhausted",
+        "phase": phase,
+        "message": str(e)[:500],
+    }))
+    return EXIT_MEMORY
+
+
 def result_record(exp, params, metrics, metrics0, summary, n_windows, wall,
-                  *, resumed: bool, device: str) -> dict:
+                  *, resumed: bool, device: str, guard=None,
+                  controller=None) -> dict:
     """The result line: the reference's keys with their meaning, and the
     port's ``device`` and ``summary``. Rates cover this invocation: under
-    --resume the snapshot's metrics are taken out."""
+    --resume the snapshot's metrics are taken out. ``caps`` are the caps
+    the run started at; under a guard the metrics carry its host-side
+    counters and a ``retries`` block follows, under a controller an
+    ``auto_caps`` block."""
     from shadow1_tpu_torch.telemetry.registry import DROP_FIELDS
 
+    if guard is not None:
+        metrics = {**metrics, "chunk_retries": guard.chunk_retries,
+                   "retry_windows_rerun": guard.retry_windows_rerun}
     sim_s = n_windows * exp.window / 1e9
     ev_run = metrics["events"] - metrics0.get("events", 0)
     out = {
@@ -501,6 +889,13 @@ def result_record(exp, params, metrics, metrics0, summary, n_windows, wall,
                    ("down_events", "down_pkts", "link_down_pkts")}
     if restarts or any(fault_drops.values()):
         out["faults"] = {"host_restarts": restarts, **fault_drops}
+    if guard is not None:
+        out["retries"] = {**guard.report(), "resizes": guard.resizes}
+    if controller is not None:
+        out["auto_caps"] = {
+            "resizes": controller.resizes,
+            "final": controller.final_caps or {
+                "ev_cap": params.ev_cap, "outbox_cap": params.outbox_cap}}
     out["summary"] = {k: int(v) for k, v in summary.items()
                       if getattr(v, "ndim", 1) == 0}
     return out

@@ -107,6 +107,13 @@ def flatten_like_jax(st) -> list:
     return out
 
 
+def clone_state(st):
+    """A device copy of every leaf (``Tensor.clone``): a state the kernels
+    may update in place (on CUDA they write the event-buffer and outbox
+    planes of the state they are given) is kept by cloning it."""
+    return unflatten_like_jax(st, [x.clone() for x in flatten_like_jax(st)])
+
+
 def unflatten_like_jax(template, leaves):
     """``template`` (a port state) with its leaves replaced, in
     ``flatten_like_jax`` order, by ``leaves`` (numpy arrays or tensors),

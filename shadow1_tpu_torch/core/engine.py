@@ -34,12 +34,15 @@ inside a ``record_function`` scope named as the reference names its
 ``device_trace`` shows which phase launched each kernel.
 
 Module and function names follow the reference so each counterpart is found
-under the same name. Parts of the reference this slice does not run raise
-``NotImplementedError`` when a config asks for them (``check_supported``).
+under the same name. The recovery planes work between chunks, outside
+the engine (``ckpt.run_chunked`` with ``txn.py`` and ``tune/``); the
+engine itself refuses only a model or app it does not know
+(``check_supported``).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import math
@@ -212,23 +215,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_supported(exp: CompiledExperiment, params: EngineParams) -> None:
-    """Refuse, loudly, what this slice of the port does not run: each
-    refusal names the ROADMAP item that will add it."""
-    def no(what: str, item: str):
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP: {item})")
-
+    """Refuse a model or app the port does not know. Every engine knob of
+    the solo engine runs since the recovery planes (``txn.py``, ``tune/``,
+    ``mem.py``); the sharded scheduler is refused by the CLI and
+    ``config/experiment.py``."""
     from shadow1_tpu_torch.net import APPS
 
     if exp.model == "net" and exp.model_cfg.get("app") not in APPS:
         raise ValueError(f"unknown app {exp.model_cfg.get('app')!r}")
     if exp.model not in ("phold", "net"):
         raise ValueError(f"unknown model {exp.model!r}")
-    if params.auto_caps or params.on_overflow != "drop":
-        no("auto_caps / on_overflow other than 'drop'", "recovery planes")
-    if params.selfcheck:
-        no("selfcheck (the drop-accounting identity at every boundary)",
-           "recovery planes")
 
 
 def check_digest_params(params: EngineParams) -> None:
@@ -767,6 +763,26 @@ class Engine:
         self._handlers = self._model.make_handlers(self.ctx)
         self._pre_window = getattr(self._model, "make_pre_window",
                                    lambda c: None)(self.ctx)
+
+    def at_caps(self, params: EngineParams) -> "Engine":
+        """This experiment's engine at ``params``, which may differ from
+        this engine's in ``ev_cap`` and ``outbox_cap`` only. It shares the
+        device tables (the ctx's and the restart capture, neither of which
+        depends on a cap) instead of building them again: the recovery
+        planes (``txn.OverflowGuard``, ``tune.CapController``) build their
+        engines at grown and shrunk caps so, and hold one copy of them."""
+        same = dataclasses.replace(params, ev_cap=self.params.ev_cap,
+                                   outbox_cap=self.params.outbox_cap)
+        if same != self.params:
+            raise ValueError("Engine.at_caps: params may differ in ev_cap "
+                             "and outbox_cap only")
+        eng = copy.copy(self)
+        eng.params = params
+        eng.ctx = dataclasses.replace(self.ctx, params=params)
+        eng._handlers = self._model.make_handlers(eng.ctx)
+        eng._pre_window = getattr(self._model, "make_pre_window",
+                                  lambda c: None)(eng.ctx)
+        return eng
 
     def init_state(self) -> SimState:
         from shadow1_tpu_torch.telemetry.links import link_init

@@ -46,13 +46,9 @@ fault plane and the fidelity gates, with active-host compaction
 (``core/compact.py``: under it the kernels get the bucket's ``[C, cap]``
 planes, fresh contiguous copies). What it leaves out, and where it is
 refused — each refusal is a ``NotImplementedError`` whose message names
-the ROADMAP item that will add it (``core/engine.py check_supported``,
-``config/experiment.py build_experiment``, ``cli.py``, ``convert.py``):
+the ROADMAP item that will add it (``config/experiment.py
+build_experiment``, ``cli.py``, ``convert.py``):
 
-* ``probes`` / ``probes:`` and ``link_telem`` — "checkpoint and
-  observability";
-* ``auto_caps``, ``on_overflow`` other than "drop" and ``selfcheck`` —
-  "recovery planes";
 * ``scheduler: sharded`` — "fleet, shard, serve".
 
 ``push_back``'s kernel is the push kernel with the original tie-break; the
@@ -111,8 +107,11 @@ def _launch(name: str, fn, *args) -> None:
     err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
                for a in args))
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name!r} failed to launch "
-                           f"(cudaError {err})")
+        # cudaErrorMemoryAllocation (2) carries the runtime's own text, so
+        # the memory plane (mem.is_oom) classifies it as an OOM.
+        text = "out of memory" if err == 2 else f"code {err}"
+        raise RuntimeError(f"CUDA kernel {name!r} failed to launch: CUDA "
+                           f"error: {text} (cudaError {err})")
     LAUNCHES[name] += 1
 
 

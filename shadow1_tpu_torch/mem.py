@@ -1,0 +1,479 @@
+"""Memory plane — pre-flight device-memory budgeting, the OOM taxonomy,
+downshift planning (port of ``mem.py``, solo engine).
+
+* **pre-flight estimator** (:func:`estimate`): the engine state is built on
+  ``torch.device("meta")`` through the real model-init path
+  (:func:`abstract_state`), so the per-leaf shapes and dtypes are exactly
+  ``Engine.init_state``'s and no state-sized allocation happens. On top of
+  the resident state ride the port's own peaks (below).
+* **budget check** (:func:`check_budget`): estimate against the device
+  budget (:func:`device_budget`: ``SHADOW1_MEM_BYTES`` wins, else what
+  this process can still hold on the card — the free bytes
+  ``torch.cuda.mem_get_info`` reports plus the caching allocator's
+  reserve; none on the CPU, where the estimate is informational). Over
+  budget ⇒ :class:`MemoryBudgetError` with per-plane attribution and
+  paste-ready advice, before the engine is built.
+* **downshift planner** (:func:`downshift`, CLI ``--on-oom downshift``):
+  drop the txn rollback copy (``retry`` demotes to ``halt``), then shrink
+  the telemetry ring (observability only). The reference's third stage,
+  fleet sub-batching, belongs to the fleet (ROADMAP Queue A item 6).
+* **runtime taxonomy** (:func:`is_oom`): PyTorch's
+  ``torch.cuda.OutOfMemoryError``, the ``CUDA out of memory`` /
+  ``CUDA error: out of memory`` texts (a kernel launch's error included)
+  and ``MemoryError``; the CLI maps them to ``consts.EXIT_MEMORY``.
+
+**The port's memory contract.** ``planes`` are resident for the run: the
+state per plane, the ctx tables (``const``) and, when hosts restart, the
+restart capture (``init_model``, a second model state). ``peaks`` are
+transients that coexist with them at the worst moment, and are the port's
+own (eager PyTorch, not XLA's buffers):
+
+* ``output`` — one full state: a window's input state stays referenced
+  while the window builds its output (every eager op returns a fresh
+  tensor; on CUDA only the kernels' event-buffer and outbox planes are
+  updated in place), so a window can double-hold every leaf. The chunk
+  runner hands its state over (``ckpt.run_chunked``) so the chunk-start
+  state is not a third copy;
+* ``rollback`` — one full state under ``on_overflow=retry``: the guard's
+  chunk-start clone (``txn.OverflowGuard.rollback_point``). During a
+  replay the tainted result is freed first, so the rollback copy and the
+  replaying state are all there is;
+* ``transient`` — the largest per-phase working set: the window end
+  (``route_outbox``'s flattened [P·H] columns, ``deliver_batch``'s sort
+  keys, ranks and gathered [5+NP, C, H] rows, and its new event-buffer
+  planes while the old ones are referenced), the ``rebase`` / evbuf
+  digest i64 temporaries over [C, H], and the passes over the largest
+  model leaf (a round's TCP passes and the TCP digest's i64 hash words
+  over the [Q, S, H] message FIFO — on the H100 the peak of a fidelity16k
+  window, ``chip_smoke.py`` phase 14).
+
+The budget compares ``peak_bytes``; the audit compares ``resident_bytes``
+with ``torch.cuda.memory_allocated()`` after ``init_state`` (within
+:data:`AUDIT_TOLERANCE`), and ``peak_bytes`` must never be below the
+measured ``torch.cuda.max_memory_allocated()`` (``chip_smoke.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+
+import torch
+
+from shadow1_tpu_torch.consts import EXIT_MEMORY, NP  # noqa: F401 (re-export)
+
+# Env override for the device byte budget (integer bytes). Wins over the
+# card's reported memory; the deterministic knob the CPU tests use.
+MEM_BYTES_ENV = "SHADOW1_MEM_BYTES"
+
+# Estimator vs measured resident bytes: the acceptance bound.
+AUDIT_TOLERANCE = 0.10
+
+# Window-end bytes per outbox slot (route_outbox, deliver_flat and the
+# deliver_batch keys): the flat mask/src/dst columns, the i64 departure,
+# counter, vertex, arrival, threshold, loss-bit and tie-break columns, the
+# sort key and its sorted copy, and the stacked [5+NP] i32 rows.
+_ROUTE_BYTES_PER_SLOT = 4 * 4 + 14 * 8 + 4 * (5 + NP)
+# Window-end bytes per event slot beyond the new planes (deliver_batch):
+# the free flag and its i64 rank (with cumsum's copy), the source and
+# flat-index gathers, and the gathered [5+NP, C, H] rows.
+_DELIVER_BYTES_PER_SLOT = 2 + 4 * 8 + 4 * (5 + NP)
+# rebase and the evbuf digest: i64 absolute times and the hash words.
+_REBASE_BYTES_PER_SLOT = 8 * 8
+# Passes over the largest model leaf, in its bytes: a round's compare
+# masks, where-written copy and gathered operand, or the TCP digest's two
+# i64 hash-word arrays over an i32 leaf.
+_ROUND_LEAF_COPIES = 4
+
+_OOM_TEXTS = ("CUDA out of memory", "CUDA error: out of memory")
+
+
+class MemoryBudgetError(RuntimeError):
+    """The pre-flight byte estimate exceeds the device memory budget.
+
+    Structured: ``estimated`` (peak bytes), ``budget`` (device bytes),
+    ``budget_source`` ("env" or "backend"), ``planes`` (resident per-plane
+    bytes), ``peaks`` (transient adders), ``advice`` (the paste-ready
+    remedy block). Raised before the engine is built."""
+
+    def __init__(self, estimated: int, budget: int, planes: dict,
+                 peaks: dict, advice: str, budget_source: str = "env",
+                 detail: str = ""):
+        self.estimated = int(estimated)
+        self.budget = int(budget)
+        self.budget_source = budget_source
+        self.planes = {k: int(v) for k, v in planes.items()}
+        self.peaks = {k: int(v) for k, v in peaks.items()}
+        self.advice = advice
+        attribution = "  ".join(
+            f"{k}={fmt_bytes(v)}" for k, v in
+            sorted({**self.planes, **self.peaks}.items(),
+                   key=lambda kv: -kv[1]) if v)
+        super().__init__(
+            f"estimated peak device memory {fmt_bytes(self.estimated)} "
+            f"exceeds the {budget_source} budget {fmt_bytes(self.budget)}"
+            f"{detail} — rejected before the engine is built (an "
+            f"oversubscribed config would otherwise die mid-run with a CUDA "
+            f"out-of-memory error). Plane attribution: {attribution}.\n"
+            f"{advice}")
+
+
+def fmt_bytes(n) -> str:
+    """Human-readable bytes; None → "?"."""
+    if n is None:
+        return "?"
+    n = int(n)
+    for unit, div in (("GiB", 1 << 30), ("MiB", 1 << 20), ("KiB", 1 << 10)):
+        if abs(n) >= div:
+            return f"{n / div:.2f} {unit}"
+    return f"{n} B"
+
+
+def is_oom(e: BaseException) -> bool:
+    """Is this exception a device out-of-memory condition?
+
+    ``torch.cuda.OutOfMemoryError``, an error whose text is the caching
+    allocator's or the CUDA runtime's out-of-memory message (a kernel
+    launch of ``core/popk.py`` reports its ``cudaError`` that way too) and
+    ``MemoryError``. The structured :class:`MemoryBudgetError` never
+    matches: it is handled by type."""
+    if isinstance(e, MemoryBudgetError):
+        return False
+    if isinstance(e, (MemoryError, torch.cuda.OutOfMemoryError)):
+        return True
+    msg = str(e)
+    return any(t in msg for t in _OOM_TEXTS)
+
+
+def is_oom_text(line: str) -> bool:
+    """A log line that carries a device out-of-memory error (the
+    supervisor's raw-OOM scan of a child's stderr)."""
+    return any(t in line for t in _OOM_TEXTS) or "OutOfMemoryError" in line
+
+
+def device_budget(device=None) -> tuple[int | None, str | None]:
+    """The device byte budget: (bytes, source) or (None, None).
+
+    ``SHADOW1_MEM_BYTES`` (integer bytes) wins. Otherwise, on a CUDA
+    device (``device``, default the current one when a card is present),
+    what this process can still hold: the free bytes of
+    ``torch.cuda.mem_get_info`` plus ``torch.cuda.memory_reserved`` (the
+    caching allocator's blocks, free or not, are this process's). None on
+    the CPU."""
+    env = os.environ.get(MEM_BYTES_ENV)
+    if env:
+        try:
+            return int(env), "env"
+        except ValueError:
+            import sys
+
+            print(f"[mem] ignoring malformed {MEM_BYTES_ENV}={env!r} "
+                  f"(integer bytes expected)", file=sys.stderr, flush=True)
+    dev = _cuda_device(device)
+    if dev is None:
+        return None, None
+    free, _total = torch.cuda.mem_get_info(dev)
+    return int(free) + int(torch.cuda.memory_reserved(dev)), "backend"
+
+
+def _cuda_device(device):
+    if device is None:
+        return (torch.device("cuda", torch.cuda.current_device())
+                if torch.cuda.is_available() else None)
+    dev = torch.device(device)
+    return dev if dev.type == "cuda" else None
+
+
+def device_peak_in_use(device=None) -> int | None:
+    """The allocator's measured high-water mark
+    (``torch.cuda.max_memory_allocated``) on a CUDA device, else None."""
+    dev = _cuda_device(device)
+    return int(torch.cuda.max_memory_allocated(dev)) if dev is not None else None
+
+
+def _tensors(obj, out: list) -> list:
+    """Every tensor reachable through dataclasses, NamedTuples, dicts,
+    lists and tuples."""
+    if isinstance(obj, torch.Tensor):
+        out.append(obj)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            _tensors(getattr(obj, f.name), out)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            _tensors(v, out)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            _tensors(v, out)
+    return out
+
+
+def storage_ptrs(*trees) -> dict[int, int]:
+    """{storage data pointer: bytes} of every tensor in ``trees``: views
+    of one storage count once, and an empty storage not at all."""
+    out: dict[int, int] = {}
+    for t in _tensors(trees, []):
+        s = t.untyped_storage()
+        if s.data_ptr() and s.nbytes():
+            out[s.data_ptr()] = s.nbytes()
+    return out
+
+
+def live_bytes(*trees) -> int:
+    """The measured side of the estimator audit. When the trees live on a
+    card: ``torch.cuda.memory_allocated`` (every tensor this process holds
+    there). On the CPU: the bytes of the unique storages of ``trees``
+    (pass the engine's ``ctx`` and state)."""
+    ts = _tensors(trees, [])
+    cuda = [t for t in ts if t.is_cuda]
+    if cuda:
+        return int(torch.cuda.memory_allocated(cuda[0].device))
+    return sum(storage_ptrs(*ts).values())
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes of every tensor in ``tree`` (meta tensors by shape)."""
+    return sum(t.numel() * t.element_size() for t in _tensors(tree, []))
+
+
+def abstract_state(exp, params):
+    """(state, ctx) of an ``Engine`` built on ``torch.device("meta")``: the
+    model-init path (the restart capture and the handlers' tables
+    included) runs on shapes only, so the leaves have exactly
+    ``Engine.init_state``'s shapes and dtypes and no state-sized
+    allocation happens. The ctx tables are meta tensors too (the host-side
+    numpy tables they come from are the config's own); ``const`` is priced
+    from their shapes."""
+    from shadow1_tpu_torch.core.engine import Engine
+
+    eng = Engine(exp, params, device="meta")
+    return eng.init_state(), eng.ctx
+
+
+def _ctx_bytes(ctx) -> int:
+    """Bytes of the ctx's device tables (topology, fault plane, fidelity
+    knobs, probe index); the restart capture is priced on its own."""
+    return sum(tree_bytes(getattr(ctx, f.name)) for f in dataclasses.fields(ctx)
+               if f.name != "init_model")
+
+
+@dataclasses.dataclass
+class MemEstimate:
+    """The pre-flight memory model of one run configuration (see the module
+    docstring for the contract). The budget compares ``peak_bytes``; the
+    audit compares ``resident_bytes``."""
+
+    planes: dict
+    peaks: dict
+    params: object
+    evbuf_per_cap: int      # bytes per ev_cap step
+    outbox_per_cap: int
+    telem_per_w: int        # bytes per ring window
+
+    @property
+    def state_bytes(self) -> int:
+        return sum(v for k, v in self.planes.items()
+                   if k not in ("const", "init_model"))
+
+    @property
+    def resident_bytes(self) -> int:
+        return sum(self.planes.values())
+
+    @property
+    def peak_bytes(self) -> int:
+        return self.resident_bytes + sum(self.peaks.values())
+
+    def record(self, budget: int | None = None,
+               budget_source: str | None = None, **extra) -> dict:
+        """The parseable ``mem`` JSONL record (the reference's schema)."""
+        rec = {
+            "type": "mem",
+            "event": "estimate",
+            "n_exp": 1,
+            "n_dev": 1,
+            "estimated_state": self.state_bytes,
+            "estimated_resident": self.resident_bytes,
+            "estimated_peak": self.peak_bytes,
+            "budget": budget,
+            "budget_source": budget_source,
+            "headroom": (int(budget) - self.peak_bytes
+                         if budget is not None else None),
+            "planes": {k: int(v) for k, v in self.planes.items()},
+            "peaks": {k: int(v) for k, v in self.peaks.items()},
+        }
+        rec.update(extra)
+        return rec
+
+    def advice(self, budget: int) -> str:
+        """Paste-ready remedy block: ranked plane attribution and concrete
+        knob values by linear scaling (evbuf ∝ ev_cap, ring ∝ W)."""
+        from shadow1_tpu_torch.tune.ladder import LADDER_MIN, cap_ladder
+
+        budget = int(budget)
+        over = self.peak_bytes - budget
+        p = self.params
+        lines = [f"Peak over budget by {fmt_bytes(over)}. Remedies "
+                 f"(largest planes first):"]
+        ranked = sorted({**self.planes, **self.peaks}.items(),
+                        key=lambda kv: -kv[1])
+        lines.append("  planes: " + ", ".join(
+            f"{k} {fmt_bytes(v)}" for k, v in ranked if v))
+        if self.peaks.get("rollback"):
+            lines.append(f"  --on-overflow halt  # frees the transactional "
+                         f"rollback copy: {fmt_bytes(self.peaks['rollback'])}")
+        if self.planes.get("telem"):
+            spare = budget - (self.peak_bytes - self.planes["telem"])
+            w_fit = max(spare, 0) // max(self.telem_per_w, 1)
+            if 0 < w_fit < p.metrics_ring:
+                lines.append(f"  --metrics-ring {w_fit}  # ring "
+                             f"{p.metrics_ring}→{w_fit} windows frees "
+                             f"{fmt_bytes((p.metrics_ring - w_fit) * self.telem_per_w)}")
+        # Cap ladder-down: the largest ladder cap whose scaled peak fits;
+        # a plane counts twice (its resident copy and the output copy).
+        eng_lines = []
+        residual = self.peak_bytes
+        for knob, cur, per in (("ev_cap", p.ev_cap, self.evbuf_per_cap),
+                               ("outbox_cap", p.outbox_cap,
+                                self.outbox_per_cap)):
+            ladder = [c for c in cap_ladder(cur) if LADDER_MIN <= c < cur]
+            pick = None
+            for cap in reversed(ladder):
+                pick = cap
+                if residual - 2 * (cur - cap) * per <= budget:
+                    break
+            if pick is not None:
+                residual -= 2 * (cur - pick) * per
+                eng_lines.append(f"    {knob}: {pick}  # from {cur}")
+        if eng_lines and residual <= budget:
+            lines.append("  engine:  # size precisely from a recorded "
+                         "run: python -m shadow1_tpu.tools.captune")
+            lines.extend(eng_lines)
+        lines.append("  or rerun with --on-oom downshift (rollback drop → "
+                     "ring shrink, in that order)")
+        return "\n".join(lines)
+
+
+def estimate(exp, params) -> MemEstimate:
+    """The pre-flight byte estimate of a solo, single-device run (the
+    reference's fleet lanes and sharded hosts are ROADMAP Queue A item 6).
+    The state side is exact (the meta-device init); the const side is the
+    ctx's tables; the peaks follow the module's memory contract."""
+    st, ctx = abstract_state(exp, params)
+    per = {f: tree_bytes(getattr(st, f))
+           for f in ("evbuf", "outbox", "model", "metrics", "telem",
+                     "probes", "links")}
+    planes = {
+        "evbuf": per["evbuf"],
+        "outbox": per["outbox"],
+        "model": per["model"],
+        "metrics": per["metrics"],
+        "telem": per["telem"],
+        "scalars": tree_bytes((st.cpu_busy, st.win_start)),
+        "const": _ctx_bytes(ctx),
+    }
+    for f in ("probes", "links"):
+        if per[f]:
+            planes[f] = per[f]
+    if ctx.has_restart:
+        planes["init_model"] = per["model"]
+    state = sum(v for k, v in planes.items()
+                if k not in ("const", "init_model"))
+    h = exp.n_hosts
+    window_end = (params.outbox_cap * h * _ROUTE_BYTES_PER_SLOT
+                  + params.ev_cap * h * _DELIVER_BYTES_PER_SLOT
+                  + per["evbuf"])
+    rebase = params.ev_cap * h * _REBASE_BYTES_PER_SLOT
+    leaves = _tensors(st.model, [])
+    biggest = max((t.numel() * t.element_size() for t in leaves), default=0)
+    peaks = {
+        "output": state,
+        "rollback": state if params.on_overflow == "retry" else 0,
+        "transient": max(window_end, rebase, _ROUND_LEAF_COPIES * biggest),
+    }
+    return MemEstimate(
+        planes=planes, peaks=peaks, params=params,
+        evbuf_per_cap=per["evbuf"] // max(params.ev_cap, 1),
+        outbox_per_cap=per["outbox"] // max(params.outbox_cap, 1),
+        telem_per_w=(per["telem"] // params.metrics_ring
+                     if params.metrics_ring else 0))
+
+
+def check_budget(est: MemEstimate, budget: int | None,
+                 budget_source: str | None = None, detail: str = "") -> None:
+    """Raise :class:`MemoryBudgetError` when the estimated peak exceeds the
+    budget. A None budget (the CPU, no env override) checks nothing."""
+    if budget is None or est.peak_bytes <= int(budget):
+        return
+    raise MemoryBudgetError(
+        estimated=est.peak_bytes, budget=budget, planes=est.planes,
+        peaks=est.peaks, advice=est.advice(budget),
+        budget_source=budget_source or "env", detail=detail)
+
+
+def downshift(exp, params, budget: int, resumable: bool = False):
+    """The graceful-degradation planner (CLI ``--on-oom downshift``).
+
+    Applies the bit-exactness-preserving downshifts IN ORDER until the
+    estimated peak fits ``budget``:
+
+    1. **drop the rollback copy** — ``on_overflow=retry`` demotes to
+       ``halt`` (a replay needs the copy; halt keeps overflow loud);
+    2. **shrink the telemetry ring** — the simulation never reads it, so a
+       narrower W changes which windows get records, never a digest word
+       that is recorded (``state_digest`` keeps W ≥ 1). Skipped when
+       ``resumable`` (--ckpt/--resume/--save-state): the ring is a state
+       leaf, and a snapshot must load at the config's width.
+
+    The reference's third stage, fleet sub-batching, needs a fleet
+    (ROADMAP Queue A item 6). Returns ``(params', actions)``; raises
+    :class:`MemoryBudgetError` when the stages are exhausted."""
+    budget = int(budget)
+    actions: list[dict] = []
+    est = estimate(exp, params)
+    if est.peak_bytes <= budget:
+        return params, actions
+    if params.on_overflow == "retry":
+        freed = est.peaks["rollback"]
+        params = dataclasses.replace(params, on_overflow="halt")
+        actions.append({"action": "drop_rollback", "on_overflow": "halt",
+                        "freed": int(freed)})
+        est = estimate(exp, params)
+    if est.peak_bytes > budget and params.metrics_ring > 0 and not resumable:
+        min_w = 1 if params.state_digest else 0
+        # A removed ring window frees its row in the state and in the
+        # output copy: 2 × telem_per_w. One more exact pass handles any
+        # rounding shortfall.
+        row = 2 * max(est.telem_per_w, 1)
+        w0 = w_new = params.metrics_ring
+        for _ in range(2):
+            need = est.peak_bytes - budget
+            if need <= 0 or w_new <= min_w:
+                break
+            w_new = max(min_w, w_new - math.ceil(need / row))
+            params = dataclasses.replace(params, metrics_ring=w_new)
+            est = estimate(exp, params)
+        if w_new < w0:
+            actions.append({"action": "shrink_ring",
+                            "metrics_ring": [w0, w_new],
+                            "freed": int((w0 - w_new) * row)})
+    if est.peak_bytes > budget:
+        detail = (" (the state-shape-preserving downshift is exhausted: "
+                  "rollback dropped — ring shrink is unavailable under "
+                  "--ckpt/--resume/--save-state because it changes the "
+                  "snapshot shape; drop the checkpoint flags or shrink the "
+                  "config)" if resumable else
+                  " (every --on-oom downshift is exhausted: rollback "
+                  "dropped, ring floored — the base state planes alone "
+                  "exceed the device)")
+        raise MemoryBudgetError(
+            estimated=est.peak_bytes, budget=budget, planes=est.planes,
+            peaks=est.peaks, advice=est.advice(budget), detail=detail)
+    return params, actions
+
+
+def downshift_record(actions: list[dict], est_peak: int,
+                     budget: int) -> dict:
+    """The parseable ``mem`` downshift record."""
+    return {"type": "mem", "event": "downshift", "actions": actions,
+            "estimated_peak": int(est_peak), "budget": int(budget)}

@@ -49,8 +49,10 @@ class Heartbeat:
     normalized through the registry, so a missing counter reads as 0."""
 
     def __init__(self, engine, stream=None, initial_state=None, profiler=None,
-                 emit_heartbeat: bool = True, emit_ring: bool = True):
+                 emit_heartbeat: bool = True, emit_ring: bool = True,
+                 guard=None):
         self.engine = engine
+        self.guard = guard  # txn.OverflowGuard — source of the retries block
         self.stream = stream if stream is not None else sys.stderr
         self.profiler = profiler
         self.emit_heartbeat = emit_heartbeat
@@ -115,11 +117,13 @@ class Heartbeat:
         # all-zero block is the explicit "nothing dropped" signal.
         drops = {f: delta.pop(f, 0) for f in DROP_FIELDS}
         rec["drops"] = {"total": sum(drops.values()), **drops}
-        # The overflow-retry plane's host-side counters (recovery planes,
-        # not ported) never appear in engine deltas: normalize injects
-        # zeros, dropped here.
+        # The overflow-retry plane's host-side counters never appear in
+        # engine deltas (normalize injects zeros, dropped here); once the
+        # guard has retried, a ``retries`` block carries them.
         for f in HOST_FIELDS:
             delta.pop(f, None)
+        if self.guard is not None and self.guard.chunk_retries:
+            rec["retries"] = self.guard.report()
         # Fault plane: when churn/outage activity happened this chunk, a
         # ``faults`` block surfaces it directly (restart resets plus the
         # fault-induced rows of the drops table) — docs/OBSERVABILITY.md.
@@ -213,21 +217,6 @@ class Heartbeat:
         return recs
 
 
-def run_injection_hooks(sim_ns: int) -> None:
-    """Chunk-boundary fault injection, inert without its env var:
-    ``SHADOW1_OBS_CRASH_PRE_SAVE_AT_NS`` dies before the checkpoint is
-    written (the supervisor sees a zero-progress crash). The reference's
-    SIGTERM and hang hooks belong to the recovery planes; setting one
-    fails loudly here rather than being ignored."""
-    for var in ("SHADOW1_OBS_SIGTERM_SELF_AT_NS", "SHADOW1_OBS_HANG_AT_NS"):
-        if os.environ.get(var) is not None:
-            raise NotImplementedError(
-                f"{var} is not ported yet (ROADMAP: recovery planes)")
-    crash_pre = os.environ.get("SHADOW1_OBS_CRASH_PRE_SAVE_AT_NS")
-    if crash_pre is not None and sim_ns == int(crash_pre):
-        os._exit(41)
-
-
 def build_kernels(device, profiler=None) -> None:
     """Build and load the CUDA kernels (``core/_build.py``) inside the
     compile span, before anything launches one: an ``Engine`` whose hosts
@@ -269,14 +258,20 @@ def run_with_heartbeat(engine, st=None, n_windows=None, every_windows=None,
     span. A caller that built an engine or a state before (the CLI) calls
     ``build_kernels`` with the same profiler first.
 
-    ``controller``, ``guard``, ``selfcheck`` and ``drain`` are the recovery
-    planes' hooks and are refused. Returns (final_state, heartbeat):
-    heartbeat.records holds the stream, heartbeat.ring_records /
-    flow_records / link_records the drained plane records."""
-    from shadow1_tpu_torch.ckpt import _refuse_hooks
+    The recovery planes ride the chunk runner (``ckpt.run_chunked``):
+    ``controller`` (tune.CapController, ``--auto-caps``) may swap in an
+    engine at other caps between chunks; ``guard`` (txn.OverflowGuard,
+    ``--on-overflow retry|halt``) makes chunks transactional, and
+    heartbeats then carry a ``retries`` block once a retry happened;
+    ``selfcheck`` checks the drop-accounting identity at every committed
+    boundary; ``drain`` (preempt.DrainHandler) forces the snapshot at the
+    next boundary regardless of the wall throttle, then the runner raises
+    preempt.PreemptedExit. Heartbeat fill blocks report the caps of the
+    engine that ran the chunk.
 
-    _refuse_hooks(controller=controller, guard=guard, selfcheck=selfcheck,
-                  drain=drain)
+    Returns (final_state, heartbeat): heartbeat.records holds the stream,
+    heartbeat.ring_records / flow_records / link_records the drained plane
+    records."""
     total = n_windows if n_windows is not None else engine.n_windows
     if every_windows is None:
         every_windows = max(total // 10, 1)
@@ -285,13 +280,25 @@ def run_with_heartbeat(engine, st=None, n_windows=None, every_windows=None,
         with maybe_span(profiler, PH_INIT):
             st = engine.init_state()
     hb = Heartbeat(engine, stream=stream, initial_state=st, profiler=profiler,
-                   emit_heartbeat=emit_heartbeat, emit_ring=emit_ring)
+                   emit_heartbeat=emit_heartbeat, emit_ring=emit_ring,
+                   guard=guard)
+    retune = None
+    if controller is not None:
+        def retune(eng_cur, s):
+            eng_new, s = controller(eng_cur, s)
+            hb.engine = eng_new  # heartbeat caps track the live engine
+            return eng_new, s
+    if guard is not None:
+        guard.on_engine_swap = lambda eng_new: setattr(hb, "engine", eng_new)
+    hooks = dict(profiler=profiler, retune=retune, guard=guard,
+                 selfcheck=selfcheck, drain=drain)
     if ckpt_path is None:
         st = run_chunked(engine, st, n_windows=total, chunk=every_windows,
-                         on_chunk=hb, profiler=profiler)
+                         on_chunk=hb, **hooks)
         return st, hb
 
     from shadow1_tpu_torch.lineage import Lineage, write_json_atomic
+    from shadow1_tpu_torch.preempt import run_injection_hooks
 
     lineage = Lineage(ckpt_path, keep=ckpt_keep)
     last_save = time.perf_counter()
@@ -303,8 +310,9 @@ def run_with_heartbeat(engine, st=None, n_windows=None, every_windows=None,
         sim_ns = int(s.win_start)
         run_injection_hooks(sim_ns)
         now = time.perf_counter()
+        draining = drain is not None and drain.requested
         saved = False
-        if done >= total or now - last_save > ckpt_every_s:
+        if done >= total or now - last_save > ckpt_every_s or draining:
             with maybe_span(profiler, PH_CHECKPOINT):
                 last_seq[0] = lineage.save(
                     s, {"win_start": sim_ns, "done_windows": done})
@@ -320,5 +328,5 @@ def run_with_heartbeat(engine, st=None, n_windows=None, every_windows=None,
             os._exit(41)
 
     st = run_chunked(engine, st, n_windows=total, chunk=every_windows,
-                     on_chunk=on_chunk, profiler=profiler)
+                     on_chunk=on_chunk, **hooks)
     return st, hb

@@ -12,19 +12,22 @@ JAX package, on the CPU.
   stands for, and the golden's engine parameters are the config's;
 * ``check_supported`` accepts tgen, dgram, Tor, ``compact_cap``, Bitcoin,
   the NIC queue bounds, RED AQM, ``faults:``, ``probes:`` and
-  ``link_telem``, and refuses ``selfcheck``, ``auto_caps`` and
-  ``on_overflow: retry``, each naming its ROADMAP item;
+  ``link_telem``, and since the recovery planes ``selfcheck``,
+  ``auto_caps`` and ``on_overflow: retry``, which run rung 2 equal to the
+  JAX engine;
 * the command line runs rung 2 and rung 3 (with its ``compact_cap``).
 """
 
 import copy
 import dataclasses
+import functools
 import importlib.util
 import json
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from shadow1_tpu.config import experiment as xj
@@ -175,25 +178,56 @@ def test_check_supported():
             mod.build_experiment(copy.deepcopy(doc), base_dir=str(CONFIGS))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_rung2(windows: int) -> dict:
+    """The JAX engine's metrics after ``windows`` windows of rung 2."""
+    from shadow1_tpu.core.engine import Engine as EngineJ
+
+    exp_j, par_j, _, _ = _both("rung2_tgen100")
+    return EngineJ.metrics_dict(EngineJ(exp_j, par_j).run(n_windows=windows))
+
+
 @pytest.mark.parametrize("knob", [dict(selfcheck=1), dict(auto_caps=1),
                                   dict(on_overflow="retry"),
                                   dict(link_telem=1)])
 def test_check_supported_refuses(knob):
-    """``selfcheck: 1`` (the reference's boundary identity, which the
-    port does not run yet), ``auto_caps`` and ``on_overflow: retry`` are
-    refused, naming their ROADMAP item. ``link_telem``, refused until the
-    checkpoint and observability slice, is accepted since: the engine
-    builds with the link accumulator in its state."""
-    _, _, exp, _ = _both("rung2_tgen100")
-    if "link_telem" in knob:
-        from shadow1_tpu_torch.core.engine import Engine
+    """The name is historical: ``selfcheck: 1``, ``auto_caps`` and
+    ``on_overflow: retry`` were refused until the recovery planes, and
+    ``link_telem`` until the checkpoint and observability slice. Each is
+    accepted now. Rung 2 runs 5 windows in chunks of one under the plane
+    the knob asks for (the boundary identity; the cap controller, which
+    shrinks into overflow on its own, with the retry guard that keeps it
+    lossless; the retry guard) and equals the JAX engine's straight run;
+    the link accumulator rides the state."""
+    from shadow1_tpu_torch.ckpt import run_chunked
+    from shadow1_tpu_torch.core.engine import Engine
 
-        check_supported(exp, EngineParams(**knob))
-        st = Engine(exp, EngineParams(**knob), device="cpu").init_state()
+    _, _, exp, par = _both("rung2_tgen100")
+    params = dataclasses.replace(par, **knob)
+    check_supported(exp, params)
+    eng = Engine(exp, params, device="cpu")
+    if "link_telem" in knob:
+        st = eng.init_state()
         assert tuple(st.links.buf.shape) == (1, 1, 7)
         return
-    with pytest.raises(NotImplementedError, match="recovery planes"):
-        check_supported(exp, EngineParams(**knob))
+    hooks = {}
+    if params.auto_caps:
+        from shadow1_tpu_torch.tune import CapController
+
+        hooks["retune"] = ctl = CapController(eng, eng.at_caps)
+    if params.on_overflow == "retry" or params.auto_caps:
+        from shadow1_tpu_torch.txn import OverflowGuard
+
+        hooks["guard"] = guard = OverflowGuard(
+            eng, make_engine=eng.at_caps, controller=hooks.get("retune"))
+    torch.set_num_threads(1)
+    st = run_chunked(eng, n_windows=5, chunk=1,
+                     selfcheck=bool(params.selfcheck), **hooks)
+    assert Engine.metrics_dict(st) == _jax_rung2(5)
+    if params.auto_caps:
+        assert ctl.resizes and guard.final_caps["ev_cap"] < par.ev_cap
+    if params.on_overflow == "retry":
+        assert guard.report()["chunk_retries"] == 0
 
 
 @pytest.mark.parametrize("config", ["rung2_tgen100", "rung3_tor1k"])
@@ -226,7 +260,4 @@ def test_cli_runs_app(config, capsys):
         assert res["metrics"]["compact_max_fill"] > 384
         assert compact.WINDOWS["compact"] > 0 and compact.WINDOWS["full"] > 0
         return
-    from shadow1_tpu.core.engine import Engine as EngineJ
-
-    st = EngineJ(exp_j, par_j).run(n_windows=5)
-    assert res["metrics"] == EngineJ.metrics_dict(st)
+    assert res["metrics"] == _jax_rung2(5)

@@ -15,8 +15,9 @@ probes and the link accumulator on, 11 windows, cut at window 5:
   to a straight port run and to the JAX one;
 * the port's ``_integrity_digest`` equals the reference's; a truncated
   file and a flipped bit raise ``CorruptCheckpointError``; a snapshot of
-  another config raises ``ValueError``; one saved at other caps raises
-  the recovery planes' ``NotImplementedError``; ``verify_file`` and
+  another config raises ``ValueError``; one saved at other caps loads
+  through the cap migration, as the JAX package's load of it does;
+  ``verify_file`` and
   ``snapshot_caps`` agree with the reference's on both packages' files
   (a small PHOLD with the ring, the digest and a host probe on).
 
@@ -246,11 +247,25 @@ def test_snapshot_of_another_config_raises(tmp_path):
 
 
 def test_caps_mismatch_is_refused(tmp_path):
+    """The name is historical: a snapshot at other caps was refused until
+    the recovery planes ported the cap migration. It loads now, as the
+    JAX package's migrated load of the same file does, leaf by leaf; with
+    ``migrate_caps=False`` it still fails the shape check."""
+    from shadow1_tpu_torch.tune.resize import resize_state
+
     path = str(tmp_path / "s.npz")
-    ckpt_t.save_state(_phold().init_state(), path)
-    other = _phold(ev_cap=2 * EngineParamsT().ev_cap).init_state()
-    with pytest.raises(NotImplementedError, match="recovery planes"):
-        ckpt_t.load_state(other, path)
+    eng = _phold()
+    saved = eng.run(n_windows=6)
+    ckpt_t.save_state(saved, path)
+    cap = 2 * EngineParamsT().ev_cap
+    other = _phold(ev_cap=cap).init_state()
+    got = ckpt_t.load_state(other, path)
+    assert got.evbuf.kind.shape[-2] == cap
+    assert_same_leaves(convert.state_to_numpy(resize_state(saved, ev_cap=cap)),
+                       convert.state_to_numpy(got))
+    want = ckpt_j.load_state(_phold_j(ev_cap=cap).init_state(), path)
+    assert_same_leaves(jax.tree.map(np.asarray, want),
+                       convert.state_to_numpy(got))
     with pytest.raises(ValueError, match="config mismatch"):
         ckpt_t.load_state(other, path, migrate_caps=False)
 

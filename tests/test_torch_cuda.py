@@ -29,7 +29,9 @@ same run on the CPU, its per-window digest words included, and so do
 small tgen, Tor and dgram runs with active-host compaction on, a small
 Bitcoin flood, and a two-tile run with every fidelity gate on, whose
 virtual CPU launches the push kernel through ``push_back`` every round
-and defers events through it.
+and defers events through it. The overflow guard's rollback point is a
+copy on the card too, and a PHOLD retried there equals the straight run
+at the final cap.
 """
 
 import numpy as np
@@ -599,3 +601,40 @@ def test_cuda_lineage_resolves_on_cpu(dev, tmp_path):
     assert r.path != path and r.meta["done_windows"] == 4
     assert len(r.skipped) == 1
     assert int(load_state(eng.init_state(), r.path).metrics.windows) == 4
+
+
+def test_retry_rollback_is_a_copy_on_cuda(dev):
+    """The overflow guard's rollback point on the card: it shares no
+    storage with the state the chunk then runs on (the kernels write that
+    state's planes in place), and an under-capped PHOLD retried on CUDA
+    equals the straight run at the final cap on the CPU, digest words
+    included."""
+    from shadow1_tpu_torch import mem
+    from shadow1_tpu_torch.ckpt import run_chunked
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+    from shadow1_tpu_torch.txn import OverflowGuard
+
+    exp = single_vertex_experiment(
+        n_hosts=8, seed=5, end_time=40 * MS, latency_ns=1 * MS,
+        model="phold", model_cfg={"mean_delay_ns": float(2 * MS),
+                                  "init_events": 6})
+    params = EngineParams(ev_cap=8, metrics_ring=40, state_digest=1)
+    eng = Engine(exp, params, device=dev)
+    guard = OverflowGuard(eng, make_engine=eng.at_caps, mode="retry")
+    keep, shared = guard.rollback_point, []
+
+    def rollback_point(st):
+        copy = keep(st)
+        shared.append(set(mem.storage_ptrs(st)) & set(mem.storage_ptrs(copy)))
+        return copy
+
+    guard.rollback_point = rollback_point
+    st = run_chunked(eng, n_windows=40, chunk=10, guard=guard)
+    assert guard.chunk_retries >= 1 and not any(shared)
+    assert len(shared) == 4 + guard.chunk_retries
+    final = guard.final_caps["ev_cap"]
+    ref_eng = Engine(exp, EngineParams(ev_cap=final, metrics_ring=40,
+                                       state_digest=1), device="cpu")
+    ref = ref_eng.run(n_windows=40)
+    assert Engine.metrics_dict(st) == Engine.metrics_dict(ref)
+    assert drain_ring(st, eng.window) == drain_ring(ref, eng.window)

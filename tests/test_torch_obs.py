@@ -13,7 +13,7 @@ JAX package's, on the CPU.
   reference's for the same state.
 * ``PhaseProfiler``'s Chrome trace round-trips through JSON, and a
   ``device_trace`` of a window holds the four window phases' spans.
-* ``SimLogger`` checks its level; the recovery planes' hooks are refused.
+* ``SimLogger`` checks its level; the recovery planes' hooks run.
 """
 
 import io
@@ -197,8 +197,22 @@ def test_sim_logger_levels():
 
 
 def test_recovery_hooks_are_refused(runs):
+    """The name is historical: the recovery planes' hooks were refused
+    until that slice. Each is accepted now, and a run under it gives the
+    plain run's heartbeat records (nothing overflows, nothing drains)."""
+    from shadow1_tpu_torch.preempt import DrainHandler
+    from shadow1_tpu_torch.tune import CapController
+    from shadow1_tpu_torch.txn import OverflowGuard
+
     eng_t = runs[0]
-    for kw in (dict(guard=object()), dict(controller=object()),
-               dict(selfcheck=True), dict(drain=object())):
-        with pytest.raises(NotImplementedError, match="recovery planes"):
-            obs_t.run_with_heartbeat(eng_t, n_windows=1, stream=False, **kw)
+    _, plain = obs_t.run_with_heartbeat(eng_t, n_windows=2, every_windows=1,
+                                        stream=False)
+    for kw in (dict(guard=OverflowGuard(eng_t, mode="halt")),
+               dict(controller=CapController(eng_t, eng_t.at_caps)),
+               dict(selfcheck=True), dict(drain=DrainHandler())):
+        _, hb = obs_t.run_with_heartbeat(eng_t, n_windows=2, every_windows=1,
+                                         stream=False, **kw)
+        assert [{k: v for k, v in r.items() if k not in WALL + ("fill",)}
+                for r in hb.records] == [
+            {k: v for k, v in r.items() if k not in WALL + ("fill",)}
+            for r in plain.records]

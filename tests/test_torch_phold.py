@@ -185,15 +185,28 @@ def test_unsupported_configs_fail_loudly(kind):
     and the test keeps its name and its cases so that its record holds
     (``test_torch_app_configs.py test_check_supported_refuses`` holds the
     refusals that stand). Since the fault and fidelity slice every one
-    runs but ``retry``: ``net`` (the Bitcoin app of rung5_bitcoin5k)
-    builds its engine, and PHOLD under a fault schedule, a NIC queue
-    bound, compaction, the virtual CPU or edge jitter equals the JAX
-    engine. ``on_overflow: retry`` still fails loudly, naming its ROADMAP
-    item."""
+    runs: ``net`` (the Bitcoin app of rung5_bitcoin5k) builds its engine,
+    and PHOLD under a fault schedule, a NIC queue bound, compaction, the
+    virtual CPU or edge jitter equals the JAX engine; since the recovery
+    planes ``on_overflow: retry`` runs too, its chunks under each
+    package's overflow guard, with the same metrics and guard report."""
     if kind == "retry":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            exp, params, _ = xt.build_experiment(_unsupported(kind))
-            EngineT(exp, params, device="cpu")
+        from shadow1_tpu.ckpt import run_chunked as run_j
+        from shadow1_tpu.txn import OverflowGuard as GuardJ
+        from shadow1_tpu_torch.ckpt import run_chunked as run_t
+        from shadow1_tpu_torch.txn import OverflowGuard as GuardT
+
+        exp_j, par_j, _ = xj.build_experiment(_unsupported(kind))
+        exp_t, par_t, _ = xt.build_experiment(_unsupported(kind))
+        assert par_t.on_overflow == "retry"
+        eng_j = EngineJ(exp_j, par_j)
+        g_j = GuardJ(eng_j, make_engine=lambda p: EngineJ(exp_j, p))
+        st_j = run_j(eng_j, chunk=10, guard=g_j)
+        eng_t = EngineT(exp_t, par_t, device="cpu")
+        g_t = GuardT(eng_t, make_engine=eng_t.at_caps)
+        st_t = run_t(eng_t, chunk=10, guard=g_t)
+        assert EngineT.metrics_dict(st_t) == EngineJ.metrics_dict(st_j)
+        assert g_t.report() == g_j.report() and g_t.resizes == g_j.resizes
         return
     if kind == "net":
         exp, params, _ = xt.load_experiment(

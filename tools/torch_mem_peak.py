@@ -1,0 +1,110 @@
+"""Where a fidelity16k run peaks in device memory on a CUDA card.
+
+    python tools/torch_mem_peak.py
+
+Runs ``fidelity16k`` (``shadow1_tpu_torch/golden/net_fidelity16k.json``,
+16,384 hosts, every fidelity gate on) twice in chunks of 2 windows, as
+``chip_smoke.py`` phase 14 does: from ``ev_cap`` 24 under the retry guard
+(the caps grow on the way), and straight at ``ev_cap`` 48. Each run is
+recorded by ``torch.cuda.memory._record_memory_history`` (Python stacks);
+the allocation trace is walked (``alloc`` / ``free_requested``) to the
+high-water mark, and the allocations live there are printed, grouped by
+the innermost three frames of the port that made them, beside the
+allocator's ``max_memory_allocated``. That is what ``mem.py``'s peak
+model (``output``, ``rollback``, ``transient``) is checked against.
+
+Prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import collections
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+RUNS = (("retry from ev_cap 24", dict(ev_cap=24, on_overflow="retry")),
+        ("straight at ev_cap 48", dict(ev_cap=48)))
+
+
+def frames(entry, n: int = 3) -> str:
+    port = [f for f in entry["frames"]
+            if "shadow1_tpu_torch" in f["filename"]]
+    return " < ".join(f"{Path(f['filename']).name}:{f['line']}:{f['name']}"
+                      for f in port[:n]) or "?"
+
+
+def live_at_peak(trace) -> tuple[int, dict, dict]:
+    """(peak bytes, the allocations live there by address, the event at
+    the peak) of an allocator trace."""
+    live, cur, best, best_i = {}, 0, 0, -1
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            live[e["addr"]] = e["size"]
+            cur += e["size"]
+        elif e["action"] == "free_requested" and e["addr"] in live:
+            cur -= live.pop(e["addr"])
+        if cur > best:
+            best, best_i = cur, i
+    held = {}
+    for e in trace[:best_i + 1]:
+        if e["action"] == "alloc":
+            held[e["addr"]] = e
+        elif e["action"] == "free_requested":
+            held.pop(e["addr"], None)
+    return best, held, trace[best_i]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_mem_peak: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from shadow1_tpu_torch.ckpt import run_chunked
+    from shadow1_tpu_torch.core import _build
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.txn import OverflowGuard
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    _build.library()
+    dev = torch.device("cuda")
+    gold = cs.net_golden("fidelity16k")
+    exp = cs.net_experiment("fidelity16k", gold)
+    for label, kw in RUNS:
+        base = cs.clean_allocator(dev)
+        torch.cuda.memory._record_memory_history(max_entries=3_000_000,
+                                                 stacks="python")
+        eng = Engine(exp, cs.fid_params(gold, **kw), device=dev)
+        guard = (OverflowGuard(eng, make_engine=eng.at_caps)
+                 if "on_overflow" in kw else None)
+        t0 = time.perf_counter()
+        st = run_chunked(eng, n_windows=gold["windows"], chunk=2,
+                         guard=guard)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        trace = torch.cuda.memory._snapshot()["device_traces"][0]
+        torch.cuda.memory._record_memory_history(enabled=None)
+        best, held, at = live_at_peak(trace)
+        groups = collections.Counter()
+        for e in held.values():
+            groups[frames(e)] += e["size"]
+        print(f"{label}: {wall:.1f} s under the recorder; "
+              f"max_memory_allocated - base {peak} B; traced peak {best} B "
+              f"over {len(trace)} events, at {frames(at, 8)}", flush=True)
+        for where, size in groups.most_common(30):
+            print(f"  {size:>12} B  {where}")
+        del st, eng, guard, trace, held
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
