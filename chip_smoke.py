@@ -58,8 +58,9 @@ fails:
 9. the app slice, built in code from the goldens as in phase 7 and held
    to them the same way: ``tgen50k`` (``configs/dense_tgen50k.yaml`` at
    its full width, 50,000 hosts, 20 windows), ``rung2``
-   (``configs/rung2_tgen100.yaml``, 150 windows) with compaction off and
-   again with ``compact_cap`` 48 (windows on both sides of the bucket
+   (``configs/rung2_tgen100.yaml``) with compaction off for its first
+   ``RUNG2_PLAIN_WINDOWS`` windows (their digest words held) and with
+   ``compact_cap`` 48 for all 150 (windows on both sides of the bucket
    must run), ``tor10k`` (``configs/rung4_tor10k.yaml`` at its full
    width, 10,000 hosts, ``compact_cap`` 1280, 40 windows) and ``dgram4k``
    (a 4,096-host datagram ring with 1 % loss, 20 windows). Each run must
@@ -130,12 +131,39 @@ fails:
    to the golden's end; (7) a per-process memory fraction that makes
    ``init_state`` fail: ``mem.is_oom`` must classify the allocator's
    error. Each step's wall time is printed.
+15. the fleet (``fleet/``; run right after phase 14's step 1, while the
+   profiler's traces are whole), four steps, each step's wall time
+   printed: (1) the 17-lane ``sweep_phold_experiments`` (the 4 seeds of
+   ``configs/sweep_phold.yaml`` under each of its 4 variants, and one
+   lane held to 2 rounds a window) as one ``FleetEngine``, its launches
+   counted from 0, every lane's metrics, digest words and per-host hops
+   equal to ``golden/fleet_sweep_phold.json`` (the JAX ``FleetEngine``'s),
+   and pop's per-host bound (the capped lane's columns held) bit-equal to
+   ``pop_until_plain``; (2) ``fleet_filexfer16k``: filexfer16k and its
+   seed 2, 3 and 4 variants at 0.1 %, 1 % and 2 % loss as one fleet of
+   65,536 host columns, 10 windows, the main path's launches counted from
+   0 — lane 0's digest words equal to ``net_filexfer16k.json``'s windows
+   0-9, every lane's metrics, ring rows and summaries equal to the port's
+   solo ``Engine`` on the card; it prints the wall time, ms per round,
+   rounds per window, aggregate events/s, the four solo runs' summed wall,
+   device operations and device→host reads per round of one more window,
+   and ``mem.estimate`` against ``memory_allocated`` after ``init_state``
+   (within 10 %) and against the run's ``max_memory_allocated`` (at or
+   above it); (3) the three kernels on the arguments of three rounds
+   of that fleet's window 8 (the hooks of phase 8), bit-equal to their
+   plain versions and timed against the byte bound; (4) on the sweep, each
+   equal to the golden: a run from ``ev_cap`` 4 under ``--on-overflow
+   retry``, a halt whose error names the lane and its seed, a
+   ``--on-lane-fail quarantine`` of a lane forced to fail (a self-check
+   violation) whose 16 survivors stay equal, a window-10 snapshot resumed
+   in a fresh ``FleetEngine``, and the capped lane sliced there and
+   resumed in a solo ``Engine``.
 
 The path phases (8, 10, 12) rerun a golden only to one window past the
 window whose arguments they keep (``run_net_golden(stop_after=)``: the
 digest words of those windows are compared).
 
-Each phase's wall time is printed. It then prints a ``{"kernels": [...]}``
+Each phase's wall time is printed, and the whole script's. It then prints a ``{"kernels": [...]}``
 line, the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. It imports nothing of JAX or of the JAX package.
 """
@@ -188,6 +216,8 @@ TOR_PATH_WINDOW = 36
 # The tgen, dgram and Tor runs of phase 9, in order; rung2 runs once per
 # compact_cap its golden lists.
 APP_RUNS = ("tgen50k", "rung2", "tor10k", "dgram4k")
+# rung2's run with compaction off stops after this many windows (of 150).
+RUNG2_PLAIN_WINDOWS = 40
 # The runs of phase 11, in order.
 FID_RUNS = ("bitcoin5k", "churn8", "fidelity16k")
 # Phase 12 keeps push_back rounds of this window of fidelity16k (of 11;
@@ -1897,6 +1927,373 @@ def phase_recovery(dev, card: str) -> dict:
                 oom=oom, step_s=step_s)
 
 
+# -- phase 15: the fleet ---------------------------------------------------
+
+FLEET_DIR = ROOT / "build" / "chip_smoke_fleet"
+# fleet_filexfer16k: lane 0 is filexfer16k's golden experiment, lanes 1-3
+# its seed and loss variants (seed, edge loss); FLEET_WINDOWS windows.
+FLEET_LANES = ((2, 0.001), (3, 0.01), (4, 0.02))
+FLEET_WINDOWS = 10
+# Step 3 keeps three rounds of this window of fleet_filexfer16k.
+FLEET_PATH_WINDOW = 8
+# Step 4: the under-sized ev_cap of the retry and halt runs, the chunk,
+# the window of the snapshot and the slice, and the lane forced to fail.
+FLEET_SMALL_CAP, FLEET_CHUNK, FLEET_SPLIT, FLEET_FAIL = 4, 5, 10, 5
+
+
+def fleet_golden() -> dict:
+    return json.loads((ROOT / "shadow1_tpu_torch" / "golden"
+                       / "fleet_sweep_phold.json").read_text())
+
+
+def fleet_sweep_engine(dev, **repl):
+    """The golden's 17-lane sweep (``sweep_phold_experiments``) as a
+    FleetEngine on ``dev``, the ring and digest words on; ``repl``
+    overrides engine params."""
+    import dataclasses
+
+    from shadow1_tpu_torch.config.compiled import sweep_phold_experiments
+    from shadow1_tpu_torch.fleet.engine import FleetEngine
+
+    gold = fleet_golden()
+    exps, params, max_rounds, labels = sweep_phold_experiments()
+    require(labels == [l["label"] for l in gold["lanes"]]
+            and max_rounds == gold["max_rounds"],
+            "fleet_sweep_phold: the sweep built here is not the golden's")
+    params = dataclasses.replace(params, metrics_ring=gold["windows"],
+                                 state_digest=1, **repl)
+    return FleetEngine(exps, params, max_rounds, device=dev), labels
+
+
+def check_fleet_lanes(eng, st, *, what: str, first: int = 0) -> None:
+    """Every lane still in ``eng`` (by its sweep-global id) against the
+    golden: every Metrics field, the digest words of windows ``first`` on
+    and the SHA-256 of the per-host hop counts."""
+    import numpy as np
+
+    gold = fleet_golden()
+    fields = gold["digest_fields"]
+    per = eng.metrics_per_exp(st)
+    rings = eng.drain_rings(st, start=first)
+    ids = eng.exp_ids or list(range(eng.n_exp))
+    for e, gid in enumerate(ids):
+        lane = gold["lanes"][gid]
+        diff = {k: (lane["metrics"][k], v) for k, v in per[e].items()
+                if lane["metrics"][k] != v}
+        require(not diff, f"{what}: lane {gid} metrics differ from the "
+                f"golden (golden, port): {diff}")
+        rows = [[r[f] for f in fields] for r in rings
+                if r["exp"] == gid and r["type"] == "ring"]
+        want = lane["digests"][first:]
+        for w, (a, b) in enumerate(zip(want, rows), start=first):
+            require(a == b, f"{what}: lane {gid} window {w}: digest words "
+                    f"{b} differ from the golden's {a}")
+        require(len(rows) == len(want), f"{what}: lane {gid}: {len(rows)} "
+                f"ring rows, {len(want)} due")
+        hops = eng.model_summary(st, e)["hops"]
+        h = hashlib.sha256(np.asarray(hops, "<i8").tobytes()).hexdigest()
+        require(h == lane["sha256"]["hops"],
+                f"{what}: lane {gid} per-host hops differ from the golden")
+
+
+class UntilCapture:
+    """A hook around ``engine.pop_until`` that keeps a clone of the first
+    call whose bound is one per host (a lane at its ``max_rounds`` cap
+    while others run on)."""
+
+    def __init__(self):
+        self.args = None
+
+    def __enter__(self):
+        from shadow1_tpu_torch.core import engine
+
+        pop = self._pop = engine.pop_until
+
+        def hook(buf, until, extract="sum"):
+            if self.args is None and getattr(until, "dim", lambda: 0)() == 1:
+                self.args = (clone(buf), until.clone())
+            return pop(buf, until, extract)
+
+        engine.pop_until = hook
+        return self
+
+    def __exit__(self, *exc):
+        from shadow1_tpu_torch.core import engine
+
+        engine.pop_until = self._pop
+
+
+def fleet_sweep(dev) -> dict:
+    """Step 1: the 17-lane sweep against the golden, its launches counted
+    from 0; pop's per-host bound (the capped lane) against its plain
+    version."""
+    from shadow1_tpu_torch.core import popk
+
+    eng, labels = fleet_sweep_engine(dev)
+    sync(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    with UntilCapture() as cap:
+        st = eng.run(n_windows=fleet_golden()["windows"])
+        sync(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(popk.LAUNCHES)
+    require(all(n > 0 for n in launches.values()),
+            f"fleet_sweep_phold: kernels not launched: {launches}")
+    check_fleet_lanes(eng, st, what="fleet_sweep_phold")
+    per = eng.metrics_per_exp(st)
+    require(per[-1]["round_cap_hits"] > 0 and cap.args is not None,
+            "fleet_sweep_phold: the capped lane never held at its cap")
+    buf, until = cap.args
+    err = bit_equal("pop[per-host bound]", popk.pop_until_plain(buf, until),
+                    popk.pop_until(clone(buf), until))
+    return dict(wall_s=wall, launches=launches, lanes=len(per),
+                rounds=max(m["rounds"] for m in per),
+                events=sum(m["events"] for m in per),
+                cap_hits=per[-1]["round_cap_hits"], until_err=err,
+                held=int((until < until.max()).sum()))
+
+
+def fleet_filexfer_experiments():
+    import dataclasses
+
+    from shadow1_tpu_torch.config import compiled as ct
+
+    gold = net_golden("filexfer16k")
+    exp0 = net_experiment("filexfer16k", gold)
+    (builder, kwargs), = gold["build"].items()
+    exps = [exp0] + [getattr(ct, builder)(**dict(kwargs, seed=s), loss=lo)
+                     for s, lo in FLEET_LANES]
+    for e in exps[1:]:
+        require(dataclasses.replace(e, seed=exp0.seed).n_hosts
+                == exp0.n_hosts, "fleet lane shape")
+    return gold, exps
+
+
+def fleet_filexfer(dev) -> dict:
+    """Step 2: fleet_filexfer16k (4 lanes, 65,536 columns) — the main
+    path's launches counted from 0; lane 0's ring rows against
+    net_filexfer16k.json; every lane against the port's solo Engine on the
+    card; mem.estimate against the allocator; device ops and reads per
+    round of one more window."""
+    import numpy as np
+    import torch
+
+    from shadow1_tpu_torch import mem
+    from shadow1_tpu_torch.consts import EngineParams
+    from shadow1_tpu_torch.convert import clone_state
+    from shadow1_tpu_torch.core import popk
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.fleet.engine import FleetEngine
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+
+    gold, exps = fleet_filexfer_experiments()
+    params = EngineParams(**gold["params"], metrics_ring=FLEET_WINDOWS + 1,
+                          state_digest=1)
+    est = mem.estimate(exps[0], params, fleet=(exps, None))
+    base = clean_allocator(dev)
+    eng = FleetEngine(exps, params, device=dev)
+    st = eng.init_state()
+    sync(dev)
+    resident = torch.cuda.memory_allocated(dev) - base
+    ratio = est.resident_bytes / resident
+    require(abs(ratio - 1) <= mem.AUDIT_TOLERANCE,
+            f"fleet_filexfer16k: mem.estimate {est.resident_bytes} B vs "
+            f"{resident} B allocated after init_state (ratio {ratio:.3f})")
+    zero_counts()
+    t0 = time.perf_counter()
+    held = [st]  # handed over: no frame keeps the initial state
+    st = None
+    st = eng.run(held.pop(), n_windows=FLEET_WINDOWS)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(popk.LAUNCHES)
+    entries = dict(popk.PUSH_ENTRIES)
+    peak = measured_peak(dev, base)
+    require(est.peak_bytes >= peak["allocated"],
+            f"fleet_filexfer16k: mem.estimate's peak {est.peak_bytes} B is "
+            f"below the measured {peak['allocated']} B")
+    require(all(n > 0 for n in launches.values()),
+            f"fleet_filexfer16k: kernels not launched: {launches}")
+    per = eng.metrics_per_exp(st)
+    rings = eng.drain_rings(st)
+    rounds = max(m["rounds"] for m in per)
+    lane0 = [r for r in rings if r["exp"] == 0]
+    check_digests("fleet_filexfer16k lane 0", gold, lane0, 0, FLEET_WINDOWS)
+    solo_wall = 0.0
+    for e, exp in enumerate(exps):
+        solo = Engine(exp, params, device=dev)
+        sync(dev)
+        t1 = time.perf_counter()
+        ss = solo.run(n_windows=FLEET_WINDOWS)
+        sync(dev)
+        solo_wall += time.perf_counter() - t1
+        require(Engine.metrics_dict(ss) == per[e],
+                f"fleet_filexfer16k lane {e}: metrics differ from the solo "
+                f"run's")
+        require(drain_ring(ss, solo.window) == [
+            {k: v for k, v in r.items() if k != "exp"} for r in rings
+            if r["exp"] == e], f"fleet_filexfer16k lane {e}: ring rows "
+            f"differ from the solo run's")
+        a, b = solo.model_summary(ss), eng.model_summary(st, e)
+        require(all(np.array_equal(a[k], b[k]) for k in a),
+                f"fleet_filexfer16k lane {e}: summaries differ from the "
+                f"solo run's")
+        if e == 0:
+            # Lane 0's solo window 10, the same window as the fleet's below.
+            r_solo = Engine.metrics_dict(ss)["rounds"]
+            solo_out = {}
+
+            def solo_window(s0=ss, eng0=solo):
+                solo_out["st"] = eng0.run(s0, n_windows=1)
+                sync(dev)
+
+            solo_ops = sum(c for _, c, _ in device_ops(solo_window))
+            solo_rounds = (Engine.metrics_dict(solo_out.pop("st"))["rounds"]
+                           - r_solo)
+        del ss, solo
+    # One more window: its device operations and host reads per round
+    # (each on its own copy: the kernels update the planes in place).
+    r0 = max(m["rounds"] for m in per)
+    copies = {k: clone_state(st) for k in ("ops", "warm-up", "reads")}
+    out = {}
+
+    def one_window(key):
+        out[key] = eng.run(copies.pop(key), n_windows=1)
+        sync(dev)
+
+    n_ops = sum(c for _, c, _ in device_ops(lambda: one_window("ops")))
+    sync_reads(lambda: one_window("warm-up"))
+    reads = sync_reads(lambda: one_window("reads"))
+    r1 = max(m["rounds"] for m in eng.metrics_per_exp(out["reads"])) - r0
+    del out
+    return dict(wall_s=wall, launches=launches, push_entries=entries,
+                solo_ops_per_round=solo_ops / max(solo_rounds, 1),
+                rounds=rounds, windows=FLEET_WINDOWS, hosts=eng.ctx.n_hosts,
+                events=sum(m["events"] for m in per), solo_wall_s=solo_wall,
+                ops_per_round=n_ops / max(r1, 1),
+                reads_per_round=reads / max(r1, 1), extra_rounds=r1,
+                resident=resident, estimated=est.resident_bytes,
+                ratio=ratio, peak=peak, est_peak=est.peak_bytes)
+
+
+def fleet_path(dev, flush) -> dict:
+    """Step 3: three rounds of window FLEET_PATH_WINDOW of step 2's fleet,
+    each kernel against its plain version and timed (check_path)."""
+    from shadow1_tpu_torch.consts import EngineParams
+    from shadow1_tpu_torch.fleet.engine import FleetEngine
+
+    gold, exps = fleet_filexfer_experiments()
+    eng = FleetEngine(exps, EngineParams(**gold["params"]), device=dev)
+    with NetPathCapture(FLEET_PATH_WINDOW) as cap:
+        eng.run(n_windows=FLEET_PATH_WINDOW + 1)
+        sync(dev)
+    out = {name: check_path(name, cap.cases(name), dev, flush, expect=(1, 3))
+           for name in ("pop", "push", "obox")}
+    return dict(kernels=out, actives=cap.actives())
+
+
+def fleet_recovery(dev) -> dict:
+    """Step 4 on the sweep, each held to the golden: retry from a small
+    ev_cap; halt naming the lane and its seed; quarantine of a lane forced
+    to fail (a self-check violation), survivors equal; a snapshot at
+    window FLEET_SPLIT resumed in a fresh FleetEngine; the capped lane
+    sliced there and resumed in a solo Engine."""
+    import dataclasses
+
+    from shadow1_tpu_torch import ckpt, txn
+    from shadow1_tpu_torch.convert import fleet_to_saved
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.fleet.run import run_fleet
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+
+    out, step_s = {}, {}
+    w = fleet_golden()["windows"]
+    FLEET_DIR.mkdir(parents=True, exist_ok=True)
+
+    t0 = time.perf_counter()
+    eng, _ = fleet_sweep_engine(dev, ev_cap=FLEET_SMALL_CAP,
+                                on_overflow="retry")
+    st, hb = run_fleet(eng, n_windows=w, every_windows=FLEET_CHUNK,
+                       stream=False)
+    check_fleet_lanes(hb.engine, st, what="fleet retry")
+    require(hb.guard.chunk_retries > 0, "fleet retry: no chunk replayed")
+    out["retry"] = dict(retries=hb.guard.chunk_retries,
+                        ev_cap=hb.engine.params.ev_cap)
+    step_s["retry"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    eng, labels = fleet_sweep_engine(dev, ev_cap=FLEET_SMALL_CAP,
+                                     on_overflow="halt")
+    try:
+        run_fleet(eng, n_windows=w, every_windows=FLEET_CHUNK, stream=False)
+    except txn.CapacityExceededError as e:
+        lane = labels[e.lanes[0]]
+        named = f"fleet experiment {lane['exp']}, seed {lane['seed']}"
+        require(named in str(e), f"fleet halt: {e} does not name {named}")
+        out["halt"] = dict(lane=lane["exp"], seed=lane["seed"],
+                           window_range=e.window_range)
+    else:
+        raise AssertionError("fleet halt: no CapacityExceededError")
+    step_s["halt"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    check = txn.check_boundary_identity
+
+    def failing(metrics, where=""):
+        if where.startswith(f"fleet experiment {FLEET_FAIL},") and \
+                metrics.get("windows", 0) >= FLEET_SPLIT:
+            raise txn.SelfCheckError({"pkts_sent": 1}, 1, where=where)
+        return check(metrics, where=where)
+
+    txn.check_boundary_identity = failing
+    try:
+        eng, _ = fleet_sweep_engine(dev, on_lane_fail="quarantine")
+        st, hb = run_fleet(eng, n_windows=w, every_windows=FLEET_CHUNK,
+                           stream=False, selfcheck=True,
+                           quarantine_base=str(FLEET_DIR / "lane"))
+    finally:
+        txn.check_boundary_identity = check
+    (q,) = hb.recovery["quarantined"]
+    require(q["exp"] == FLEET_FAIL and q["reason"] == "selfcheck",
+            f"fleet quarantine: {q}")
+    require(hb.engine.n_exp == 16, "fleet quarantine: survivors")
+    check_fleet_lanes(hb.engine, st, what="fleet quarantine survivors")
+    out["quarantine"] = dict(exp=q["exp"], window=q["window"],
+                             survivors=q["survivors"])
+    step_s["quarantine"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    eng, _ = fleet_sweep_engine(dev)
+    half = eng.run(n_windows=FLEET_SPLIT)
+    path = str(FLEET_DIR / "fleet.npz")
+    ckpt.save_state(fleet_to_saved(half, eng.n_exp), path)
+    lane_path = str(FLEET_DIR / "lane16.npz")
+    capped = eng.n_exp - 1
+    ckpt.save_state(eng.slice_experiment(half, capped), lane_path)
+    fresh, _ = fleet_sweep_engine(dev)
+    st = ckpt.load_fleet_state(fresh.init_state(), path, fresh.n_exp)
+    st = fresh.run(st, n_windows=w - FLEET_SPLIT)
+    check_fleet_lanes(fresh, st, what="fleet resume")
+    solo = Engine(fresh.exps[capped], dataclasses.replace(
+        fresh.params, max_rounds=fresh.max_rounds[capped]), device=dev)
+    ss = solo.run(ckpt.load_state(solo.init_state(), lane_path),
+                  n_windows=w - FLEET_SPLIT)
+    gold = fleet_golden()["lanes"][capped]
+    require(Engine.metrics_dict(ss) == gold["metrics"],
+            "fleet slice: the solo resume differs from the golden lane")
+    rows = [[r[f] for f in fleet_golden()["digest_fields"]]
+            for r in drain_ring(ss, solo.window)]
+    require(rows == gold["digests"], "fleet slice: digest words differ")
+    out["resume"] = dict(snap_bytes=os.path.getsize(path))
+    step_s["resume and slice"] = time.perf_counter() - t0
+    import shutil
+
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    out["step_s"] = step_s
+    return out
+
+
 # -- phase 5: the kernels on the arguments of the main path -----------------
 
 class PathCapture:
@@ -2032,6 +2429,76 @@ def report_path(name: str, r: dict, where: str) -> None:
             f"{r['path_case_sector_bytes']} B")
 
 
+def phase_fleet(dev, card: str) -> dict:
+    """Phase 15, its four steps, each step's wall time printed."""
+    import torch
+
+    step_s = {}
+
+    def step(name, t0):
+        step_s[name] = time.perf_counter() - t0
+        log(f"  fleet step {name}: {step_s[name]:.1f} s wall")
+
+    t0 = time.perf_counter()
+    sw = fleet_sweep(dev)
+    log(f"fleet sweep_phold ({sw['lanes']} lanes x 64 hosts): "
+        f"{sw['events']} events, {sw['rounds']} rounds (max over lanes) in "
+        f"{sw['wall_s']:.3f} s; launches {sw['launches']}; the capped lane "
+        f"hit its cap {sw['cap_hits']} times, pop's per-host bound (held "
+        f"columns {sw['held']}) bit-equal to its plain version; every lane "
+        f"equal to the JAX FleetEngine golden")
+    step("sweep_phold", t0)
+
+    t0 = time.perf_counter()
+    fx = fleet_filexfer(dev)
+    per_round = fx["wall_s"] / fx["rounds"] * 1e3
+    log(f"fleet_filexfer16k ({fx['hosts']} host columns, 4 lanes): "
+        f"{fx['events']} events, {fx['rounds']} rounds "
+        f"({fx['rounds'] / fx['windows']:.2f} rounds/window, max over lanes)"
+        f" in {fx['wall_s']:.3f} s = {per_round:.2f} ms/round, "
+        f"{fx['events'] / fx['wall_s']:.0f} events/s aggregate on {card}; "
+        f"the four solo runs {fx['solo_wall_s']:.3f} s summed; lane 0 equal "
+        f"to net_filexfer16k.json windows 0-{FLEET_WINDOWS - 1}, every lane "
+        f"equal to its solo run on the card")
+    log(f"fleet_filexfer16k per round (window {FLEET_WINDOWS}, "
+        f"{fx['extra_rounds']} rounds): {fx['ops_per_round']:.1f} device "
+        f"ops (lane 0 solo, same window: {fx['solo_ops_per_round']:.1f}), "
+        f"{fx['reads_per_round']:.2f} device->host reads; launches "
+        f"{fx['launches']} (push by entry {fx['push_entries']})")
+    log(f"fleet_filexfer16k memory: mem.estimate resident "
+        f"{fx['estimated']} B vs {fx['resident']} B allocated after "
+        f"init_state (ratio {fx['ratio']:.4f}); estimated peak "
+        f"{fx['est_peak']} B, measured peak {fx['peak']['allocated']} B")
+    step("filexfer16k x 4", t0)
+
+    t0 = time.perf_counter()
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    path = fleet_path(dev, flush)
+    del flush
+    log(f"fleet path: kept rounds of window {FLEET_PATH_WINDOW} with "
+        f"{path['actives']} popping host columns")
+    for name, r in path["kernels"].items():
+        report_path(name, r, f"fleet path (fleet_filexfer16k window "
+                    f"{FLEET_PATH_WINDOW}, H {fx['hosts']})")
+    step("kernels in the fleet path", t0)
+
+    t0 = time.perf_counter()
+    rc = fleet_recovery(dev)
+    log(f"fleet recovery on sweep_phold: retry from ev_cap "
+        f"{FLEET_SMALL_CAP} ({rc['retry']['retries']} replays, to ev_cap "
+        f"{rc['retry']['ev_cap']}); halt named lane {rc['halt']['lane']} "
+        f"seed {rc['halt']['seed']}; quarantine of lane "
+        f"{rc['quarantine']['exp']} at window {rc['quarantine']['window']}; "
+        f"a window-{FLEET_SPLIT} snapshot ({rc['resume']['snap_bytes']} B) "
+        f"resumed in a fresh FleetEngine and the capped lane sliced into a "
+        f"solo Engine; every one equal to the golden")
+    for k, v in rc["step_s"].items():
+        log(f"    fleet recovery {k}: {v:.1f} s wall")
+    step("recovery", t0)
+    return dict(sweep=sw, filexfer=fx, path=path, recovery=rc,
+                step_s=step_s)
+
+
 def main() -> int:
     import torch
 
@@ -2133,6 +2600,12 @@ def main() -> int:
             report_kernel(name, r, f"ladder cap C {c}")
     phase_done("kernels at ladder caps", t0)
 
+    # Phase 15, the fleet, runs here too: its in-path kernel timings need
+    # the profiler's traces whole.
+    t0 = time.perf_counter()
+    fleet = phase_fleet(dev, card)
+    phase_done("fleet", t0)
+
     t0 = time.perf_counter()
     net = run_net_golden("filexfer16k", dev, count=True)
     log(f"net slice filexfer16k ({net['hosts']} hosts): {net['events']} "
@@ -2170,8 +2643,13 @@ def main() -> int:
     for name in APP_RUNS:
         for cap in net_golden(name).get("compact_caps", [None]):
             label = name if not cap else f"{name}/compact{cap}"
+            # rung2's full-width run stops early (its digest words are
+            # held); the compacted run goes the whole horizon.
+            stop = (RUNG2_PLAIN_WINDOWS if name == "rung2" and not cap
+                    else None)
             r = apps[label] = run_net_golden(name, dev, count=True,
-                                             compact_cap=cap)
+                                             compact_cap=cap,
+                                             stop_after=stop)
             missing = [k for k, n in r["launches"].items() if n <= 0]
             require(not missing, f"{label}: kernels not launched: {missing}")
             log(f"app slice {label} ({r['hosts']} hosts): {r['events']} "
@@ -2265,6 +2743,10 @@ def main() -> int:
             err = max(err, back["path_err"])
         lad = {c: rs[name] for c, rs in ladder.items()}
         err = max(err, *(r["max_abs_err"] for r in lad.values()))
+        fp = fleet["path"]["kernels"][name]
+        err = max(err, fp["path_err"])
+        if name == "pop":
+            err = max(err, fleet["sweep"]["until_err"])
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "design": DESIGN[name],
@@ -2311,7 +2793,21 @@ def main() -> int:
             "recovery_launches": rec["retry"]["launches"][name],
             "recovery_launches_per_round": rec["retry"]["launches"][name]
             / rec["retry"]["rounds"],
+            "fleet_launches": fleet["filexfer"]["launches"][name],
+            "fleet_launches_per_round": fleet["filexfer"]["launches"][name]
+            / fleet["filexfer"]["rounds"],
+            "fleet_sweep_launches": fleet["sweep"]["launches"][name],
+            "fleet_path_err": fp["path_err"],
+            "fleet_path_us": fp["path_ms"] * 1e3,
+            "fleet_path_bound_us": fp["path_bound_ms"] * 1e3,
+            "fleet_path_plain_us": fp["path_plain_ms"] * 1e3,
+            "fleet_path_wrapper_us": fp["path_wrapper_ms"] * 1e3,
+            "fleet_path_case_us": [x * 1e3 for x in fp["path_case_ms"]],
+            "fleet_path_active": fp["path_active"],
         })
+        if name == "pop":
+            kernels[-1]["fleet_per_host_bound_err"] = \
+                fleet["sweep"]["until_err"]
         if name == "push":
             kernels[-1].update({
                 "push_back_launches": fx["push_entries"]["push_back"],

@@ -16,7 +16,8 @@ Determinism is the contract: every op is integer arithmetic (the RNG is
 counter-based, ``rng.py``), so the port reproduces the JAX engine's metrics
 and state bit for bit (``tests/test_torch_*.py``).
 
-Entry points (``core.engine.Engine``, ``python -m shadow1_tpu_torch``) run
+Entry points (``core.engine.Engine``, ``fleet.engine.FleetEngine``,
+``python -m shadow1_tpu_torch``, with ``--fleet`` for a ``sweep:``) run
 on the CUDA device unless the caller asks for ``device="cpu"``; with no
 card and no explicit CPU request they raise.
 """

@@ -37,6 +37,7 @@ import torch
 from shadow1_tpu_torch.consts import K_APP, N_ACCEPTED, N_MSG, NP, TCP_LISTEN
 from shadow1_tpu_torch.core.dense import get_col, set_col
 from shadow1_tpu_torch.core.engine import push_local_event
+from shadow1_tpu_torch.core.lanes import lsum
 from shadow1_tpu_torch.core.popk import push_local
 from shadow1_tpu_torch.tcp import tcp as T
 
@@ -88,7 +89,7 @@ def init(ctx, evbuf, tcpd):
         p = torch.zeros((NP, h), dtype=torch.int32, device=dev)
         p[0], p[1] = op, arg
         evbuf, over = push_local(evbuf, mask, time, kk, p)
-        return evbuf, n_over + over.sum(dtype=torch.int64)
+        return evbuf, n_over + lsum(ctx, over)
 
     # Dial the conn mesh: one OP_CONNECT_ONE per outbound neighbour slot.
     connect_time = torch.full((h,), int(cfg.get("connect_time", 0)),

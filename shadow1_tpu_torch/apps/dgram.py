@@ -16,6 +16,7 @@ import torch
 from shadow1_tpu_torch import net
 from shadow1_tpu_torch.consts import K_APP, N_DGRAM, NP
 from shadow1_tpu_torch.core.engine import push_local_event
+from shadow1_tpu_torch.core.lanes import lsum
 from shadow1_tpu_torch.core.popk import push_local
 
 OP_TICK = 1
@@ -41,7 +42,7 @@ def init(ctx, evbuf, tcpd):
     k = torch.full((h,), K_APP, dtype=torch.int32, device=dev)
     evbuf, over = push_local(evbuf, app["left"] > 0,
                              t("start_time", torch.int64), k, p)
-    return app, evbuf, over.sum(dtype=torch.int64), tcpd
+    return app, evbuf, lsum(ctx, over), tcpd
 
 
 def on_wakeup(st, ctx, ev, mask):

@@ -30,6 +30,7 @@ from shadow1_tpu_torch.consts import (
     NP,
     TCP_LISTEN,
 )
+from shadow1_tpu_torch.core.lanes import lsum
 from shadow1_tpu_torch.core.popk import push_local
 from shadow1_tpu_torch.tcp import tcp as T
 
@@ -67,7 +68,7 @@ def init(ctx, evbuf, tcpd):
     k = torch.full((h,), K_APP, dtype=torch.int32, device=dev)
     evbuf, over = push_local(evbuf, role == 1, t("start_time", torch.int64),
                              k, p)
-    return app, evbuf, over.sum(dtype=torch.int64), tcpd
+    return app, evbuf, lsum(ctx, over), tcpd
 
 
 def _set_app(st, app):

@@ -51,6 +51,7 @@ from shadow1_tpu_torch.consts import (
 )
 from shadow1_tpu_torch.core.dense import add_col, first_true_idx, get_col, set_col
 from shadow1_tpu_torch.core.engine import push_local_event
+from shadow1_tpu_torch.core.lanes import lsum
 from shadow1_tpu_torch.core.popk import push_local
 from shadow1_tpu_torch.tcp import tcp as T
 
@@ -189,7 +190,7 @@ def init(ctx, evbuf, tcpd):
     p[0] = OP_START
     k = full((h,), K_APP, i32)
     evbuf, over = push_local(evbuf, starts, t("start_time", i64), k, p)
-    return app, evbuf, over.sum(dtype=i64), tcpd
+    return app, evbuf, lsum(ctx, over), tcpd
 
 
 def _set_app(st, app):

@@ -146,30 +146,7 @@ def load_state(template, path: str, migrate_caps: bool = True):
 
     tleaves = flatten_like_jax(template)
     fmt, saved, stored = _read(path)
-    n_saved = int(fmt[1])
-    if int(fmt[0]) != CKPT_FORMAT:
-        raise ValueError(
-            f"checkpoint {path} has format v{int(fmt[0])}, this build "
-            f"reads v{CKPT_FORMAT} — snapshot from an incompatible "
-            f"framework version; re-run from scratch"
-        )
-    if stored is None or len(saved) != n_saved:
-        raise CorruptCheckpointError(
-            f"checkpoint {path} is missing state members "
-            f"({len(saved)}/{n_saved} leaves, integrity "
-            f"{'present' if stored is not None else 'absent'}) — truncated "
-            f"snapshot; discard it and re-run"
-        )
-    if _integrity_digest(saved) != stored:
-        raise CorruptCheckpointError(
-            f"checkpoint {path} fails its integrity digest — the snapshot "
-            f"was bit-corrupted after writing; discard it and re-run"
-        )
-    if n_saved != len(tleaves):
-        raise ValueError(
-            f"checkpoint {path} holds {n_saved} state leaves, engine "
-            f"expects {len(tleaves)} — engine config mismatch"
-        )
+    _check_format(path, fmt, saved, stored, len(tleaves))
     leaves = saved
     if migrate_caps:
         i_ev, i_ob = _cap_leaves(template)
@@ -191,6 +168,62 @@ def load_state(template, path: str, migrate_caps: bool = True):
             leaves = flatten_like_jax(st)
     _check_leaves(path, leaves, tleaves)
     return unflatten_like_jax(template, leaves)
+
+
+def _check_format(path, fmt, saved, stored, n_template: int) -> None:
+    """The snapshot's format, completeness, integrity and leaf count."""
+    n_saved = int(fmt[1])
+    if int(fmt[0]) != CKPT_FORMAT:
+        raise ValueError(
+            f"checkpoint {path} has format v{int(fmt[0])}, this build "
+            f"reads v{CKPT_FORMAT} — snapshot from an incompatible "
+            f"framework version; re-run from scratch"
+        )
+    if stored is None or len(saved) != n_saved:
+        raise CorruptCheckpointError(
+            f"checkpoint {path} is missing state members "
+            f"({len(saved)}/{n_saved} leaves, integrity "
+            f"{'present' if stored is not None else 'absent'}) — truncated "
+            f"snapshot; discard it and re-run"
+        )
+    if _integrity_digest(saved) != stored:
+        raise CorruptCheckpointError(
+            f"checkpoint {path} fails its integrity digest — the snapshot "
+            f"was bit-corrupted after writing; discard it and re-run"
+        )
+    if n_saved != n_template:
+        raise ValueError(
+            f"checkpoint {path} holds {n_saved} state leaves, engine "
+            f"expects {n_template} — engine config mismatch"
+        )
+
+
+def load_fleet_state(template, path: str, n_exp: int,
+                     migrate_caps: bool = True):
+    """Load a fleet snapshot (the reference's ``[E, ...]`` layout,
+    ``convert.fleet_to_saved``) into the port's layout of ``template`` (a
+    ``FleetEngine.init_state()``), migrating caps as ``load_state`` does;
+    the migration runs on the port's layout, lane by lane the solo one."""
+    from shadow1_tpu_torch.convert import (
+        fleet_from_saved,
+        fleet_to_saved,
+        flatten_like_jax,
+        unflatten_like_jax,
+    )
+
+    saved_t = fleet_to_saved(template, n_exp)
+    fmt, saved, stored = _read(path)
+    _check_format(path, fmt, saved, stored, len(flatten_like_jax(saved_t)))
+    _check_leaves(path, saved, flatten_like_jax(saved_t), shapes=False)
+    st = fleet_from_saved(unflatten_like_jax(saved_t, saved), template, n_exp)
+    want = (template.evbuf.kind.shape[-2], template.outbox.dst.shape[-2])
+    have = (st.evbuf.kind.shape[-2], st.outbox.dst.shape[-2])
+    if migrate_caps and have != want:
+        from shadow1_tpu_torch.tune.resize import resize_state
+
+        st = resize_state(st, ev_cap=want[0], outbox_cap=want[1])
+    _check_leaves(path, flatten_like_jax(st), flatten_like_jax(template))
+    return st
 
 
 def _check_leaves(path, leaves, tleaves, shapes: bool = True) -> None:

@@ -46,9 +46,13 @@ supervisor's watchdog (``--watchdog-s S`` or ``SHADOW1_WATCHDOG_S``: a
 child whose progress sidecar goes stale is killed and respawned; two
 hangs without progress give ``EXIT_HUNG``).
 
-The flags of fleet, shard and serve (``--fleet``, ``--on-lane-fail``,
-``--lane-finalize``, ``--engine cpu|sharded``) are parsed and refused,
-naming their ROADMAP item.
+``--fleet`` runs the config's ``sweep:`` as one ``FleetEngine``
+(``_fleet_main``, ``fleet/run.py``), with ``--on-lane-fail`` and
+``--lane-finalize``: one ``fleet_exp`` record per experiment and a
+``fleet_summary`` on stdout, ``exp``-tagged ring records and heartbeats on
+the record stream, and a rejected sweep as one ``fleet_config`` record
+(``EXIT_CONFIG``). The flags of shard and serve (``--engine
+cpu|sharded``) are parsed and refused, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ from shadow1_tpu_torch.consts import (
 
 MAX_RESPAWNS = 8
 
-_FLEET = "ROADMAP: Queue A item 6, fleet, shard, serve and tools"
+_FLEET = "ROADMAP: Queue A item 6, serve, shard and tools"
 
 
 def _config_fingerprint(config_path: str) -> str:
@@ -452,19 +456,28 @@ def _parser() -> argparse.ArgumentParser:
                          "(3S before its first tick) and respawn it; two "
                          "hangs without progress exit 6. Default: env "
                          "SHADOW1_WATCHDOG_S, else off")
-    # Parsed so a script written for the reference fails loudly here.
-    for flag, kw in (("--fleet", dict(action="store_true")),
-                     ("--on-lane-fail", dict(default=None)),
-                     ("--lane-finalize", dict(action="store_true"))):
-        ap.add_argument(flag, help=argparse.SUPPRESS, **kw)
+    ap.add_argument("--fleet", action="store_true",
+                    help="batched experiment sweep (fleet/): expand the "
+                         "config's `sweep:` section into E experiments of "
+                         "one shape class and run them as one fleet; one "
+                         "fleet_exp record per experiment plus a "
+                         "fleet_summary; each lane bit-identical to its "
+                         "solo run")
+    ap.add_argument("--on-lane-fail", choices=["halt", "quarantine"],
+                    default=None, metavar="halt|quarantine",
+                    help="fleet lane-failure policy (overrides "
+                         "engine.on_lane_fail): quarantine slices a lane "
+                         "that fails deterministically out into a "
+                         "solo-resumable checkpoint and finishes the sweep "
+                         "with the rest")
+    ap.add_argument("--lane-finalize", action="store_true",
+                    help="fleet: lanes whose event buffer drains emit "
+                         "their fleet_exp record at once and leave the "
+                         "fleet (overrides engine.lane_finalize)")
     return ap
 
 
 def _refuse_unported(ap, args) -> None:
-    for flag, item in (("fleet", _FLEET), ("on_lane_fail", _FLEET),
-                       ("lane_finalize", _FLEET)):
-        if getattr(args, flag) not in (None, False):
-            ap.error(f"--{flag.replace('_', '-')} is not ported yet ({item})")
     if args.engine in ("cpu", "sharded"):
         ap.error(f"--engine {args.engine} is not ported yet ({_FLEET}); "
                  f"--engine tpu is the port's batched engine")
@@ -526,6 +539,17 @@ def _resolve_ckpt_lineage(args, log):
     return resolved, lineage, (resolved.path if resolved else args.resume)
 
 
+def _fleet_config_exit(e) -> int:
+    """Structured fleet rejection: the message on stderr, one parseable
+    ``fleet_config`` record on stdout, the config exit code."""
+    from shadow1_tpu_torch.consts import EXIT_CONFIG
+
+    print(f"FleetConfigError: {e}", file=sys.stderr, flush=True)
+    print(json.dumps({"error": "fleet_config", "kind": e.kind,
+                      "knob": e.knob, "message": str(e)}))
+    return EXIT_CONFIG
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     ap = _parser()
@@ -536,18 +560,59 @@ def main(argv=None) -> int:
         WatchlistError,
         load_experiment,
     )
+    from shadow1_tpu_torch.fleet.expand import FleetConfigError
 
-    try:
-        exp, params, scheduler = load_experiment(args.config)
-    except WatchlistError as e:
-        ap.error(str(e))
+    fleet_plan = None
+    if args.fleet:
+        bad = [f for f, v in (("--tracker", args.tracker),
+                              ("--summary", args.summary),
+                              ("--profile", args.profile),
+                              ("--trace", args.trace)) if v]
+        if bad:
+            ap.error(f"--fleet does not support {', '.join(bad)}: use the "
+                     f"fleet_exp records and --metrics-ring "
+                     f"(per-experiment rows)")
+        from shadow1_tpu_torch.fleet.expand import load_sweep
+
+        # The sweep is validated before any supervision or device work.
+        try:
+            fleet_plan = load_sweep(args.config)
+        except FleetConfigError as e:
+            return _fleet_config_exit(e)
+        except WatchlistError as e:
+            ap.error(str(e))
+        exp, params = fleet_plan.exps[0], fleet_plan.params
+        scheduler = fleet_plan.scheduler
+    else:
+        try:
+            exp, params, scheduler = load_experiment(args.config)
+        except WatchlistError as e:
+            ap.error(str(e))
     engine_kind = args.engine or scheduler
     if engine_kind != "tpu":
+        if args.fleet:
+            return _fleet_config_exit(FleetConfigError(
+                f"--fleet batches the single-device engine; "
+                f"engine={engine_kind!r} is not composable with the "
+                f"experiment axis", kind="mode", knob="engine"))
         ap.error(f"engine.scheduler {engine_kind!r} is not ported yet "
                  f"({_FLEET})")
     if args.faults == "off":
-        exp.faults = None
+        # The healthy-world A/B strips every experiment's schedule (a
+        # vary[] entry's too); legacy per-group stop_time churn stays.
+        for fexp in (fleet_plan.exps if args.fleet else [exp]):
+            fexp.faults = None
     params = _params(ap, args, exp, params)
+    if args.on_lane_fail is not None or args.lane_finalize:
+        if not args.fleet:
+            ap.error("--on-lane-fail/--lane-finalize are fleet lane "
+                     "policies; they need --fleet")
+        repl = {}
+        if args.on_lane_fail is not None:
+            repl["on_lane_fail"] = args.on_lane_fail
+        if args.lane_finalize:
+            repl["lane_finalize"] = 1
+        params = dataclasses.replace(params, **repl)
     if args.ckpt and args.resume and args.windows is not None:
         # Under supervision --windows is the TOTAL for the whole run; under
         # --resume it means N more windows: ambiguous together.
@@ -580,9 +645,11 @@ def main(argv=None) -> int:
     # alone (a meta-device init, no state-sized allocation) against what
     # this process can hold on the card, before the engine is built.
     pre_downshift_retry = False  # retry demoted by a memory downshift
+    sub_batch = None             # a fleet's lanes per sequential batch
     budget, budget_src = mem.device_budget(device)
+    fleet = (fleet_plan.exps, fleet_plan.max_rounds) if args.fleet else None
     try:
-        mem_est = mem.estimate(exp, params)
+        mem_est = mem.estimate(exp, params, fleet=fleet)
     except Exception as est_err:  # noqa: BLE001 — the estimate fails soft
         mem_est = None
         log.warning("memory estimate unavailable", error=repr(est_err))
@@ -598,12 +665,19 @@ def main(argv=None) -> int:
             pre_downshift_retry = params.on_overflow == "retry"
             # A shrunk ring would write a snapshot no engine of this config
             # could load back.
+            # Sub-batching composes with --ckpt (a batch cursor in the
+            # lineage), not with an explicit snapshot path.
             params, actions = mem.downshift(
                 exp, params, budget,
-                resumable=bool(args.ckpt or args.resume or args.save_state))
+                resumable=bool(args.ckpt or args.resume or args.save_state),
+                fleet=fleet, subbatch_resumable=bool(
+                    args.ckpt and not args.resume and not args.save_state))
         except mem.MemoryBudgetError as e:
             return _memory_exit(e)
-        mem_est = mem.estimate(exp, params)
+        sub_batch = next((a["lanes"] for a in actions
+                          if a["action"] == "sub_batch"), None)
+        mem_est = mem.estimate(exp, params, fleet=fleet and (
+            fleet[0][:sub_batch], fleet[1][:sub_batch]))
         print(json.dumps(mem.downshift_record(actions, mem_est.peak_bytes,
                                               budget)),
               file=sys.stderr, flush=True)
@@ -624,6 +698,18 @@ def main(argv=None) -> int:
         phases = PhaseProfiler()
     # Before the engine: its construction may launch the kernels.
     build_kernels(device, phases)
+    if args.fleet:
+        try:
+            if sub_batch:
+                return _fleet_subbatched(args, params, fleet_plan, log,
+                                         device, sub_batch)
+            return _fleet_main(args, params, fleet_plan, log, device,
+                               auto_caps=auto_caps,
+                               pre_downshift_retry=pre_downshift_retry)
+        except FleetConfigError as e:
+            # Late rejections (FleetEngine construction) exit as the
+            # early validation does.
+            return _fleet_config_exit(e)
     try:
         eng = Engine(exp, params, device=device)
     except Exception as e:
@@ -772,6 +858,318 @@ def main(argv=None) -> int:
                 if eng.device.type == "cuda" else "cpu"),
         guard=guard, controller=controller)
     print(json.dumps(out))
+    return EXIT_OK
+
+
+def _fleet_main(args, params, plan, log, device, auto_caps=False,
+                pre_downshift_retry=False) -> int:
+    """The --fleet path: one FleetEngine over the expanded sweep, driven by
+    ``fleet.run.run_fleet`` (the recovery plane follows ``params``), then
+    one ``fleet_exp`` record per experiment and a ``fleet_summary`` on
+    stdout. Resume resolves first: a lineage generation whose ``lanes``
+    meta says the sweep had already quarantined or finalized lanes
+    rebuilds exactly that sub-fleet, and a snapshot taken at grown caps
+    rebuilds the engine at them (the solo recipe)."""
+    from shadow1_tpu_torch import mem
+    from shadow1_tpu_torch.convert import fleet_to_saved
+    from shadow1_tpu_torch.fleet.engine import FleetEngine
+    from shadow1_tpu_torch.fleet.run import final_records, run_fleet
+    from shadow1_tpu_torch.preempt import DrainHandler, PreemptedExit
+    from shadow1_tpu_torch.txn import CapacityExceededError
+
+    t0 = time.perf_counter()
+    resolved, ckpt_lineage, resume_path = _resolve_ckpt_lineage(args, log)
+    exps, labels, max_rounds = plan.exps, plan.labels, plan.max_rounds
+    meta_lanes = (resolved.meta or {}).get("lanes") if resolved else None
+    sub_applied = False
+    if (meta_lanes is not None
+            and list(meta_lanes) != [l["exp"] for l in plan.labels]):
+        sub = plan.subset(meta_lanes)
+        exps, labels, max_rounds = sub.exps, sub.labels, sub.max_rounds
+        sub_applied = True
+        log.info("resuming partially-recovered sweep",
+                 lanes=list(meta_lanes), of=len(plan.exps))
+
+    def _build(p):
+        eng = FleetEngine(exps, p, max_rounds, device=device)
+        eng.exp_ids = [l["exp"] for l in labels]
+        return eng
+
+    try:
+        eng = _build(params)
+    except Exception as e:
+        if mem.is_oom(e):
+            return _memory_exit_runtime(args, e, phase="init")
+        raise
+    log.info("fleet expanded", experiments=eng.n_exp,
+             hosts=eng.exp.n_hosts, window_ns=eng.window,
+             device=str(eng.device))
+    st = None
+    metrics0_by_gid = None
+    if resume_path:
+        from shadow1_tpu_torch.ckpt import (
+            CorruptCheckpointError,
+            load_fleet_state,
+            snapshot_caps,
+        )
+
+        params0, eng0 = params, eng
+        try:
+            template = eng.init_state()
+            if (auto_caps or params.on_overflow == "retry"
+                    or pre_downshift_retry):
+                snap = snapshot_caps(fleet_to_saved(template, eng.n_exp),
+                                     resume_path)
+                if snap and snap != (params.ev_cap, params.outbox_cap):
+                    params = dataclasses.replace(
+                        params, ev_cap=snap[0], outbox_cap=snap[1])
+                    eng = _build(params)
+                    template = eng.init_state()
+            st = load_fleet_state(template, resume_path, eng.n_exp)
+        except CorruptCheckpointError as e:
+            # A supervised child falls back to a fresh start of the FULL
+            # sweep; an explicit --resume fails loudly.
+            if resolved is None:
+                raise
+            log.warning("discarding corrupt fleet checkpoint",
+                        path=resume_path, reason=str(e))
+            st, resume_path, resolved = None, None, None
+            params = params0
+            if sub_applied:
+                exps, labels, max_rounds = (plan.exps, plan.labels,
+                                            plan.max_rounds)
+                eng = _build(params)
+            else:
+                eng = eng0
+        else:
+            metrics0_by_gid = {l["exp"]: m for l, m in
+                               zip(labels, eng.metrics_per_exp(st))}
+            done = int(st.win_start) // eng.window
+            if resolved is not None:
+                _emit_resume_record(args.ckpt, resolved, int(st.win_start),
+                                    ckpt_lineage)
+            if args.windows is None:
+                args.windows = max(eng.n_windows - done, 0)
+            elif resolved is not None:
+                args.windows = max(args.windows - done, 0)
+    ring_w = params.metrics_ring
+    drain = DrainHandler().install()
+    # Quarantined-lane snapshots land beside the fleet checkpoint, else
+    # beside the config.
+    qbase = args.ckpt or os.path.splitext(args.config)[0] + ".lane"
+    try:
+        if os.environ.get("SHADOW1_MEM_INJECT_OOM") == "run":
+            import torch
+
+            raise torch.cuda.OutOfMemoryError(
+                "CUDA out of memory. Tried to allocate 2.00 GiB "
+                "(injected, test hook)")
+        st, hb = run_fleet(
+            eng, st, n_windows=args.windows,
+            every_windows=args.heartbeat or (ring_w or None),
+            stream=(sys.stdout if (args.heartbeat or ring_w
+                                   or params.link_telem) else False),
+            ckpt_path=args.ckpt, ckpt_every_s=args.ckpt_every_s,
+            emit_heartbeat=bool(args.heartbeat),
+            emit_ring=bool(ring_w or params.link_telem),
+            selfcheck=bool(params.selfcheck), labels=labels,
+            ckpt_keep=args.ckpt_keep, drain=drain, auto_caps=auto_caps,
+            quarantine_base=qbase,
+            recovery_seed=({"quarantined":
+                            (resolved.meta or {}).get("quarantined", []),
+                            "finished":
+                            (resolved.meta or {}).get("finished", [])}
+                           if resolved is not None and st is not None
+                           else None),
+            # Quarantine and early-finalize records print the moment the
+            # lane leaves the fleet.
+            emit_record=lambda rec: print(json.dumps(rec), flush=True))
+        hb.engine.synchronize()
+    except CapacityExceededError as e:
+        return _capacity_exit(e)
+    except PreemptedExit as e:
+        return _preempted_exit(args, e, resumed=bool(resume_path))
+    except Exception as e:
+        if mem.is_oom(e):
+            return _memory_exit_runtime(args, e)
+        raise
+    if args.save_state:
+        from shadow1_tpu_torch.ckpt import save_state
+
+        save_state(fleet_to_saved(st, hb.engine.n_exp), args.save_state)
+    wall = time.perf_counter() - t0
+    n_windows = args.windows if args.windows is not None else eng.n_windows
+    metrics0 = ([metrics0_by_gid.get(l["exp"], {}) for l in hb.labels]
+                if metrics0_by_gid is not None else None)
+    recs, summary = final_records(hb.engine, st, hb.labels, n_windows, wall,
+                                  resumed=bool(resume_path),
+                                  metrics0=metrics0, recovery=hb.recovery)
+    for r in recs:
+        print(json.dumps(r))
+    print(json.dumps(summary))
+    return EXIT_OK
+
+
+def _fleet_subbatched(args, params, plan, log, device, sub: int) -> int:
+    """A memory-downshifted fleet (``--on-oom downshift``): the sweep's E
+    lanes run as SEQUENTIAL batches of at most ``sub`` lanes, each its own
+    FleetEngine run; lanes never read one another's columns, so each
+    lane's results are those of the full fleet. Each batch prints its
+    ``fleet_exp`` records with sweep-global ids as it finishes; one merged
+    ``fleet_summary`` (counters summed, gauges and the lockstep windows
+    and rounds maxed) closes the run.
+
+    Under ``--ckpt`` each batch snapshots its own lanes, and the lineage
+    manifest entry carries the batch cursor (``batch``) and the summaries
+    of the completed batches (``batch_summaries``): a resume finishes the
+    recorded batch from its snapshot and runs the rest; completed batches
+    never run again. A drain request stops the sweep at a chunk
+    boundary; finished lanes keep their records."""
+    from shadow1_tpu_torch import mem
+    from shadow1_tpu_torch.ckpt import CorruptCheckpointError, load_fleet_state
+    from shadow1_tpu_torch.fleet.engine import FleetEngine
+    from shadow1_tpu_torch.fleet.run import final_records, run_fleet
+    from shadow1_tpu_torch.preempt import DrainHandler, PreemptedExit
+    from shadow1_tpu_torch.telemetry.registry import gauge_names
+    from shadow1_tpu_torch.txn import CapacityExceededError
+
+    t0 = time.perf_counter()
+    n_exp = len(plan.exps)
+    n_batches = -(-n_exp // sub)
+    log.info("fleet sub-batched for memory", experiments=n_exp,
+             lanes_per_batch=sub, batches=n_batches)
+    drain = DrainHandler().install()
+    ring_w = params.metrics_ring
+    summaries: list[dict] = []
+    windows_done = args.windows
+    lanes_run = 0
+    resolved, ckpt_lineage, resume_path = _resolve_ckpt_lineage(args, log)
+    start_batch = 0
+    if resume_path and resolved is not None and resolved.meta:
+        start_batch = int(resolved.meta.get("batch", 0))
+        summaries = list(resolved.meta.get("batch_summaries", []))
+        lanes_run = start_batch * sub
+    for bi, i in enumerate(range(0, n_exp, sub)):
+        if bi < start_batch:
+            continue  # finished before the crash; its summary is kept
+        exps = plan.exps[i:i + sub]
+        labels = plan.labels[i:i + sub]
+        max_rounds = plan.max_rounds[i:i + sub]
+        recovery_seed, st, batch_resumed = None, None, False
+        resuming_here = resume_path and bi == start_batch
+        if resuming_here and resolved is not None and resolved.meta:
+            # The generation may hold a batch that already quarantined or
+            # finalized lanes: rebuild exactly that sub-batch.
+            meta_lanes = resolved.meta.get("lanes")
+            if (meta_lanes is not None
+                    and list(meta_lanes) != [l["exp"] for l in labels]):
+                by_gid = {l["exp"]: j for j, l in enumerate(labels)}
+                keep = [by_gid[g] for g in meta_lanes if g in by_gid]
+                exps = [exps[j] for j in keep]
+                max_rounds = [max_rounds[j] for j in keep]
+                labels = [labels[j] for j in keep]
+            recovery_seed = {
+                "quarantined": resolved.meta.get("quarantined", []),
+                "finished": resolved.meta.get("finished", [])}
+        try:
+            eng = FleetEngine(exps, params, max_rounds, device=device)
+            eng.exp_base = i
+            eng.exp_ids = [l["exp"] for l in labels]
+            n_windows = (args.windows if args.windows is not None
+                         else eng.n_windows)
+            remaining = n_windows
+            if resuming_here:
+                try:
+                    st = load_fleet_state(eng.init_state(), resume_path,
+                                          eng.n_exp)
+                except CorruptCheckpointError as e:
+                    if resolved is None:
+                        raise
+                    log.warning("discarding corrupt sub-batch checkpoint",
+                                path=resume_path, reason=str(e))
+                    st, recovery_seed = None, None
+                    # A fresh start of THIS batch: all of its lanes again.
+                    exps = plan.exps[i:i + sub]
+                    labels = plan.labels[i:i + sub]
+                    eng = FleetEngine(exps, params,
+                                      plan.max_rounds[i:i + sub],
+                                      device=device)
+                    eng.exp_base = i
+                    eng.exp_ids = [l["exp"] for l in labels]
+                else:
+                    batch_resumed = True
+                    remaining = max(
+                        n_windows - int(st.win_start) // eng.window, 0)
+                    _emit_resume_record(args.ckpt, resolved,
+                                        int(st.win_start), ckpt_lineage)
+            st, hb = run_fleet(
+                eng, st, n_windows=remaining,
+                every_windows=args.heartbeat or (ring_w or None),
+                stream=(sys.stdout if (args.heartbeat or ring_w
+                                       or params.link_telem) else False),
+                ckpt_path=args.ckpt, ckpt_every_s=args.ckpt_every_s,
+                emit_heartbeat=bool(args.heartbeat),
+                emit_ring=bool(ring_w or params.link_telem),
+                selfcheck=bool(params.selfcheck), labels=labels,
+                ckpt_keep=args.ckpt_keep, drain=drain,
+                quarantine_base=(args.ckpt or os.path.splitext(
+                    args.config)[0] + ".lane"),
+                emit_record=lambda rec: print(json.dumps(rec), flush=True),
+                resume_meta={"batch": bi, "batch_summaries": summaries},
+                recovery_seed=recovery_seed)
+            hb.engine.synchronize()
+        except CapacityExceededError as e:
+            return _capacity_exit(e)
+        except PreemptedExit as e:
+            return _preempted_exit(args, e, resumed=batch_resumed)
+        except Exception as e:
+            if mem.is_oom(e):
+                return _memory_exit_runtime(args, e)
+            raise
+        windows_done = n_windows
+        # The live batch: quarantine or finalize may have shrunk it.
+        recs, summary = final_records(hb.engine, st, hb.labels, n_windows,
+                                      time.perf_counter() - t0,
+                                      resumed=batch_resumed,
+                                      recovery=hb.recovery)
+        for r in recs:
+            print(json.dumps(r))
+        summaries.append(summary)
+        lanes_run += len(exps)
+        if drain.requested and lanes_run < n_exp:
+            return _preempted_exit(args, PreemptedExit(
+                st=None, signame=drain.signame, done_windows=n_windows,
+                win_start=int(summary.get("sim_seconds", 0) * 1e9)),
+                resumed=batch_resumed)
+    maxed = set(gauge_names()) | {"windows", "rounds"}
+    agg: dict[str, int] = {}
+    for s in summaries:
+        for k, v in s["metrics"].items():
+            agg[k] = (max(agg.get(k, 0), int(v)) if k in maxed
+                      else agg.get(k, 0) + int(v))
+    wall = time.perf_counter() - t0
+    s0 = summaries[0]
+    sim_s = s0["sim_seconds"]
+    print(json.dumps({
+        "type": "fleet_summary",
+        "engine": "fleet",
+        "experiments": n_exp,
+        "hosts": s0["hosts"],
+        "window_ns": s0["window_ns"],
+        "windows": windows_done,
+        "sim_seconds": sim_s,
+        "wall_seconds": round(wall, 3),
+        "sim_per_wall": round(sim_s / wall, 3) if wall > 0 else None,
+        "events_per_sec": (round(agg.get("events", 0) / wall, 1)
+                           if wall > 0 else None),
+        "events_per_exp": [e for s in summaries
+                           for e in s["events_per_exp"]],
+        "resumed": False,
+        "caps": s0["caps"],
+        "metrics": agg,
+        "sub_batches": n_batches,
+        "lanes_per_batch": sub,
+    }))
     return EXIT_OK
 
 

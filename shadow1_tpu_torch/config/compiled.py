@@ -212,6 +212,47 @@ def tiled_filexfer_experiment(n_groups: int, seed: int, end_time: int, *,
     )
 
 
+# configs/sweep_phold.yaml's shape class: 64 PHOLD hosts on one 10 ms
+# vertex, 2 initial events per host, 20 ms mean delay, 200 ms; its
+# variants (none, 2 % loss, 10 % loss, every host down over [50, 100) ms).
+SWEEP_PHOLD_SEEDS = (1, 2, 3, 4)
+SWEEP_PHOLD_VARIANTS = ("none", "loss2", "loss10", "churn")
+
+
+def sweep_phold_experiments(capped_max_rounds: int = 2):
+    """The fleet golden's sweep, built in code: every seed of
+    ``configs/sweep_phold.yaml`` under every one of its variants (16
+    lanes, seed-major), then one more lane (seed 1, no variant) held to
+    ``capped_max_rounds`` rounds a window, so that it hits its cap while
+    the others run on (the one engine knob a sweep may vary). Returns
+    (experiments, EngineParams, per-lane max_rounds, labels); lane e of
+    the YAML's own 4-lane sweep is lane 5·e here."""
+    from shadow1_tpu_torch.consts import MS, EngineParams
+    from shadow1_tpu_torch.fault.schedule import FaultSchedule
+
+    n = 64
+
+    def one(seed, variant):
+        exp = single_vertex_experiment(
+            n_hosts=n, seed=seed, end_time=200 * MS, latency_ns=10 * MS,
+            loss={"loss2": 0.02, "loss10": 0.10}.get(variant, 0.0),
+            model="phold",
+            model_cfg={"mean_delay_ns": 2.0e7, "init_events": 2})
+        if variant == "churn":
+            exp.faults = FaultSchedule(
+                host_id=np.arange(n), host_down=np.full(n, 50 * MS),
+                host_up=np.full(n, 100 * MS))
+        return exp
+
+    lanes = [(s, v) for s in SWEEP_PHOLD_SEEDS for v in SWEEP_PHOLD_VARIANTS]
+    lanes.append((SWEEP_PHOLD_SEEDS[0], "none"))
+    params = EngineParams(ev_cap=64, outbox_cap=32)
+    max_rounds = [params.max_rounds] * (len(lanes) - 1) + [capped_max_rounds]
+    labels = [{"exp": i, "seed": s, "variant": v, "max_rounds": m}
+              for i, ((s, v), m) in enumerate(zip(lanes, max_rounds))]
+    return [one(s, v) for s, v in lanes], params, max_rounds, labels
+
+
 def tgen_experiment(n_hosts: int, seed: int, end_time: int, *,
                     latency_ns: int, bw_bits: int, streams: int,
                     mean_bytes: float, mean_think_ns: float, start_time: int,

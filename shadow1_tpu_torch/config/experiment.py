@@ -24,7 +24,8 @@ to its ``peers``, ``tx_origin`` and ``tx_time`` arrays
 ``WatchlistError``). The ``params:`` scalars (``fixed_size`` for tgen,
 ``ct_cap``, ``cells_max`` and ``consensus_bytes`` for Tor, ``tx_size`` and
 ``inv_size`` for bitcoin) pass through into ``model_cfg`` as written.
-``sweep:`` runs the base experiment, as a solo run of the reference does.
+``sweep:`` runs the base experiment, as a solo run of the reference does;
+``fleet/expand.py`` expands it into the fleet's experiments.
 """
 
 from __future__ import annotations

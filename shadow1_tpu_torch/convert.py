@@ -18,6 +18,15 @@ dgram or Tor, whose ``[ct_cap, H]`` circuit tables ride as leaves too)
 and the telemetry planes (the ring, the flow-probe ring and the link
 accumulator).
 
+A fleet state (``fleet/engine.py``) folds its E lanes onto the host axis
+(``[C, E·H]``); the reference's fleet state carries them on a leading axis
+(``[E, C, H]``, metrics ``[E]``, ring ``[E, W, F]``, and the window start
+and pop epoch once per lane; the ring, the probe ring and the link
+accumulator are ``[E, ...]`` in both). ``fleet_to_saved`` and
+``fleet_from_saved``
+map one layout onto the other, so a fleet snapshot is the reference's and
+loads in either package.
+
 Checkpoints (``ckpt.py``) store the leaves in the order
 ``jax.tree_util.tree_flatten`` gives the reference's tree:
 ``flatten_like_jax`` lists them so (NamedTuple fields in declaration
@@ -140,3 +149,67 @@ def unflatten_like_jax(template, leaves):
     if next(it, None) is not None:
         raise ValueError("more leaves than the template holds")
     return out
+
+
+def _host_width(st) -> int:
+    return st.evbuf.kind.shape[-1]
+
+
+def fleet_to_saved(st: SimState, n_exp: int) -> SimState:
+    """A port fleet state → the reference's fleet layout (views of the
+    same tensors): every host-axis leaf ``[..., E·H]`` → ``[E, ..., H]``;
+    the window start, the pop epoch and bound and any other leaf the
+    lanes share → repeated ``[E, ...]``; metrics and ring rows (already
+    ``[E]`` and ``[E, W, F]``) as they are."""
+    width = _host_width(st)
+
+    def host(x):
+        return x.reshape(x.shape[:-1] + (n_exp, width // n_exp)).movedim(-2, 0)
+
+    def shared(x):
+        return x.expand((n_exp,) + tuple(x.shape))
+
+    def any_leaf(x):
+        return host(x) if x.dim() and x.shape[-1] == width else shared(x)
+
+    from shadow1_tpu_torch.core.compact import _tree_map
+
+    return st._replace(
+        win_start=shared(st.win_start),
+        evbuf=_tree_map(any_leaf, st.evbuf),
+        outbox=_tree_map(host, st.outbox),
+        model=_tree_map(any_leaf, st.model),
+        cpu_busy=host(st.cpu_busy),
+    )
+
+
+def fleet_from_saved(tree, template: SimState, n_exp: int) -> SimState:
+    """Inverse of ``fleet_to_saved``: a reference-layout fleet state
+    (tensors, structured like ``template``, a port fleet state) → the
+    port's layout, every leaf a fresh contiguous tensor (the kernels need
+    contiguous planes). A shared leaf takes lane 0's value; the lanes of a
+    fleet run their windows in step, so every lane holds the same."""
+    width = _host_width(template)
+
+    def back(x, t):
+        if t.dim() and t.shape[-1] == width:
+            x = x.movedim(0, -2)
+            return x.reshape(x.shape[:-2] + (-1,)).contiguous()
+        return x[0].contiguous()
+
+    def same(x, t):
+        return x.contiguous()
+
+    from shadow1_tpu_torch.core.compact import _tree_map
+
+    return tree._replace(
+        win_start=back(tree.win_start, template.win_start),
+        evbuf=_tree_map(back, tree.evbuf, template.evbuf),
+        outbox=_tree_map(back, tree.outbox, template.outbox),
+        model=_tree_map(back, tree.model, template.model),
+        cpu_busy=back(tree.cpu_busy, template.cpu_busy),
+        metrics=_tree_map(same, tree.metrics, template.metrics),
+        telem=_tree_map(same, tree.telem, template.telem),
+        probes=_tree_map(same, tree.probes, template.probes),
+        links=_tree_map(same, tree.links, template.links),
+    )

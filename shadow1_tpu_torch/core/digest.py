@@ -10,7 +10,10 @@ Each semantic element (an occupied event slot, a buffered packet, a live
 socket, a host's NIC or counter row) hashes to one u32 word: a polynomial
 fold ``z = z * K + v`` of its semantic fields onto a per-subsystem seed,
 then the splitmix finalizer twice and the top 32 bits. A subsystem's word
-is the i64 sum of its element words (order-independent).
+is the i64 sum of its element words (order-independent). In a fleet
+(``n_exp`` lanes folded onto the host axis, ``core/lanes.py``) each word is
+summed per lane, so lane e carries the words of a solo run of its
+experiment.
 
 The reference folds in uint64. Here the same bit patterns live in int64
 tensors: ``+`` and ``*`` wrap mod 2**64 alike, and the right shifts are
@@ -61,31 +64,34 @@ def _words(seed: int, fields) -> torch.Tensor:
     return _srl(_mix(_mix(z)), 32)
 
 
-def _masked_sum(words: torch.Tensor, mask) -> torch.Tensor:
-    """i64 sum of the selected words (exact: each < 2**32)."""
-    if mask is None:
+def _masked_sum(words: torch.Tensor, mask, n_exp: int = 0) -> torch.Tensor:
+    """i64 sum of the selected words (exact: each < 2**32); per lane,
+    ``[n_exp]``, when the host axis folds ``n_exp`` lanes (0: solo)."""
+    if mask is not None:
+        words = torch.where(mask, words, 0)
+    if not n_exp:
         return words.sum()
-    return torch.where(mask, words, 0).sum()
+    return words.reshape(-1, n_exp, words.shape[-1] // n_exp).sum(dim=(0, 2))
 
 
-def digest_evbuf(buf, hosts) -> torch.Tensor:
+def digest_evbuf(buf, hosts, n_exp: int = 0) -> torch.Tensor:
     """Occupied event slots keyed by (host, time, tb, kind, payload)."""
     fields = [hosts[None, :], buf.abs_time(), tb_join(buf.tb_hi, buf.tb_lo),
               buf.kind] + [buf.p[i] for i in range(NP)]
-    return _masked_sum(_words(SEED_EVBUF, fields), buf.kind != 0)
+    return _masked_sum(_words(SEED_EVBUF, fields), buf.kind != 0, n_exp)
 
 
-def digest_outbox(ob, hosts) -> torch.Tensor:
+def digest_outbox(ob, hosts, n_exp: int = 0) -> torch.Tensor:
     """This window's buffered sends keyed by (src, dst, depart, ctr, kind,
     payload); taken before the window-end delivery clears the outbox."""
     cap = ob.dst.shape[0]
     mask = torch.arange(cap, device=ob.cnt.device)[:, None] < ob.cnt[None, :]
     fields = [hosts[None, :], ob.dst, ob.abs_depart(), ob.ctr,
               ob.kind] + [ob.p[i] for i in range(NP)]
-    return _masked_sum(_words(SEED_OUTBOX, fields), mask)
+    return _masked_sum(_words(SEED_OUTBOX, fields), mask, n_exp)
 
 
-def digest_tcp(tcp: dict, hosts) -> torch.Tensor:
+def digest_tcp(tcp: dict, hosts, n_exp: int = 0) -> torch.Tensor:
     """Live sockets (st != TCP_FREE): every field in canonical order, plus
     the socket's valid message-boundary FIFO entries."""
     s = tcp["st"].shape[0]
@@ -95,23 +101,23 @@ def digest_tcp(tcp: dict, hosts) -> torch.Tensor:
     fields += [tcp[f] for f in TCP_FIELDS_I32]
     fields += [tb_join(tcp[f + "_hi"], tcp[f + "_lo"]) for f in TCP_FIELDS_I64]
     fields += [tcp[f] for f in TCP_FIELDS_BOOL]
-    total = _masked_sum(_words(SEED_TCP, fields), live)
+    total = _masked_sum(_words(SEED_TCP, fields), live, n_exp)
     mq = [hosts[None, None, :], socks[None], tcp["mq_end"], tcp["mq_meta"]]
     return total + _masked_sum(_words(SEED_MQ, mq),
-                               tcp["mq_valid"] & live[None])
+                               tcp["mq_valid"] & live[None], n_exp)
 
 
-def digest_nic(nic, hosts) -> torch.Tensor:
+def digest_nic(nic, hosts, n_exp: int = 0) -> torch.Tensor:
     """Per-host NIC clocks and counters."""
     return _masked_sum(_words(SEED_NIC, [hosts, nic.tx_free, nic.rx_free,
                                          nic.tx_bytes, nic.rx_bytes,
-                                         nic.aqm_ctr]), None)
+                                         nic.aqm_ctr]), None, n_exp)
 
 
-def digest_rng(hosts, vectors) -> torch.Tensor:
+def digest_rng(hosts, vectors, n_exp: int = 0) -> torch.Tensor:
     """Per-host deterministic counters: self_ctr, pkt_ctr, the virtual-CPU
     clocks and the model's draw counters (``model_host_vectors``)."""
-    return _masked_sum(_words(SEED_RNG, [hosts] + list(vectors)), None)
+    return _masked_sum(_words(SEED_RNG, [hosts] + list(vectors)), None, n_exp)
 
 
 def model_host_vectors(model) -> list:
@@ -125,18 +131,20 @@ def model_host_vectors(model) -> list:
 
 
 def state_digests(st, ctx, dg_outbox) -> torch.Tensor:
-    """The window's digest words, i64 [5] in SUBSYSTEMS order.
-    ``dg_outbox`` was taken before the delivery; the rest digests the
-    post-delivery window-boundary state."""
-    hosts = ctx.hosts
+    """The window's digest words, i64 [5] in SUBSYSTEMS order ([E, 5] in a
+    fleet). ``dg_outbox`` was taken before the delivery; the rest digests
+    the post-delivery window-boundary state."""
+    hosts, n = ctx.hosts, getattr(ctx, "n_exp", 0)
     model = st.model
     mf = getattr(model, "_fields", ())
-    zero = torch.zeros((), dtype=torch.int64, device=hosts.device)
+    zero = torch.zeros((n,) if n else (), dtype=torch.int64,
+                       device=hosts.device)
     if "nic" in mf and "tcp" in mf:
-        dg_tcp, dg_nic = digest_tcp(model.tcp, hosts), digest_nic(model.nic, hosts)
+        dg_tcp = digest_tcp(model.tcp, hosts, n)
+        dg_nic = digest_nic(model.nic, hosts, n)
     else:
         dg_tcp = dg_nic = zero
     vectors = [st.evbuf.self_ctr, st.outbox.pkt_ctr, st.cpu_busy]
     vectors += model_host_vectors(model)
-    return torch.stack([digest_evbuf(st.evbuf, hosts), dg_outbox, dg_tcp,
-                        dg_nic, digest_rng(hosts, vectors)])
+    return torch.stack([digest_evbuf(st.evbuf, hosts, n), dg_outbox, dg_tcp,
+                        dg_nic, digest_rng(hosts, vectors, n)], dim=-1)

@@ -63,27 +63,28 @@ from shadow1_tpu_torch.consts import (
     packet_tb,
 )
 from shadow1_tpu_torch.core.events import (
+    I32_PASTDUE,
     EventBuf,
     any_eligible,
     deliver_batch,
-    evbuf_fill,
     evbuf_init,
     rebase,
 )
 from shadow1_tpu_torch.core.outbox import (
     Outbox,
     outbox_clear,
-    outbox_fill,
     outbox_init,
 )
 from shadow1_tpu_torch.core import popk
+from shadow1_tpu_torch.core.lanes import lany, lmax, lsum
 from shadow1_tpu_torch.core.popk import pop_until
 
 
 class Metrics(NamedTuple):
-    """Run counters, every one an i64 scalar tensor; the same fields in the
-    same order as the reference's ``Metrics`` (see there for each one's
-    meaning). Fields of parts this slice does not run stay 0."""
+    """Run counters, every one an i64 scalar tensor (``[E]``, one per lane,
+    in a fleet); the same fields in the same order as the reference's
+    ``Metrics`` (see there for each one's meaning). Fields of parts the
+    port does not run stay 0."""
 
     events: torch.Tensor
     rounds: torch.Tensor
@@ -124,8 +125,9 @@ class Metrics(NamedTuple):
     outbox_hosts: torch.Tensor
 
 
-def _metrics_init(device) -> Metrics:
-    return Metrics(*(torch.zeros((), dtype=torch.int64, device=device)
+def _metrics_init(device, n_exp: int = 0) -> Metrics:
+    shape = (n_exp,) if n_exp else ()
+    return Metrics(*(torch.zeros(shape, dtype=torch.int64, device=device)
                      for _ in Metrics._fields))
 
 
@@ -149,7 +151,14 @@ class SimState(NamedTuple):
 class Ctx:
     """Run constants handed to the model's handler builders. ``n_hosts`` is
     the host-axis size, ``hosts`` the global host ids (``arange`` on one
-    device) and ``n_total`` the global host count."""
+    device) and ``n_total`` the global host count.
+
+    A fleet ctx (``fleet/engine.py``) folds ``n_exp`` lanes into the host
+    axis: ``n_hosts`` is E·H, ``hosts`` is ``arange(H)`` tiled E times,
+    ``lane`` the lane of each column, ``key`` an int64 tensor holding each
+    column's lane key, and the per-lane tables carry a leading ``[E]``
+    axis (``loss_thr_vv``, ``link_fault``, ``loss_ramp``) or are folded
+    onto the host axis like the state (``fault_down``, ``fault_up``)."""
 
     n_hosts: int
     n_total: int
@@ -195,6 +204,10 @@ class Ctx:
     has_tx_qlen: bool = False
     has_rx_qlen: bool = False
     has_aqm: bool = False
+    # The fleet's lanes (``core/lanes.py``): one lane in a solo run.
+    n_exp: int = 0                    # 0: a solo run, no lane axis
+    lane: torch.Tensor = None         # i64 [E·H] lane of each column
+    lane_max_rounds: tuple = None     # per-lane max_rounds when they differ
 
 
 def resolve_device(device=None) -> torch.device:
@@ -361,7 +374,7 @@ def push_local_event(st: SimState, ctx: Ctx, mask, time, kind,
     m = st.metrics
     return st._replace(
         evbuf=evbuf,
-        metrics=m._replace(ev_overflow=m.ev_overflow + over.sum(dtype=torch.int64)),
+        metrics=m._replace(ev_overflow=m.ev_overflow + lsum(ctx, over)),
     )
 
 
@@ -370,7 +383,7 @@ class FlatPackets(NamedTuple):
     outbox. ``dst`` is a global host id; ``keep`` marks packets that
     survived the loss draw."""
 
-    dst: torch.Tensor      # i32 [N]
+    dst: torch.Tensor      # i32 [N] (a fleet: the destination's column)
     arrival: torch.Tensor  # i64 [N]
     tb: torch.Tensor       # i64 [N]
     kind: torch.Tensor     # i32 [N]
@@ -384,7 +397,8 @@ def _kind_column(kinds: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(kinds, dtype=torch.int32, device=device)[:, None]
 
 
-def run_round(st: SimState, ctx: Ctx, handlers: dict, win_end) -> SimState:
+def run_round(st: SimState, ctx: Ctx, handlers: dict, win_end, until=None,
+              active=None) -> SimState:
     """One inner round: per-host pop-min, then the handler passes.
 
     Two fidelity gates apply between pop and dispatch, as in the
@@ -399,15 +413,23 @@ def run_round(st: SimState, ctx: Ctx, handlers: dict, win_end) -> SimState:
     kind (the reference's ``lax.cond``) and counts its ``fires_*``; which
     kinds popped is known once the gates are done (a pass never changes
     the popped events), so one device read serves every kind. A single
-    handler runs unconditionally, as in the reference."""
-    evbuf, ev = pop_until(st.evbuf, win_end, extract=ctx.params.pop_extract)
+    handler runs unconditionally, as in the reference.
+
+    In a fleet, ``active`` is the i64 ``[E]`` mask of the lanes this round
+    belongs to (their ``rounds`` count it) and ``until`` the pop bound,
+    per column when some lane sits at its own ``max_rounds`` cap; a pass
+    runs when some lane popped its kind and counts ``fires_*`` per lane.
+    A lane that pops nothing is left as it was: every pass is masked by
+    the popped events and reduces per lane."""
+    evbuf, ev = pop_until(st.evbuf, win_end if until is None else until,
+                          extract=ctx.params.pop_extract)
     st = st._replace(evbuf=evbuf)
     m = st.metrics
     if ctx.has_stop:
         from shadow1_tpu_torch.fault.plane import hosts_down_at
 
         supp = ev.mask & hosts_down_at(ctx.fault_down, ctx.fault_up, ev.time)
-        m = m._replace(down_events=m.down_events + supp.sum(dtype=torch.int64))
+        m = m._replace(down_events=m.down_events + lsum(ctx, supp))
         ev = ev._replace(mask=ev.mask & ~supp,
                          kind=torch.where(supp, K_NONE, ev.kind))
     if ctx.has_cpu:
@@ -418,29 +440,36 @@ def run_round(st: SimState, ctx: Ctx, handlers: dict, win_end) -> SimState:
                                      ev.p)
         st = st._replace(evbuf=evbuf, cpu_busy=torch.where(
             run, eff + ctx.cpu_cost, st.cpu_busy))
-        m = m._replace(ev_overflow=m.ev_overflow + over.sum(dtype=torch.int64))
+        m = m._replace(ev_overflow=m.ev_overflow + lsum(ctx, over))
         ev = ev._replace(mask=run, time=torch.where(run, eff, ev.time),
                          kind=torch.where(defer, K_NONE, ev.kind))
     pops = {
-        f[0]: getattr(m, f[0]) + (ev.mask & (ev.kind == k)).sum(dtype=torch.int64)
+        f[0]: getattr(m, f[0]) + lsum(ctx, ev.mask & (ev.kind == k))
         for k, f in KIND_METRIC_FIELDS.items() if k in handlers
     }
     st = st._replace(metrics=m._replace(
-        events=m.events + ev.mask.sum(dtype=torch.int64),
-        rounds=m.rounds + 1,
+        events=m.events + lsum(ctx, ev.mask),
+        rounds=m.rounds + (1 if active is None else active),
         **pops,
     ))
     items = sorted(handlers.items())
     if len(items) == 1:
         return items[0][1](st, ev)
     kinds = _kind_column(tuple(k for k, _ in items), ev.kind.device)
-    popped = ((ev.kind[None, :] == kinds) & ev.mask[None, :]).any(dim=1).tolist()
-    for (kind, fn), present in zip(items, popped):
+    hit = (ev.kind[None, :] == kinds) & ev.mask[None, :]
+    if not ctx.n_exp:
+        popped = hit.any(dim=1).tolist()
+        lane_hit = [int(x) for x in popped]
+    else:
+        lane_hit = lany(ctx, hit)                      # [K, E]
+        popped = lane_hit.any(dim=1).tolist()
+        lane_hit = lane_hit.to(torch.int64)
+    for i, ((kind, fn), present) in enumerate(zip(items, popped)):
         if kind in KIND_METRIC_FIELDS:
             fires = KIND_METRIC_FIELDS[kind][1]
             m2 = st.metrics
             st = st._replace(metrics=m2._replace(
-                **{fires: getattr(m2, fires) + int(present)}))
+                **{fires: getattr(m2, fires) + lane_hit[i]}))
         if present:
             st = fn(st, ev)
     return st
@@ -471,29 +500,39 @@ def route_outbox(ctx: Ctx, ob: Outbox, links=None, win_start=None):
     fctr = flat(ob.ctr).to(torch.int64)
     vs = ctx.host_vertex[fsrc.long()].long()
     vd = ctx.host_vertex[fdst_safe.long()].long()
+    # A fleet: each packet's lane picks its key, thresholds and tables.
+    flane = key = None
+    if not ctx.n_exp:
+        key = ctx.key
+    else:
+        flane = flat(ctx.lane.expand(cap, h))
+        key = flat(ctx.key.expand(cap, h))
     arrival = fdep + ctx.lat_vv[vs, vd]
     if ctx.has_jitter:
         jit = ctx.jitter_vv[vs, vd]
-        jbits = rng.bits(ctx.key, R_JITTER, fsrc, fctr)
+        jbits = rng.bits(key, R_JITTER, fsrc, fctr)
         arrival = arrival + rng.randint(jbits, 2 * jit + 1).to(torch.int64) - jit
     linkdown = torch.zeros_like(fmask)
     if ctx.has_link_fault:
         from shadow1_tpu_torch.fault.plane import link_down_mask
 
-        linkdown = fmask & link_down_mask(ctx.link_fault, vs, vd, fdep)
-    thr = ctx.loss_thr_vv[vs, vd]
+        linkdown = fmask & link_down_mask(ctx.link_fault, vs, vd, fdep, flane)
+    thr = (ctx.loss_thr_vv[vs, vd] if flane is None
+           else ctx.loss_thr_vv[flane, vs, vd])
     if ctx.has_loss_ramp:
         from shadow1_tpu_torch.fault.plane import ramp_loss_thr
 
-        thr = ramp_loss_thr(ctx.loss_ramp, vs, vd, fdep, thr)
-    bits = rng.bits(ctx.key, R_LOSS, fsrc, fctr)
+        thr = ramp_loss_thr(ctx.loss_ramp, vs, vd, fdep, thr, flane)
+    bits = rng.bits(key, R_LOSS, fsrc, fctr)
     lost = fmask & ~linkdown & rng.uniform_lt(bits, thr)
     keep = fmask & ~lost & ~linkdown
     tb = packet_tb(fsrc.to(torch.int64), fctr)
+    if flane is not None:
+        # Models address lane-local ids; the scatter needs the column.
+        fdst_safe = fdst_safe + (flane * (h // ctx.n_exp)).to(torch.int32)
     fp = FlatPackets(dst=fdst_safe, arrival=arrival, tb=tb, kind=flat(ob.kind),
                      p=flat(ob.p), keep=keep)
-    out = (fp, fmask.sum(dtype=torch.int64), lost.sum(dtype=torch.int64),
-           linkdown.sum(dtype=torch.int64))
+    out = (fp, lsum(ctx, fmask), lsum(ctx, lost), lsum(ctx, linkdown))
     if links is None:
         return out
     from shadow1_tpu_torch.consts import WIRE_OVERHEAD
@@ -501,14 +540,17 @@ def route_outbox(ctx: Ctx, ob: Outbox, links=None, win_start=None):
 
     links = link_route_accum(
         links, vs, vd, fmask, lost, linkdown, queued=fdep - win_start,
-        wire=fp.p[4].to(torch.int64) + WIRE_OVERHEAD)
+        wire=fp.p[4].to(torch.int64) + WIRE_OVERHEAD, lane=flane)
     return out + (links,)
 
 
 def deliver_flat(evbuf: EventBuf, ctx: Ctx, fp: FlatPackets):
     """Scatter the routed packets into this block's event buffers; under
     churn a packet that arrives while its destination is down is dropped
-    here. Returns (evbuf, n_delivered, n_overflow, n_down)."""
+    here. Returns (evbuf, n_delivered, n_overflow, n_down). In a fleet
+    ``fp.dst`` is already the destination's column (``route_outbox``) and
+    ``hosts[0]`` is 0; the counts are per lane: a packet's lane is its
+    source's, which is its destination's."""
     local = fp.dst - ctx.hosts[0]
     mine = fp.keep & (local >= 0) & (local < ctx.n_hosts)
     local = torch.where(mine, local, 0)
@@ -518,11 +560,11 @@ def deliver_flat(evbuf: EventBuf, ctx: Ctx, fp: FlatPackets):
 
         to_down = mine & hosts_down_at_idx(ctx.fault_down, ctx.fault_up,
                                            local, fp.arrival)
-        n_down = to_down.sum(dtype=torch.int64)
+        n_down = lsum(ctx, to_down)
         mine = mine & ~to_down
     evbuf, n_over = deliver_batch(evbuf, local, fp.arrival, fp.tb, fp.kind,
-                                  fp.p, mine)
-    return evbuf, mine.sum(dtype=torch.int64) - n_over, n_over, n_down
+                                  fp.p, mine, lanes=ctx.n_exp)
+    return evbuf, lsum(ctx, mine) - n_over, n_over, n_down
 
 
 def deliver_window(st: SimState, ctx: Ctx) -> SimState:
@@ -534,8 +576,8 @@ def deliver_window(st: SimState, ctx: Ctx) -> SimState:
     else:
         fp, n_sent, n_lost, n_linkdown = route_outbox(ctx, st.outbox)
     # Read before the window-end clear.
-    ob_fill = outbox_fill(st.outbox)
-    ob_hosts = (st.outbox.cnt > 0).sum(dtype=torch.int64)
+    ob_fill = lmax(ctx, st.outbox.cnt)
+    ob_hosts = lsum(ctx, st.outbox.cnt > 0)
     evbuf, n_deliv, n_over, n_down = deliver_flat(st.evbuf, ctx, fp)
     m = st.metrics
     return st._replace(
@@ -557,12 +599,48 @@ def deliver_window(st: SimState, ctx: Ctx) -> SimState:
 
 def run_rounds(st: SimState, ctx: Ctx, handlers: dict, win_end):
     """The inner round loop to quiescence or the ``max_rounds`` cap.
-    Returns (st, cap_hit)."""
+    Returns (st, cap_hit); in a fleet ``cap_hit`` is an i64 ``[E]``."""
+    if ctx.n_exp:
+        return _run_rounds_lanes(st, ctx, handlers, win_end)
     r = 0
     while r < ctx.params.max_rounds and any_eligible(st.evbuf):
         st = run_round(st, ctx, handlers, win_end)
         r += 1
     return st, r >= ctx.params.max_rounds and any_eligible(st.evbuf)
+
+
+def _run_rounds_lanes(st: SimState, ctx: Ctx, handlers: dict, win_end):
+    """The fleet's round loop: a round runs while some lane is active —
+    it has an eligible host and has run fewer rounds this window than its
+    ``max_rounds``. One device read a round (each lane's eligible flag).
+    A lane never becomes eligible again once it is not (it pops nothing,
+    so nothing of it changes), so its rounds are a prefix of the loop's.
+    Once a lane that is still eligible reaches its cap, the pop runs with
+    a per-column bound that stops that lane's columns from popping."""
+    n = ctx.n_exp
+    caps = ctx.lane_max_rounds or (ctx.params.max_rounds,) * n
+    done = [0] * n
+    dev = st.evbuf.n_elig.device
+    until = never = active = None
+    while True:
+        elig_t = lany(ctx, st.evbuf.n_elig > 0)
+        elig = elig_t.tolist()
+        act = [el and d < c for el, d, c in zip(elig, done, caps)]
+        if not any(act):
+            break
+        if act == elig:
+            until, active = None, elig_t.to(torch.int64)
+        else:
+            act_t = torch.tensor(act, device=dev)
+            active = act_t.to(torch.int64)
+            if never is None:
+                never = st.evbuf.epoch + I32_PASTDUE
+            until = torch.where(act_t.repeat_interleave(ctx.n_hosts // n),
+                                win_end, never)
+        st = run_round(st, ctx, handlers, win_end, until=until, active=active)
+        done = [d + a for d, a in zip(done, act)]
+    cap_hit = [int(el and d >= c) for el, d, c in zip(elig, done, caps)]
+    return st, torch.tensor(cap_hit, dtype=torch.int64, device=dev)
 
 
 class WindowFrame(NamedTuple):
@@ -610,24 +688,24 @@ def window_phases(ctx: Ctx, handlers: dict, make_handlers, pre_window=None):
                                          ctx.n_hosts),
                 cpu_busy=torch.where(rs, 0, st.cpu_busy),
                 metrics=mr._replace(host_restarts=mr.host_restarts
-                                    + rs.sum(dtype=torch.int64)))
+                                    + lsum(ctx, rs)))
         n_act = n_el = None
         if pre_window is not None:
             # Work gauges BEFORE the hook rewrites event times: the raw
             # window-start pending set (events with time < win_end).
             live = (st.evbuf.kind != K_NONE) & (st.evbuf.abs_time() < win_end)
-            n_act = live.any(dim=0).sum(dtype=torch.int64)
-            n_el = live.sum(dtype=torch.int64)
+            n_act = lsum(ctx, live.any(dim=0))
+            n_el = lsum(ctx, live)
             st = pre_window(st, ctx, win_end)
         # Advance the i32 pop-key epoch to this window's start and pin the
         # n_elig counters to win_end.
         st = st._replace(evbuf=rebase(st.evbuf, st.win_start, win_end))
-        n_active = (st.evbuf.n_elig > 0).sum(dtype=torch.int64)
+        n_active = lsum(ctx, st.evbuf.n_elig > 0)
         if n_act is None:
             # No hook: the just-rebased counters are the window-start
             # pending set.
             n_act = n_active
-            n_el = st.evbuf.n_elig.sum(dtype=torch.int64)
+            n_el = lsum(ctx, st.evbuf.n_elig)
         m0 = st.metrics
         st = st._replace(metrics=m0._replace(
             compact_max_fill=torch.maximum(m0.compact_max_fill, n_active),
@@ -655,18 +733,21 @@ def window_phases(ctx: Ctx, handlers: dict, make_handlers, pre_window=None):
             # below routes and clears it.
             from shadow1_tpu_torch.core.digest import digest_outbox
 
-            dg_ob = digest_outbox(st.outbox, ctx.hosts)
+            dg_ob = digest_outbox(st.outbox, ctx.hosts, ctx.n_exp)
         return fr._replace(st=deliver_window(st, ctx), dg_ob=dg_ob)
 
     def ph_telem(fr: WindowFrame) -> WindowFrame:
         st = fr.st
-        ev_fill = evbuf_fill(st.evbuf)
+        ev_fill = lmax(ctx, (st.evbuf.kind != K_NONE).sum(dim=0,
+                                                            dtype=torch.int32))
         m = st.metrics
+        cap_hit = (int(fr.cap_hit) if isinstance(fr.cap_hit, bool)
+                   else fr.cap_hit)
         st = st._replace(
             win_start=fr.win_end,
             metrics=m._replace(
                 windows=m.windows + 1,
-                round_cap_hits=m.round_cap_hits + int(fr.cap_hit),
+                round_cap_hits=m.round_cap_hits + cap_hit,
                 ev_max_fill=torch.maximum(m.ev_max_fill, ev_fill),
             ),
         )
@@ -789,10 +870,10 @@ class Engine:
         from shadow1_tpu_torch.telemetry.probes import probe_init
         from shadow1_tpu_torch.telemetry.ring import ring_init
 
-        dev, h = self.device, self.exp.n_hosts
+        dev, h, n_exp = self.device, self.ctx.n_hosts, self.ctx.n_exp
         evbuf = evbuf_init(h, self.params.ev_cap, dev)
         model, evbuf, seed_over = self._model.init(self.ctx, evbuf)
-        metrics = _metrics_init(dev)
+        metrics = _metrics_init(dev, n_exp)
         return SimState(
             win_start=torch.zeros((), dtype=torch.int64, device=dev),
             evbuf=evbuf,
@@ -800,11 +881,11 @@ class Engine:
             model=model,
             metrics=metrics._replace(ev_overflow=metrics.ev_overflow + seed_over),
             cpu_busy=torch.zeros(h, dtype=torch.int64, device=dev),
-            telem=ring_init(self.params.metrics_ring, dev),
+            telem=ring_init(self.params.metrics_ring, dev, n_exp),
             probes=probe_init(self.params.metrics_ring, self.params.probes,
-                              dev),
+                              dev, n_exp),
             links=link_init(self.params.link_telem,
-                            np.asarray(self.exp.lat_vv).shape[0], dev),
+                            np.asarray(self.exp.lat_vv).shape[0], dev, n_exp),
         )
 
     def run(self, st: SimState | None = None,

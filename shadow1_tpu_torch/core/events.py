@@ -162,12 +162,21 @@ def push_back_plain(buf: EventBuf, mask, time, tb, kind, p) -> tuple[EventBuf, t
 
 
 def until32(buf: EventBuf, until) -> torch.Tensor:
-    """Rebased eligibility bound, i32 scalar tensor."""
+    """Rebased eligibility bound, i32: the reference's scalar, clamped into
+    [0, I32_HORIZON]; or, for an ``until`` of one bound per host ([H], the
+    port's form for a fleet whose lanes stop at different ``max_rounds``),
+    clamped into [I32_PASTDUE, I32_HORIZON], so that a host's bound of
+    ``epoch + I32_PASTDUE`` or below pops nothing, past-due events
+    included."""
+    if isinstance(until, torch.Tensor) and until.dim() == 1:
+        return torch.clamp(until - buf.epoch, I32_PASTDUE,
+                           I32_HORIZON).to(torch.int32)
     return torch.clamp(until - buf.epoch, 0, I32_HORIZON).to(torch.int32)
 
 
 def pop_until_plain(buf: EventBuf, until, extract: str = "sum") -> tuple[EventBuf, Popped]:
-    """Per-host pop of the minimum-(time, tb) event with time < until.
+    """Per-host pop of the minimum-(time, tb) event with time < until
+    (``until`` an i64 scalar, or [H], one bound per host).
 
     The reference's 3-step lexicographic masked min over the slot axis
     (t32, then tb_hi among time ties, then tb_lo), ending in an equality
@@ -214,7 +223,8 @@ def evbuf_fill(buf: EventBuf) -> torch.Tensor:
     return (buf.kind != K_NONE).sum(dim=0, dtype=torch.int32).amax().to(torch.int64)
 
 
-def deliver_batch(buf: EventBuf, dst, time, tb, kind, p, mask) -> tuple[EventBuf, torch.Tensor]:
+def deliver_batch(buf: EventBuf, dst, time, tb, kind, p, mask,
+                  lanes: int = 0) -> tuple[EventBuf, torch.Tensor]:
     """Merge N externally-created events into their hosts' buffers.
 
     Packets sort by destination (masked ones to the end); each host's r-th
@@ -223,7 +233,9 @@ def deliver_batch(buf: EventBuf, dst, time, tb, kind, p, mask) -> tuple[EventBuf
     are distinct and ``torch.sort`` needs no stability; segment bounds come
     from one searchsorted (side "left"). Writes the absolute time planes
     and leaves t32 stale — the next ``rebase`` repairs it. ``p`` is
-    [NP, N]. Returns (buf, n_overflow)."""
+    [NP, N]. Returns (buf, n_overflow); with ``lanes`` (a fleet's lanes
+    folded onto the host axis) the overflow is counted per lane,
+    ``[lanes]``."""
     cap, n_hosts = buf.kind.shape
     dev = buf.kind.device
     n = dst.shape[0]
@@ -255,5 +267,8 @@ def deliver_batch(buf: EventBuf, dst, time, tb, kind, p, mask) -> tuple[EventBuf
         p=torch.where(take[None], g[5:], buf.p),
     )
     free_cnt = free_i.sum(dim=0)
+    if lanes:
+        over = (n_in - torch.minimum(n_in, free_cnt)).view(lanes, -1)
+        return buf, over.sum(dim=1, dtype=torch.int64)
     n_over = mask.sum() - torch.minimum(n_in, free_cnt).sum()
     return buf, n_over

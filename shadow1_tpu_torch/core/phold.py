@@ -20,6 +20,7 @@ import torch
 from shadow1_tpu_torch import rng
 from shadow1_tpu_torch.consts import K_PHOLD, NP, R_PHOLD_DELAY, R_PHOLD_DST
 from shadow1_tpu_torch.core.events import EventBuf, Popped
+from shadow1_tpu_torch.core.lanes import lsum
 from shadow1_tpu_torch.core.popk import outbox_append, push_local
 
 
@@ -40,7 +41,7 @@ def init(ctx, evbuf: EventBuf):
     seed_over = torch.zeros((), dtype=torch.int64, device=dev)
     for _ in range(n):
         evbuf, over = push_local(evbuf, all_hosts, t0, k, zero_p)
-        seed_over = seed_over + over.sum(dtype=torch.int64)
+        seed_over = seed_over + lsum(ctx, over)
     state = PholdState(
         hops=torch.zeros(h, dtype=torch.int64, device=dev),
         ctr=torch.zeros(h, dtype=torch.int64, device=dev),
@@ -76,9 +77,9 @@ def make_handlers(ctx):
             outbox=outbox,
             model=PholdState(hops=model.hops + m64, ctr=model.ctr + m64),
             metrics=met._replace(
-                ev_overflow=met.ev_overflow + over.sum(dtype=torch.int64),
+                ev_overflow=met.ev_overflow + lsum(ctx, over),
                 ob_overflow=met.ob_overflow
-                + (remote & ~ok).sum(dtype=torch.int64),
+                + lsum(ctx, remote & ~ok),
             ),
         )
 

@@ -49,7 +49,12 @@ refused — each refusal is a ``NotImplementedError`` whose message names
 the ROADMAP item that will add it (``config/experiment.py
 build_experiment``, ``cli.py``, ``convert.py``):
 
-* ``scheduler: sharded`` — "fleet, shard, serve".
+* ``scheduler: sharded`` — "serve, shard and tools".
+
+A fleet (``fleet/engine.py``) folds its lanes onto the host axis, so the
+kernels run unchanged at E·H host columns; its one new form is pop's bound
+per host (``until`` [H], read at host stride 1), for lanes that stop at
+different ``max_rounds``.
 
 ``push_back``'s kernel is the push kernel with the original tie-break; the
 engine reaches it under the virtual CPU (``has_cpu``), once per round, to
@@ -123,8 +128,9 @@ def _stream(device: torch.device) -> int:
 
 def pop_until(buf: EventBuf, until, extract: str = "sum") -> tuple[EventBuf, Popped]:
     """Per-host pop of the minimum-(time, tb) event with time < until (see
-    ``events.pop_until_plain``). CUDA: one launch of the pop kernel, which
-    reads ``until`` and ``epoch`` on the device; CPU: the plain version."""
+    ``events.pop_until_plain``); ``until`` is 0-d, or [H] with one bound per
+    host. CUDA: one launch of the pop kernel, which reads ``until`` and
+    ``epoch`` on the device; CPU: the plain version."""
     if not buf.kind.is_cuda:
         return pop_until_plain(buf, until, extract)
     if extract not in ("sum", "gather"):
@@ -133,7 +139,7 @@ def pop_until(buf: EventBuf, until, extract: str = "sum") -> tuple[EventBuf, Pop
 
     cap, h = buf.kind.shape
     dev = buf.kind.device
-    until = _arg(until, _I64, (), dev)
+    until, until_step = _row(torch.as_tensor(until), _I64, h, dev)
     plane, row = (cap, h), (h,)
     _check("pop", dev, (
         ("t32", buf.t32, _I32, plane), ("tb_hi", buf.tb_hi, _I32, plane),
@@ -149,7 +155,7 @@ def pop_until(buf: EventBuf, until, extract: str = "sum") -> tuple[EventBuf, Pop
     n_elig = torch.empty(h, dtype=_I32, device=dev)
     _launch("pop", library().popk_pop, until, buf.epoch, buf.t32, buf.tb_hi,
             buf.tb_lo, buf.kind, buf.p, buf.n_elig, out.mask, out.time,
-            out.tb, out.kind, out.p, n_elig, cap, h, _stream(dev))
+            out.tb, out.kind, out.p, n_elig, cap, h, until_step, _stream(dev))
     return buf._replace(n_elig=n_elig), out
 
 

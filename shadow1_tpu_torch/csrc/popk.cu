@@ -88,7 +88,12 @@
 // * pkt_ctr at and above 2**31 and 2**32: the outbox's ctr word is its low
 //   32 bits, as .to(torch.int32) truncates; the new pkt_ctr wraps in uint64;
 // * time < epoch (past due): t32 goes negative, down to I32_PASTDUE;
-// * until <= epoch: u32 = 0, nothing is eligible and nothing pops;
+// * until <= epoch: u32 = 0, only past-due keys pop, and with none left
+//   nothing pops (one bound for every host, until_step 0, the reference's
+//   form);
+// * a bound per host (until_step 1, a fleet whose lanes stop at different
+//   max_rounds): u32 clamps at I32_PASTDUE instead of 0, so a bound of
+//   epoch + I32_PASTDUE or below pops nothing, past-due keys included;
 // * ties on t32 and on tb_hi: the lexicographic (t32, tb_hi, tb_lo) order
 //   decides; the key is unique per host, so the argmin is the reference's
 //   one-hot and the outputs are the same bits;
@@ -168,13 +173,14 @@ pop_kernel(const int64_t* __restrict__ until, const int64_t* __restrict__ epoch,
            uint8_t* __restrict__ mask_out, int64_t* __restrict__ time_out,
            int64_t* __restrict__ tb_out, int32_t* __restrict__ kind_out,
            int32_t* __restrict__ p_out, int32_t* __restrict__ n_elig_out,
-           int C, int H) {
+           int C, int H, int until_step) {
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
   if (h >= H) return;
   const int32_t ne = n_elig[h];
   const int64_t ep = *epoch;
-  // events.until32: clamp(until - epoch, 0, I32_HORIZON).
-  const int32_t u = clamp32(wrap_sub(*until, ep), 0, kHorizon);
+  // events.until32: clamp(until - epoch, 0 or I32_PASTDUE, I32_HORIZON).
+  const int32_t u = clamp32(wrap_sub(until[(int64_t)h * until_step], ep),
+                            until_step ? kPastDue : 0, kHorizon);
   const int64_t plane = (int64_t)C * H;
   // The best eligible slot so far, from the reference's sentinels, with its
   // kind and payload.
@@ -371,11 +377,11 @@ int popk_pop(const int64_t* until, const int64_t* epoch, int32_t* t32,
              const int32_t* p, const int32_t* n_elig, uint8_t* mask_out,
              int64_t* time_out, int64_t* tb_out, int32_t* kind_out,
              int32_t* p_out, int32_t* n_elig_out, int C, int H,
-             cudaStream_t stream) {
+             int until_step, cudaStream_t stream) {
   if (H > 0) {
     pop_kernel<<<(H + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
         until, epoch, t32, tb_hi, tb_lo, kind, p, n_elig, mask_out, time_out,
-        tb_out, kind_out, p_out, n_elig_out, C, H);
+        tb_out, kind_out, p_out, n_elig_out, C, H, until_step);
   }
   return (int)cudaGetLastError();
 }

@@ -15,8 +15,9 @@ downshift planning (port of ``mem.py``, solo engine).
   paste-ready advice, before the engine is built.
 * **downshift planner** (:func:`downshift`, CLI ``--on-oom downshift``):
   drop the txn rollback copy (``retry`` demotes to ``halt``), then shrink
-  the telemetry ring (observability only). The reference's third stage,
-  fleet sub-batching, belongs to the fleet (ROADMAP Queue A item 6).
+  the telemetry ring (observability only), then split a fleet into
+  sequential sub-batches of the most lanes that fit (``cli._fleet_subbatched``;
+  lanes are independent, so each lane's results are the same).
 * **runtime taxonomy** (:func:`is_oom`): PyTorch's
   ``torch.cuda.OutOfMemoryError``, the ``CUDA out of memory`` /
   ``CUDA error: out of memory`` texts (a kernel launch's error included)
@@ -237,17 +238,23 @@ def tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(tree, []))
 
 
-def abstract_state(exp, params):
+def abstract_state(exp, params, fleet=None):
     """(state, ctx) of an ``Engine`` built on ``torch.device("meta")``: the
     model-init path (the restart capture and the handlers' tables
     included) runs on shapes only, so the leaves have exactly
     ``Engine.init_state``'s shapes and dtypes and no state-sized
     allocation happens. The ctx tables are meta tensors too (the host-side
     numpy tables they come from are the config's own); ``const`` is priced
-    from their shapes."""
-    from shadow1_tpu_torch.core.engine import Engine
+    from their shapes. ``fleet`` = (experiments, max_rounds) builds a
+    ``FleetEngine`` instead (E lanes folded onto the host axis)."""
+    if fleet is not None:
+        from shadow1_tpu_torch.fleet.engine import FleetEngine
 
-    eng = Engine(exp, params, device="meta")
+        eng = FleetEngine(fleet[0], params, fleet[1], device="meta")
+    else:
+        from shadow1_tpu_torch.core.engine import Engine
+
+        eng = Engine(exp, params, device="meta")
     return eng.init_state(), eng.ctx
 
 
@@ -270,6 +277,7 @@ class MemEstimate:
     evbuf_per_cap: int      # bytes per ev_cap step
     outbox_per_cap: int
     telem_per_w: int        # bytes per ring window
+    n_exp: int = 1          # fleet lanes
 
     @property
     def state_bytes(self) -> int:
@@ -290,7 +298,7 @@ class MemEstimate:
         rec = {
             "type": "mem",
             "event": "estimate",
-            "n_exp": 1,
+            "n_exp": self.n_exp,
             "n_dev": 1,
             "estimated_state": self.state_bytes,
             "estimated_resident": self.resident_bytes,
@@ -350,16 +358,18 @@ class MemEstimate:
                          "run: python -m shadow1_tpu.tools.captune")
             lines.extend(eng_lines)
         lines.append("  or rerun with --on-oom downshift (rollback drop → "
-                     "ring shrink, in that order)")
+                     "ring shrink → fleet sub-batches, in that order)")
         return "\n".join(lines)
 
 
-def estimate(exp, params) -> MemEstimate:
-    """The pre-flight byte estimate of a solo, single-device run (the
-    reference's fleet lanes and sharded hosts are ROADMAP Queue A item 6).
-    The state side is exact (the meta-device init); the const side is the
-    ctx's tables; the peaks follow the module's memory contract."""
-    st, ctx = abstract_state(exp, params)
+def estimate(exp, params, fleet=None) -> MemEstimate:
+    """The pre-flight byte estimate of a single-device run: solo, or with
+    ``fleet`` = (experiments, max_rounds) a fleet, whose lanes fold onto
+    the host axis, so every per-host term scales with E·H (the sharded
+    hosts are ROADMAP Queue A). The state side is exact (the meta-device
+    init); the const side is the ctx's tables; the peaks follow the
+    module's memory contract."""
+    st, ctx = abstract_state(exp, params, fleet)
     per = {f: tree_bytes(getattr(st, f))
            for f in ("evbuf", "outbox", "model", "metrics", "telem",
                      "probes", "links")}
@@ -379,7 +389,7 @@ def estimate(exp, params) -> MemEstimate:
         planes["init_model"] = per["model"]
     state = sum(v for k, v in planes.items()
                 if k not in ("const", "init_model"))
-    h = exp.n_hosts
+    h = ctx.n_hosts
     window_end = (params.outbox_cap * h * _ROUTE_BYTES_PER_SLOT
                   + params.ev_cap * h * _DELIVER_BYTES_PER_SLOT
                   + per["evbuf"])
@@ -396,7 +406,8 @@ def estimate(exp, params) -> MemEstimate:
         evbuf_per_cap=per["evbuf"] // max(params.ev_cap, 1),
         outbox_per_cap=per["outbox"] // max(params.outbox_cap, 1),
         telem_per_w=(per["telem"] // params.metrics_ring
-                     if params.metrics_ring else 0))
+                     if params.metrics_ring else 0),
+        n_exp=ctx.n_exp or 1)
 
 
 def check_budget(est: MemEstimate, budget: int | None,
@@ -411,7 +422,24 @@ def check_budget(est: MemEstimate, budget: int | None,
         budget_source=budget_source or "env", detail=detail)
 
 
-def downshift(exp, params, budget: int, resumable: bool = False):
+def max_lanes(exp, params, fleet, budget: int) -> int:
+    """The most leading lanes of ``fleet`` = (experiments, max_rounds)
+    whose estimated peak fits ``budget`` (0 when not even one does): the
+    estimate grows with the lane count, so a bisection finds it."""
+    exps, mr = fleet
+    lo, hi = 0, len(exps)
+    while lo < hi:
+        k = (lo + hi + 1) // 2
+        if estimate(exp, params, (exps[:k], mr and mr[:k])).peak_bytes \
+                <= budget:
+            lo = k
+        else:
+            hi = k - 1
+    return lo
+
+
+def downshift(exp, params, budget: int, resumable: bool = False,
+              fleet=None, subbatch_resumable: bool = False):
     """The graceful-degradation planner (CLI ``--on-oom downshift``).
 
     Applies the bit-exactness-preserving downshifts IN ORDER until the
@@ -425,12 +453,21 @@ def downshift(exp, params, budget: int, resumable: bool = False):
        ``resumable`` (--ckpt/--resume/--save-state): the ring is a state
        leaf, and a snapshot must load at the config's width.
 
-    The reference's third stage, fleet sub-batching, needs a fleet
-    (ROADMAP Queue A item 6). Returns ``(params', actions)``; raises
-    :class:`MemoryBudgetError` when the stages are exhausted."""
+    3. **sub-batch a fleet** (``fleet`` = (experiments, max_rounds)) —
+       run its E lanes as sequential batches of the most lanes that fit
+       (the ``sub_batch`` action's ``lanes``; ``cli._fleet_subbatched``).
+       Lanes never read one another's columns, so each lane's results are
+       those of the full fleet. It composes with ``--ckpt``
+       (``subbatch_resumable``: each batch snapshots its own lanes, the
+       batch cursor rides the lineage manifest), not with an explicit
+       ``--resume`` / ``--save-state`` path, which names one snapshot of
+       every lane.
+
+    Returns ``(params', actions)``; raises :class:`MemoryBudgetError` when
+    the stages are exhausted."""
     budget = int(budget)
     actions: list[dict] = []
-    est = estimate(exp, params)
+    est = estimate(exp, params, fleet)
     if est.peak_bytes <= budget:
         return params, actions
     if params.on_overflow == "retry":
@@ -438,7 +475,7 @@ def downshift(exp, params, budget: int, resumable: bool = False):
         params = dataclasses.replace(params, on_overflow="halt")
         actions.append({"action": "drop_rollback", "on_overflow": "halt",
                         "freed": int(freed)})
-        est = estimate(exp, params)
+        est = estimate(exp, params, fleet)
     if est.peak_bytes > budget and params.metrics_ring > 0 and not resumable:
         min_w = 1 if params.state_digest else 0
         # A removed ring window frees its row in the state and in the
@@ -452,11 +489,29 @@ def downshift(exp, params, budget: int, resumable: bool = False):
                 break
             w_new = max(min_w, w_new - math.ceil(need / row))
             params = dataclasses.replace(params, metrics_ring=w_new)
-            est = estimate(exp, params)
+            est = estimate(exp, params, fleet)
         if w_new < w0:
             actions.append({"action": "shrink_ring",
                             "metrics_ring": [w0, w_new],
                             "freed": int((w0 - w_new) * row)})
+    if est.peak_bytes > budget and fleet is not None and len(fleet[0]) > 1:
+        k = max_lanes(exp, params, fleet, budget)
+        if 1 <= k < len(fleet[0]):
+            if resumable and not subbatch_resumable:
+                raise MemoryBudgetError(
+                    estimated=est.peak_bytes, budget=budget,
+                    planes=est.planes, peaks=est.peaks,
+                    advice=est.advice(budget),
+                    detail=" (sub-batched downshift does not compose with "
+                           "an explicit --resume/--save-state snapshot "
+                           "path, which names one state of every lane and "
+                           "carries no batch cursor; use --ckpt, whose "
+                           "lineage manifest records it, or shrink the "
+                           "sweep)")
+            actions.append({"action": "sub_batch", "lanes": k,
+                            "batches": -(-len(fleet[0]) // k)})
+            est = estimate(exp, params, (fleet[0][:k],
+                                         fleet[1] and fleet[1][:k]))
     if est.peak_bytes > budget:
         detail = (" (the state-shape-preserving downshift is exhausted: "
                   "rollback dropped — ring shrink is unavailable under "

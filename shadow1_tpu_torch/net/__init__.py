@@ -40,6 +40,7 @@ from shadow1_tpu_torch.consts import (
 from shadow1_tpu_torch.core.dense import payload
 from shadow1_tpu_torch.core.events import I64_MAX, tb_join, tb_split
 from shadow1_tpu_torch.core import popk
+from shadow1_tpu_torch.core.lanes import lsum
 from shadow1_tpu_torch.core.popk import outbox_append
 from shadow1_tpu_torch.net.nic import (
     NicState,
@@ -102,10 +103,10 @@ def udp_send(st, ctx, mask, dst_host, dst_sock, length, meta, meta2, now):
         model=st.model._replace(nic=nic),
         outbox=outbox,
         metrics=m._replace(
-            ob_overflow=m.ob_overflow + (sent & ~ok).sum(dtype=torch.int64),
+            ob_overflow=m.ob_overflow + lsum(ctx, sent & ~ok),
             nic_tx_drops=m.nic_tx_drops
-            + (mask & ~sent & ~red).sum(dtype=torch.int64),
-            nic_aqm_drops=m.nic_aqm_drops + red.sum(dtype=torch.int64),
+            + lsum(ctx, mask & ~sent & ~red),
+            nic_aqm_drops=m.nic_aqm_drops + lsum(ctx, red),
         ),
         links=link_nic_drops(st.links, ctx, mask & ~sent & ~red, dst_host),
     )
@@ -154,7 +155,7 @@ def make_pre_window(ctx):
             kind0 = torch.where(down, K_NONE, kind0)
             time0 = torch.where(down, I64_MAX, time0)
             m = m._replace(down_events=m.down_events
-                           + down.sum(dtype=torch.int64))
+                           + lsum(ctx, down))
         t_key = torch.where(sel, abs_t, I64_MAX)
         tb = tb_join(buf.tb_hi, buf.tb_lo)
         perm = torch.sort(tb, dim=0, stable=True).indices
@@ -189,7 +190,9 @@ def make_pre_window(ctx):
 
 def make_handlers(ctx):
     app_mod = _app_module(ctx.model_cfg["app"])
-    if hasattr(app_mod, "tables"):
+    if hasattr(app_mod, "tables") and ctx.app_tables is None:
+        # (A fleet's ctx carries them already, built from the lanes' one
+        # model config: its own ``model_cfg`` holds tiled host arrays.)
         ctx = dataclasses.replace(
             ctx, app_tables=app_mod.tables(ctx.model_cfg, ctx.device))
 
@@ -209,9 +212,9 @@ def make_handlers(ctx):
         return st._replace(
             evbuf=evbuf, model=st.model._replace(nic=nic),
             metrics=met._replace(
-                ev_overflow=met.ev_overflow + over.sum(dtype=torch.int64),
+                ev_overflow=met.ev_overflow + lsum(ctx, over),
                 nic_rx_drops=met.nic_rx_drops
-                + (m & ~okq).sum(dtype=torch.int64)))
+                + lsum(ctx, m & ~okq)))
 
     def on_deliver(st, ev):
         """K_PKT_DELIVER: the packet cleared the NIC — TCP, then the app."""

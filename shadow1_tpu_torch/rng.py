@@ -17,7 +17,10 @@ tensors holding the same bit patterns:
   in float64, as the reference's numpy twin does (exact for x ≤ 2**32).
 
 Raw u32 draws are returned as int64 tensors in ``[0, 2**32)``. The seed key
-is a Python int holding the u64 pattern as a signed int64.
+is a Python int holding the u64 pattern as a signed int64, or, in a fleet
+(``fleet/engine.py``), an int64 tensor holding one lane's key per host
+column; the int64 adds wrap mod 2**64 as the folded Python int does, so
+the draws are the same bits.
 """
 
 from __future__ import annotations
@@ -63,13 +66,18 @@ def _mix(z: torch.Tensor) -> torch.Tensor:
     return z
 
 
-def bits(seed_key: int, purpose: int, host, ctr) -> torch.Tensor:
+def bits(seed_key, purpose: int, host, ctr) -> torch.Tensor:
     """One u32 of raw randomness per (purpose, host, ctr), as int64 in
     [0, 2**32). ``host`` and ``ctr`` are tensors (any int dtype) that
-    broadcast together."""
+    broadcast together; ``seed_key`` is an int or an int64 tensor that
+    broadcasts with them."""
+    if isinstance(seed_key, torch.Tensor):
+        off = seed_key + _i64(int(purpose) * _P1)
+    else:
+        off = _i64(int(seed_key) + int(purpose) * _P1)
     z = (torch.as_tensor(host).to(torch.int64) * _P2
          + torch.as_tensor(ctr).to(torch.int64) * _P3
-         + _i64(int(seed_key) + int(purpose) * _P1))
+         + off)
     return _srl(_mix(_mix(z)), 32)
 
 

@@ -77,6 +77,7 @@ from shadow1_tpu_torch.core.dense import (
 )
 from shadow1_tpu_torch.core.engine import push_local_event
 from shadow1_tpu_torch.core.events import tb_join, tb_split
+from shadow1_tpu_torch.core.lanes import lsum
 from shadow1_tpu_torch.core.outbox import outbox_space
 from shadow1_tpu_torch.core.popk import outbox_append
 from shadow1_tpu_torch.net.nic import ctx_aqm, tx_stamp
@@ -235,9 +236,9 @@ def _emit(st, ctx, r: Sock, mask, flags, seq, length, mend, mmeta, now):
         model=st.model._replace(nic=nic), outbox=outbox,
         metrics=m._replace(
             nic_tx_drops=m.nic_tx_drops
-            + (mask & ~sent & ~red).sum(dtype=torch.int64),
-            nic_aqm_drops=m.nic_aqm_drops + red.sum(dtype=torch.int64),
-            ob_overflow=m.ob_overflow + (sent & ~ok).sum(dtype=torch.int64),
+            + lsum(ctx, mask & ~sent & ~red),
+            nic_aqm_drops=m.nic_aqm_drops + lsum(ctx, red),
+            ob_overflow=m.ob_overflow + lsum(ctx, sent & ~ok),
         ),
         # Link plane: egress-edge attribution of the drop-tail drops.
         links=link_nic_drops(st.links, ctx, mask & ~sent & ~red,
@@ -342,14 +343,14 @@ def tcp_flush(st, ctx, mask, sock, now):
         wire = length.to(torch.int64) + WIRE_OVERHEAD
         nic_run, depart, sent, red = tx_stamp(nic_run, can, wire, now64,
                                               ctx.bw_up, qlen, aqm=aqm)
-        n_tx_drop = n_tx_drop + (can & ~sent & ~red).sum(dtype=torch.int64)
+        n_tx_drop = n_tx_drop + lsum(ctx, can & ~sent & ~red)
         if tx_drop_h is not None:
             tx_drop_h = tx_drop_h + (can & ~sent & ~red)
-        n_red = n_red + red.sum(dtype=torch.int64)
+        n_red = n_red + lsum(ctx, red)
         p = payload(h, ctx.hosts, p1 | (flags << 16), nxt, rcv_nxt, length,
                     pr.rcvbuf, mend, mmeta, device=ctx.device)
         ob, ok = outbox_append(ob, sent, peer_host, k_pkt, depart, p)
-        n_ob_over = n_ob_over + (sent & ~ok).sum(dtype=torch.int64)
+        n_ob_over = n_ob_over + lsum(ctx, sent & ~ok)
         new_nxt = nxt + length + (seg_syn | seg_fin).to(torch.int32)
         # RTT sample (Karn): the first sample-taking segment of the burst.
         take_ts = can & ~ts_taken
@@ -623,7 +624,7 @@ def tcp_rx(st, ctx, mask, p, now):
     st = st._replace(model=st.model._replace(tcp=r.d))
     met = st.metrics
     st = st._replace(metrics=met._replace(
-        tcp_fast_rtx=met.tcp_fast_rtx + frx.sum(dtype=torch.int64)))
+        tcp_fast_rtx=met.tcp_fast_rtx + lsum(ctx, frx)))
     st = tcp_flush(st, ctx, new_ack | frx, ds, now)
 
     # ---- payload (in order only: Go-Back-N receiver) and FIN
@@ -663,7 +664,7 @@ def tcp_rx(st, ctx, mask, p, now):
     met = st.metrics
     st = st._replace(metrics=met._replace(
         tcp_ooo_drops=met.tcp_ooo_drops
-        + (has_data & ~in_order).sum(dtype=torch.int64)))
+        + lsum(ctx, has_data & ~in_order)))
     return st, nf
 
 
@@ -703,7 +704,7 @@ def on_tcp_timer(st, ctx, ev):
     st = st._replace(model=st.model._replace(tcp=r.d))
     met = st.metrics
     st = st._replace(metrics=met._replace(
-        tcp_rto=met.tcp_rto + rto_fire.sum(dtype=torch.int64)))
+        tcp_rto=met.tcp_rto + lsum(ctx, rto_fire)))
     # One pending event per socket: re-push at whichever deadline applies.
     t_ev = torch.where(future, deadline, now + rto_n)
     st = push_local_event(st, ctx, future | rto_fire, t_ev, K_TCP_TIMER,

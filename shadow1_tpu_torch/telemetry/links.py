@@ -13,6 +13,11 @@ straight run's exactly. Integer adds and maxima do not depend on the
 order the device applies them in, so the records equal the JAX engine's
 bit for bit.
 
+In a fleet (``fleet/engine.py``) each lane has its own accumulator,
+``[E, V, V, F]``: a packet or a drop lands on its lane's edge (the flat
+key gains ``lane · V · V``), and the drain reads each lane as the solo
+drain does.
+
 The plane defaults off: ``link_init`` returns None, the state has no such
 leaf and no operation runs. The accumulator is never digested, so turning
 it on leaves every digest word as it was. Updates are out of place (the
@@ -61,27 +66,34 @@ def check_link_params(params, n_vertices: int) -> None:
             f"would not fit the observability budget")
 
 
-def link_init(link_telem: int, n_vertices: int, device) -> LinkAccum | None:
-    """A zeroed [V, V, F] accumulator, or None when the plane is off."""
+def link_init(link_telem: int, n_vertices: int, device,
+              n_exp: int = 0) -> LinkAccum | None:
+    """A zeroed [V, V, F] accumulator (one per lane of a fleet), or None
+    when the plane is off."""
     if not link_telem:
         return None
+    lead = (n_exp,) if n_exp else ()
     return LinkAccum(buf=torch.zeros(
-        (int(n_vertices), int(n_vertices), len(LINK_FIELDS)),
+        lead + (int(n_vertices), int(n_vertices), len(LINK_FIELDS)),
         dtype=torch.int64, device=device))
 
 
 def link_route_accum(links: LinkAccum, vs, vd, fmask, lost, linkdown,
-                     queued, wire) -> LinkAccum:
+                     queued, wire, lane=None) -> LinkAccum:
     """Add one window's routed packets onto their edges.
 
     ``vs`` / ``vd`` are the endpoint vertices of the flat outbox slots,
     ``fmask`` the occupied slots (the offered population), ``lost`` /
     ``linkdown`` the drop masks (subsets of fmask), ``queued`` the
-    per-packet NIC queueing ns and ``wire`` the wire bytes. Empty slots
-    land on edge (0, 0) with all-zero contributions."""
+    per-packet NIC queueing ns and ``wire`` the wire bytes; in a fleet
+    ``lane`` is each packet's lane. Empty slots land on edge (0, 0) with
+    all-zero contributions."""
     buf = links.buf
-    v = buf.shape[0]
-    ek = torch.where(fmask, vs.long() * v + vd.long(), 0)
+    v = buf.shape[-2]
+    ek = vs.long() * v + vd.long()
+    if lane is not None:
+        ek = ek + lane * (v * v)
+    ek = torch.where(fmask, ek, 0)
     one = fmask.to(torch.int64)
     q = torch.where(fmask, queued, 0).to(torch.int64)
     adds = torch.stack([
@@ -115,12 +127,15 @@ def link_nic_drops(links: LinkAccum | None, ctx, drops, dst
     if links is None:
         return None
     buf = links.buf
-    v = buf.shape[0]
+    v = buf.shape[-2]
     n = drops.to(torch.int64)
     hit = n > 0
     vs = ctx.host_vertex[ctx.hosts.long()]
     vd = ctx.host_vertex[torch.where(hit, dst, 0).long()]
-    ek = torch.where(hit, vs.long() * v + vd.long(), 0)
+    ek = vs.long() * v + vd.long()
+    if getattr(ctx, "n_exp", 0):
+        ek = ek + ctx.lane * (v * v)
+    ek = torch.where(hit, ek, 0)
     flat = buf.reshape(-1).index_add(0, ek * len(LINK_FIELDS) + _NIC_COL,
                                      torch.where(hit, n, 0))
     return links._replace(buf=flat.reshape(buf.shape))

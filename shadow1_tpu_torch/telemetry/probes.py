@@ -12,6 +12,10 @@ writes the [K, F] row at slot ``window % W``. At chunk boundaries
 ``flow`` records; windows overwritten before a drain become one
 ``flow_gap`` record.
 
+In a fleet (``fleet/engine.py``) the ring is ``[E, W, K, F]``: the
+fleet's index holds each probe once per lane (its host's column in that
+lane), and each lane's [K, F] row goes to its own ring.
+
 The samples are window-boundary state, so they equal the JAX engine's bit
 for bit. Probes default off: ``probe_init`` returns None and the state has
 no such leaf. Columns with i32 semantics (the TCP sequence and window
@@ -42,14 +46,17 @@ class ProbeRing(NamedTuple):
     buf: torch.Tensor  # i64 [W, K, len(PROBE_FIELDS)]
 
 
-def probe_init(n_windows: int, probes: tuple, device) -> ProbeRing | None:
-    """A W-row probe ring for K watched entities, or None when disabled
-    (no probes, or no ring depth): no state leaf, the historic layout."""
+def probe_init(n_windows: int, probes: tuple, device,
+               n_exp: int = 0) -> ProbeRing | None:
+    """A W-row probe ring for K watched entities (one per lane of a
+    fleet), or None when disabled (no probes, or no ring depth): no state
+    leaf, the historic layout."""
     if n_windows <= 0 or not probes:
         return None
+    lead = (n_exp,) if n_exp else ()
     return ProbeRing(buf=torch.zeros(
-        (int(n_windows), len(probes), len(PROBE_FIELDS)), dtype=torch.int64,
-        device=device))
+        lead + (int(n_windows), len(probes), len(PROBE_FIELDS)),
+        dtype=torch.int64, device=device))
 
 
 class ProbeIndex(NamedTuple):
@@ -74,6 +81,19 @@ def probe_index(probes: tuple, n_hosts: int, device) -> ProbeIndex:
         owned=torch.tensor([0 <= x < n_hosts for x in loc], device=device))
 
 
+def fleet_probe_index(probes: tuple, n_hosts: int, n_exp: int,
+                      device) -> ProbeIndex:
+    """A fleet's index: every probe once per lane, lane-major, at its
+    host's column in that lane (``e·H + h``)."""
+    one = probe_index(probes, n_hosts, device)
+    off = torch.arange(n_exp, device=device).repeat_interleave(
+        len(probes)) * n_hosts
+    return ProbeIndex(host=one.host.repeat(n_exp) + off,
+                      sock=one.sock.repeat(n_exp),
+                      has_sock=one.has_sock.repeat(n_exp),
+                      owned=one.owned.repeat(n_exp))
+
+
 def _u32w(v: torch.Tensor) -> torch.Tensor:
     """i32 plane value → i64 through the u32 window."""
     return v.to(torch.int64) & 0xFFFFFFFF
@@ -81,9 +101,9 @@ def _u32w(v: torch.Tensor) -> torch.Tensor:
 
 def probe_sample(st, ctx, win_end) -> torch.Tensor:
     """The [K, F] boundary sample of every watched entity of
-    ``ctx.probe_index``, at full width (the telem phase's ctx). A socket
-    of −1 is the host-only view; a host past the last samples 0 in every
-    column."""
+    ``ctx.probe_index``, at full width (the telem phase's ctx); [E, K, F]
+    in a fleet. A socket of −1 is the host-only view; a host past the last
+    samples 0 in every column."""
     from shadow1_tpu_torch.core.events import tb_join
 
     dev = st.evbuf.kind.device
@@ -119,15 +139,18 @@ def probe_sample(st, ctx, win_end) -> torch.Tensor:
         cols[_COL["nic_rx_bytes"]] = nic.rx_bytes[host]
     cols[_COL["pending_events"]] = (st.evbuf.kind[:, host] != 0).sum(
         dim=0, dtype=torch.int64)
-    return torch.where(owned[:, None], cols.T, 0)  # [K, F]
+    out = torch.where(owned[:, None], cols.T, 0)  # [K, F]
+    n = getattr(ctx, "n_exp", 0)
+    return out.reshape(n, -1, out.shape[-1]) if n else out
 
 
 def probe_record(pring: ProbeRing, m0, row) -> ProbeRing:
-    """The ring with this window's [K, F] row at slot ``m0.windows % W``
-    (``m0``: the window-entry Metrics, as ``ring_record``)."""
-    slot = (m0.windows % pring.buf.shape[0]).view(1)
+    """The ring with this window's [K, F] row (a fleet: each lane's) at
+    slot ``m0.windows % W`` (``m0``: the window-entry Metrics, as
+    ``ring_record``)."""
+    slot = m0.windows.reshape(-1)[:1] % pring.buf.shape[-3]
     return pring._replace(buf=pring.buf.index_copy(
-        0, slot, row[None].to(torch.int64)))
+        -3, slot, row.unsqueeze(-3).to(torch.int64)))
 
 
 def drain_probes(st, window_ns: int, probes: tuple,

@@ -1,6 +1,7 @@
 """On-device per-window telemetry ring (port of ``telemetry/ring.py``).
 
-A ``[W, F]`` i64 tensor rides in ``SimState.telem``. At the end of every
+A ``[W, F]`` i64 tensor (``[E, W, F]`` in a fleet, one ring per lane)
+rides in ``SimState.telem``. At the end of every
 conservative window the engine writes one row — per-window deltas of the
 core counters, the occupancy gauges and the state-digest words, in
 ``registry.RING_FIELDS`` order — at slot ``window % W``, on the device and
@@ -31,12 +32,15 @@ class TelemetryRing(NamedTuple):
     buf: torch.Tensor  # i64 [W, len(RING_FIELDS)]
 
 
-def ring_init(n_windows: int, device) -> TelemetryRing | None:
-    """A W-row ring, or None when the ring is off (W == 0)."""
+def ring_init(n_windows: int, device, n_exp: int = 0) -> TelemetryRing | None:
+    """A W-row ring (one per lane of a fleet), or None when the ring is off
+    (W == 0)."""
     if n_windows <= 0:
         return None
-    return TelemetryRing(buf=torch.zeros((int(n_windows), len(RING_FIELDS)),
-                                         dtype=torch.int64, device=device))
+    lead = (n_exp,) if n_exp else ()
+    return TelemetryRing(buf=torch.zeros(
+        lead + (int(n_windows), len(RING_FIELDS)), dtype=torch.int64,
+        device=device))
 
 
 def ring_record(ring: TelemetryRing, m0, m1, ev_fill,
@@ -44,16 +48,20 @@ def ring_record(ring: TelemetryRing, m0, m1, ev_fill,
     """The ring with this window's row written at slot ``m0.windows % W``.
     ``m0`` / ``m1`` are the Metrics at window entry and end; ``ev_fill`` the
     window-end event-slot fill; ``digests`` the i64 [5] state-digest words
-    or None (zeros)."""
+    or None (zeros). In a fleet every one of them is per lane ([E],
+    digests [E, 5]) and each lane's row goes to its own ring; the lanes
+    run their windows in step, so lane 0's count picks the slot."""
     dev = ring.buf.device
     counters = [getattr(m1, f) - getattr(m0, f) for f in RING_COUNTERS + RING_WORK]
     gauges = [ev_fill, m1.ev_max_fill, m1.ob_max_fill, m1.compact_max_fill,
               m1.x2x_max_fill]
+    vals = torch.stack(counters + gauges, dim=-1)
     if digests is None:
-        digests = torch.zeros(len(RING_DIGESTS), dtype=torch.int64, device=dev)
-    row = torch.cat([torch.stack(counters + gauges), digests])
-    slot = (m0.windows % ring.buf.shape[0]).view(1)
-    return ring._replace(buf=ring.buf.index_copy(0, slot, row[None, :]))
+        digests = torch.zeros(vals.shape[:-1] + (len(RING_DIGESTS),),
+                              dtype=torch.int64, device=dev)
+    row = torch.cat([vals, digests], dim=-1)
+    slot = (m0.windows.reshape(-1)[:1] % ring.buf.shape[-2])
+    return ring._replace(buf=ring.buf.index_copy(-2, slot, row.unsqueeze(-2)))
 
 
 def drain_ring(st, window_ns: int, start: int = 0) -> list[dict]:

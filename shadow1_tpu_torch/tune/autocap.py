@@ -58,8 +58,8 @@ class CapController:
         # read as a fresh lossy chunk.
         m = initial_state.metrics if initial_state is not None else None
         self._overflow_seen = {
-            "ev_cap": int(m.ev_overflow) if m is not None else 0,
-            "outbox_cap": int(m.ob_overflow) if m is not None else 0,
+            "ev_cap": int(m.ev_overflow.sum()) if m is not None else 0,
+            "outbox_cap": int(m.ob_overflow.sum()) if m is not None else 0,
         }
         # Lossless floor: once a cap has overflowed, the shrink target
         # ratchets above it.
@@ -127,14 +127,17 @@ class CapController:
 
         params = engine.params
         m = st.metrics
-        ev_hw, ob_hw = int(m.ev_max_fill), int(m.ob_max_fill)
+        # Fleet-global gauges (a fleet's are [E]): the max fill over lanes
+        # (caps are uniform, the busiest lane sets the floor) and the
+        # summed overflow; on a solo state both are the scalar itself.
+        ev_hw, ob_hw = int(m.ev_max_fill.max()), int(m.ob_max_fill.max())
         new_ev = self._decide("ev_cap", ev_hw, params.ev_cap)
-        new_ev = self._overflow_grow("ev_cap", int(m.ev_overflow),
+        new_ev = self._overflow_grow("ev_cap", int(m.ev_overflow.sum()),
                                      params.ev_cap, new_ev)
         new_ob = params.outbox_cap
         if self.policy.tune_outbox:
             new_ob = self._decide("outbox_cap", ob_hw, params.outbox_cap)
-            new_ob = self._overflow_grow("outbox_cap", int(m.ob_overflow),
+            new_ob = self._overflow_grow("outbox_cap", int(m.ob_overflow.sum()),
                                          params.outbox_cap, new_ob)
         if (new_ev, new_ob) == (params.ev_cap, params.outbox_cap):
             return engine, st
@@ -142,7 +145,7 @@ class CapController:
         new_engine = self.engine_for(
             dataclasses.replace(params, ev_cap=new_ev, outbox_cap=new_ob))
         rec = {
-            "windows_done": int(m.windows),
+            "windows_done": int(m.windows.max()),
             "ev_cap": [params.ev_cap, new_ev],
             "outbox_cap": [params.outbox_cap, new_ob],
             "ev_max_fill": ev_hw,

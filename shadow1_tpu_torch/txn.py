@@ -32,12 +32,20 @@ Also here: the in-run self-check (``--selfcheck``): the drop-accounting
 identity checked at every committed chunk boundary
 (:func:`check_boundary_identity`).
 
-The sharded exchange bucket (``x2x_cap``) is Queue A item 6 and refused.
+A fleet state (``fleet/engine.py``) is one transaction unit: its
+overflow counters are ``[E]``, any lane's fresh overflow taints the chunk,
+and the caps stay fleet-uniform; ``fresh_by_lane`` names the lanes, which
+``CapacityExceededError.lanes`` carries to the fleet runner.
+
+The sharded exchange bucket (``x2x_cap``) is not ported (ROADMAP Queue A,
+the shard) and refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 from shadow1_tpu_torch.consts import EXIT_CAPACITY  # noqa: F401 (re-export)
 
@@ -63,17 +71,19 @@ class CapacityExceededError(RuntimeError):
     overflow metric), ``cap`` (the value that overflowed), ``overflow``
     (fresh drops attributed to it), ``window_range`` (``[w0, w1)`` window
     indices of the tainted chunk), ``recommended`` (ladder-quantized cap
-    that would have held) and ``advice`` (a paste-ready ``engine:`` YAML
-    block)."""
+    that would have held), ``advice`` (a paste-ready ``engine:`` YAML
+    block) and, in a fleet, ``lanes`` (the LOCAL lane indices whose
+    counter overflowed, what ``--on-lane-fail quarantine`` slices out)."""
 
     def __init__(self, knob: str, counter: str, cap: int, overflow: int,
                  window_range: tuple[int, int], recommended: int | None = None,
-                 detail: str = ""):
+                 detail: str = "", lanes: list[int] | None = None):
         self.knob = knob
         self.counter = counter
         self.cap = int(cap)
         self.overflow = int(overflow)
         self.window_range = (int(window_range[0]), int(window_range[1]))
+        self.lanes = list(lanes) if lanes is not None else None
         if recommended is None:
             from shadow1_tpu_torch.tune.ladder import next_step
 
@@ -197,7 +207,11 @@ class OverflowGuard:
 
     @staticmethod
     def _counters(st) -> dict:
-        return {c: int(getattr(st.metrics, c)) for c in OVERFLOW_KNOBS}
+        """Cumulative overflow counters as numpy arrays: 0-d on a solo
+        state, [E] on a fleet's, so one guard serves both (the fleet's
+        total is the lane sum; the lanes stay for ``fresh_by_lane``)."""
+        return {c: getattr(st.metrics, c).cpu().numpy().astype(np.int64)
+                for c in OVERFLOW_KNOBS}
 
     def rollback_point(self, st):
         """The chunk-start state to roll back to: a device copy of every
@@ -212,8 +226,24 @@ class OverflowGuard:
 
     def _fresh(self, st) -> dict[str, int]:
         cur = self._counters(st)
-        return {c: v - self._seen[c] for c, v in cur.items()
-                if v - self._seen[c] > 0}
+        out = {}
+        for c, v in cur.items():
+            d = int((v - self._seen[c]).sum())
+            if d > 0:
+                out[c] = d
+        return out
+
+    def fresh_by_lane(self, st) -> dict[str, list[int]]:
+        """Fleet attribution: LOCAL lane indices with fresh overflow per
+        counter since the last bind or commit ({} on a solo state)."""
+        out: dict[str, list[int]] = {}
+        for c, v in self._counters(st).items():
+            if v.ndim == 0:
+                continue
+            lanes = np.nonzero(v - self._seen[c] > 0)[0]
+            if lanes.size:
+                out[c] = [int(e) for e in lanes]
+        return out
 
     # -- the transaction ---------------------------------------------------
     def commit(self, engine, st0, st, done: int, step: int):
@@ -228,7 +258,7 @@ class OverflowGuard:
         fresh = self._fresh(st)
         attempts = 0
         while fresh:
-            w0 = int(st.win_start) // engine.window - step
+            w0 = int(st.win_start.max()) // engine.window - step
             if self.mode == "halt":
                 raise self._error(engine, fresh, w0, w0 + step, st)
             attempts += 1
@@ -241,7 +271,8 @@ class OverflowGuard:
                             f"tools/paritytrace.py"))
             self.chunk_retries += 1
             self.retry_windows_rerun += step
-            engine, st0 = self._grow(engine, st0, fresh, w0, w0 + step, st)
+            engine, st0 = self._grow(engine, st0, fresh, w0, w0 + step, st,
+                                     lanes=self.fresh_by_lane(st) or None)
             st = None  # the tainted chunk goes before the replay runs
             # The clone is the call's only reference: its leaves go as the
             # replay's windows replace them.
@@ -266,21 +297,23 @@ class OverflowGuard:
             eng = self._engines[key] = self._make_engine(params)
         return eng
 
-    def _grow(self, engine, st0, fresh, w0, w1, st_tainted):
+    def _grow(self, engine, st0, fresh, w0, w1, st_tainted, lanes=None):
         from shadow1_tpu_torch.tune.ladder import next_step
         from shadow1_tpu_torch.tune.resize import resize_state
 
         params = engine.params
         repl: dict[str, int] = {}
         rec: dict = {"windows": [w0, w1], "retry": self.chunk_retries}
+        if lanes:
+            # Fleet retry audit: which lanes' counters tainted this chunk.
+            rec["lanes"] = lanes
         for ctr, knob in OVERFLOW_KNOBS.items():
             if ctr not in fresh:
                 continue
             if knob == "x2x_cap":
                 raise NotImplementedError(
                     "x2x_overflow: the sharded exchange bucket's retry is "
-                    "not ported yet (ROADMAP: Queue A item 6, fleet, "
-                    "shard, serve and tools)")
+                    "not ported yet (ROADMAP: Queue A, the shard)")
             cap = getattr(params, knob)
             new = next_step(cap)
             if new > self.max_cap:
@@ -309,11 +342,16 @@ class OverflowGuard:
         counter = max(fresh, key=lambda c: fresh[c])
         knob = OVERFLOW_KNOBS[counter]
         cap = 0 if knob == "x2x_cap" else getattr(engine.params, knob)
-        peak = int(getattr(st.metrics, _KNOB_GAUGE[knob]))
+        # The max over lanes: the scalar on a solo state.
+        peak = int(getattr(st.metrics, _KNOB_GAUGE[knob]).max())
         rec = max(next_step(cap), recommend_cap(peak) if peak else 0)
+        lanes = self.fresh_by_lane(st).get(counter) if self._seen else None
+        if lanes:
+            detail = f" (fleet lane(s) {lanes})" + detail
         return CapacityExceededError(
             knob=knob, counter=counter, cap=cap, overflow=fresh[counter],
-            window_range=(w0, w1), recommended=rec, detail=detail)
+            window_range=(w0, w1), recommended=rec, detail=detail,
+            lanes=lanes)
 
     # -- reporting ---------------------------------------------------------
     @property

@@ -202,9 +202,9 @@ def test_profile_writes_device_trace(tmp_path, capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--auto-caps"], "item 5"), (["--on-overflow", "retry"], "item 5"),
     (["--on-oom", "downshift"], "item 5"), (["--selfcheck"], "item 5"),
-    (["--watchdog-s", "30"], "item 5"), (["--fleet"], "item 6"),
-    (["--on-lane-fail", "quarantine"], "item 6"),
-    (["--lane-finalize"], "item 6"), (["--engine", "cpu"], "item 6"),
+    (["--watchdog-s", "30"], "item 5"), (["--fleet"], "sweep:"),
+    (["--on-lane-fail", "quarantine"], "need --fleet"),
+    (["--lane-finalize"], "need --fleet"), (["--engine", "cpu"], "item 6"),
     (["--engine", "sharded"], "item 6"),
     (["--ckpt", "x.npz", "--resume", "y.npz", "--windows", "3"],
      "ambiguous"),
@@ -214,8 +214,12 @@ def test_profile_writes_device_trace(tmp_path, capsys):
 def test_refused_flags_name_their_item(flags, item, capsys):
     """The name is historical for the recovery planes' flags ("item 5"),
     refused until that slice: each is accepted now and the run (one
-    window, in process) ends with its result line. The flags of item 6
-    and the reference's ambiguous combinations stay refused."""
+    window, in process) ends with its result line. The fleet's flags run
+    since the fleet slice: ``--fleet`` on this solo config (no ``sweep:``
+    section) is the reference's structured ``fleet_config`` rejection
+    (EXIT_CONFIG), and the lane policies without ``--fleet`` are refused
+    as they are there. The engines of item 6 and the reference's
+    ambiguous combinations stay refused."""
     import torch
 
     from shadow1_tpu_torch import cli
@@ -230,6 +234,13 @@ def test_refused_flags_name_their_item(flags, item, capsys):
             torch.set_num_threads(n)
         res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert res["windows"] == 1 and res["metrics"]["windows"] == 1
+        return
+    if flags == ["--fleet"]:
+        assert cli.main([CFG, "--device", "cpu", *flags]) == 2
+        out = capsys.readouterr()
+        rec = json.loads(out.out.strip().splitlines()[-1])
+        assert rec["error"] == "fleet_config" and rec["kind"] == "schema"
+        assert item in rec["message"] and item in out.err
         return
     with pytest.raises(SystemExit) as e:
         cli.main([CFG, "--device", "cpu", *flags])

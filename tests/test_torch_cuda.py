@@ -14,6 +14,7 @@ hazards: host counts that leave a ragged last tile (H = 33, 4097) or a
 single host, whole tiles (H = 4096), planes off the 16-byte grid, slot
 counts that do not divide among the slot groups (C = 1, 7, 49), tie-break low words at and above 2**31, ties on t32 and on tb_hi,
 past-due keys, hosts with nothing eligible, a bound at or below the epoch,
+a bound per host (the fleet's form: a lane at its cap pops nothing),
 times at I64_MAX and far in the past, full buffers, and push-back
 tie-breaks near 2**62. The outbox cases cover H = 1, 33, 4096, 4097 × P =
 1, 6, 24, packet counters at and above 2**31, 2**32 and 2**33 and at
@@ -213,6 +214,30 @@ def test_pop_at_or_below_epoch(dev):
     for until in (EPOCH, EPOCH - 5, 0):
         _, out = _pop_both(buf, torch.tensor(until, device=dev))
         assert not bool(out.mask.any())
+
+
+@pytest.mark.parametrize("h,c", [(33, 7), (4097, 49), (16384, 512)])
+def test_pop_per_host_bound(dev, h, c):
+    """The fleet's form of the bound, one per host (``until`` [H], the
+    kernel's host stride 1): hosts of a lane held at its ``max_rounds`` cap
+    get ``epoch + I32_PASTDUE`` and pop nothing, past-due keys included;
+    the others pop exactly as under the one bound they share. Bit-equal
+    to ``pop_until_plain``."""
+    g = np.random.default_rng(h + c)
+    buf = _random_buf(g, c, h, dev)
+    lane = np.arange(h) * 3 // h                 # three lanes of columns
+    never = EPOCH + ev.I32_PASTDUE
+    until = _t(np.where(lane == 1, never, EPOCH + 30), dev)
+    got = _pop_both(buf, until)[1]
+    held = torch.from_numpy(lane == 1).to(dev)
+    assert not bool(got.mask[held].any())
+    assert bool((buf.t32[:, held] < 0).any())     # past-due keys were there
+    _, shared = popk.pop_until_plain(buf, torch.tensor(EPOCH + 30, device=dev))
+    assert torch.equal(got.mask[~held], shared.mask[~held])
+    assert torch.equal(got.tb[~held], shared.tb[~held])
+    # The per-host form at or below the epoch, host by host.
+    until = _t(EPOCH - g.integers(-40, 40, h), dev)
+    _pop_both(buf, until)
 
 
 def test_pop_edges(dev):

@@ -21,6 +21,10 @@ Runs each slice configuration below through the JAX package's ``Engine``
   the ``flow`` records and of the ``link`` records (each record as
   ``json.dumps(rec, sort_keys=True)``, one per line), and the final link
   snapshot's column totals;
+* the fleet (``fleet_<name>.json``, ``FLEET_CONFIGS``): the JAX package's
+  ``FleetEngine`` over a sweep built in code by ``config/compiled.py``;
+  per lane its label, every ``Metrics`` field, the SHA-256 of each
+  per-host summary array and the per-window digest words;
 * a snapshot (``ckpt_<name>.npz``, ``CKPT_CONFIGS``): the JAX package's
   ``ckpt.save_state`` of a YAML config's state at a window, with the
   telemetry ring and the digest words on.
@@ -33,8 +37,9 @@ travels as these files.
 
 Names: ``bench``, ``lossy`` (PHOLD), ``filexfer16k``, ``rung1``,
 ``tgen50k``, ``rung2``, ``tor10k``, ``dgram4k``, ``bitcoin5k``, ``churn8``,
-``fidelity16k`` (net), ``fidelity16k_obs`` (the planes; ~8 minutes) and
-``ckpt_churn8_w75`` (the snapshot; seconds). ``filexfer16k``
+``fidelity16k`` (net), ``fidelity16k_obs`` (the planes; ~8 minutes),
+``ckpt_churn8_w75`` (the snapshot; seconds) and ``fleet_sweep_phold`` (the
+fleet; seconds). ``filexfer16k``
 (16,384 hosts) takes about 35 minutes on 8 CPU cores; each golden records
 its own wall time and peak memory.
 
@@ -334,6 +339,62 @@ def write_ckpt_reference(spec: dict, path: Path) -> float:
     return time.perf_counter() - t0
 
 
+# name -> (config/compiled.py builder, windows): the fleet goldens.
+FLEET_CONFIGS = {
+    "fleet_sweep_phold": ("sweep_phold_experiments", 20),
+}
+
+
+def run_fleet_reference(builder: str, windows: int) -> tuple[dict, float]:
+    import dataclasses
+
+    import numpy as np
+
+    import shadow1_tpu  # noqa: F401  (enables x64)
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from shadow1_tpu.config import compiled as cj
+    from shadow1_tpu.consts import EngineParams
+    from shadow1_tpu.fault.schedule import FaultSchedule
+    from shadow1_tpu.fleet.engine import FleetEngine
+
+    from shadow1_tpu_torch.config import compiled as ct
+
+    exps_t, params_t, max_rounds, labels = getattr(ct, builder)()
+    exps = []
+    for e in exps_t:
+        exp = cj.CompiledExperiment(**{
+            f.name: getattr(e, f.name)
+            for f in dataclasses.fields(cj.CompiledExperiment)})
+        exp.model_cfg = dict(exp.model_cfg)
+        if e.faults is not None:
+            exp.faults = FaultSchedule(**dataclasses.asdict(e.faults))
+        exps.append(exp)
+    params = EngineParams(**dataclasses.asdict(params_t))
+    params = dataclasses.replace(params, metrics_ring=windows, state_digest=1)
+    eng = FleetEngine(exps, params, max_rounds)
+    t0 = time.perf_counter()
+    st = eng.run(n_windows=windows)
+    per = FleetEngine.metrics_per_exp(st)
+    seconds = time.perf_counter() - t0
+    rows = eng.drain_rings(st)
+    fields = ["dg_evbuf", "dg_outbox", "dg_tcp", "dg_nic", "dg_rng"]
+    lanes = []
+    for e, label in enumerate(labels):
+        summ = {k: np.asarray(v) for k, v in eng.model_summary(st, e).items()}
+        mine = [r for r in rows if r["exp"] == e and r["type"] == "ring"]
+        assert len(mine) == windows
+        lanes.append(dict(
+            label=label, metrics=per[e],
+            sha256={k: array_sha256(v) for k, v in summ.items() if v.ndim},
+            digests=[[r[f] for f in fields] for r in mine]))
+    return dict(builder=builder, windows=windows, max_rounds=max_rounds,
+                digest_fields=fields, lanes=lanes,
+                reference="shadow1_tpu FleetEngine on the CPU",
+                reference_seconds=round(seconds, 1)), seconds
+
+
 def array_sha256(a) -> str:
     """SHA-256 of an integer array as little-endian int64."""
     import numpy as np
@@ -419,9 +480,16 @@ def run_net_reference(spec: dict) -> tuple[dict, float]:
 def main(argv: list[str]) -> int:
     sys.path.insert(0, str(ROOT))
     names = argv or (list(CONFIGS) + list(NET_CONFIGS) + list(OBS_CONFIGS)
-                     + list(CKPT_CONFIGS))
+                     + list(CKPT_CONFIGS) + list(FLEET_CONFIGS))
     GOLDEN.mkdir(parents=True, exist_ok=True)
     for name in names:
+        if name in FLEET_CONFIGS:
+            rec, seconds = run_fleet_reference(*FLEET_CONFIGS[name])
+            path = GOLDEN / f"{name}.json"
+            path.write_text(json.dumps(rec, sort_keys=True) + "\n")
+            print(f"{path.relative_to(ROOT)}: {len(rec['lanes'])} lanes in "
+                  f"{seconds:.1f} s", file=sys.stderr)
+            continue
         if name in OBS_CONFIGS:
             rec, seconds = run_obs_reference(OBS_CONFIGS[name])
             path = GOLDEN / f"net_{name}.json"

@@ -1,6 +1,8 @@
-"""Where a fidelity16k run peaks in device memory on a CUDA card.
+"""Where a fidelity16k run, or a fleet, peaks in device memory on a CUDA
+card.
 
-    python tools/torch_mem_peak.py
+    python tools/torch_mem_peak.py          # fidelity16k
+    python tools/torch_mem_peak.py fleet    # chip_smoke.py's fleet_filexfer16k
 
 Runs ``fidelity16k`` (``shadow1_tpu_torch/golden/net_fidelity16k.json``,
 16,384 hosts, every fidelity gate on) twice in chunks of 2 windows, as
@@ -12,6 +14,10 @@ high-water mark, and the allocations live there are printed, grouped by
 the innermost three frames of the port that made them, beside the
 allocator's ``max_memory_allocated``. That is what ``mem.py``'s peak
 model (``output``, ``rollback``, ``transient``) is checked against.
+
+``fleet`` records ``chip_smoke.py`` phase 15's ``fleet_filexfer16k`` (4
+lanes of filexfer16k folded onto 65,536 host columns) from construction
+through its 10 windows, beside ``mem.estimate`` of that fleet.
 
 Prints the card's name and power limit first.
 """
@@ -57,6 +63,48 @@ def live_at_peak(trace) -> tuple[int, dict, dict]:
     return best, held, trace[best_i]
 
 
+def report(label: str, trace, peak: int, wall: float) -> None:
+    best, held, at = live_at_peak(trace)
+    groups = collections.Counter()
+    for e in held.values():
+        groups[frames(e)] += e["size"]
+    print(f"{label}: {wall:.1f} s under the recorder; "
+          f"max_memory_allocated - base {peak} B; traced peak {best} B "
+          f"over {len(trace)} events, at {frames(at, 8)}", flush=True)
+    for where, size in groups.most_common(30):
+        print(f"  {size:>12} B  {where}")
+
+
+def fleet(dev) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from shadow1_tpu_torch import mem
+    from shadow1_tpu_torch.consts import EngineParams
+    from shadow1_tpu_torch.fleet.engine import FleetEngine
+
+    gold, exps = cs.fleet_filexfer_experiments()
+    params = EngineParams(**gold["params"], metrics_ring=cs.FLEET_WINDOWS,
+                          state_digest=1)
+    est = mem.estimate(exps[0], params, fleet=(exps, None))
+    print(f"mem.estimate: resident {est.resident_bytes} B, peak "
+          f"{est.peak_bytes} B; planes {est.planes}; peaks {est.peaks}",
+          flush=True)
+    base = cs.clean_allocator(dev)
+    torch.cuda.memory._record_memory_history(max_entries=3_000_000,
+                                             stacks="python")
+    t0 = time.perf_counter()
+    eng = FleetEngine(exps, params, device=dev)
+    st = eng.run(n_windows=cs.FLEET_WINDOWS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    trace = torch.cuda.memory._snapshot()["device_traces"][0]
+    torch.cuda.memory._record_memory_history(enabled=None)
+    report("fleet_filexfer16k", trace, peak, wall)
+    del st, eng
+
+
 def main() -> int:
     import torch
 
@@ -76,6 +124,9 @@ def main() -> int:
         check=True).stdout.strip(), flush=True)
     _build.library()
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["fleet"]:
+        fleet(dev)
+        return 0
     gold = cs.net_golden("fidelity16k")
     exp = cs.net_experiment("fidelity16k", gold)
     for label, kw in RUNS:
@@ -93,16 +144,8 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated() - base
         trace = torch.cuda.memory._snapshot()["device_traces"][0]
         torch.cuda.memory._record_memory_history(enabled=None)
-        best, held, at = live_at_peak(trace)
-        groups = collections.Counter()
-        for e in held.values():
-            groups[frames(e)] += e["size"]
-        print(f"{label}: {wall:.1f} s under the recorder; "
-              f"max_memory_allocated - base {peak} B; traced peak {best} B "
-              f"over {len(trace)} events, at {frames(at, 8)}", flush=True)
-        for where, size in groups.most_common(30):
-            print(f"  {size:>12} B  {where}")
-        del st, eng, guard, trace, held
+        report(label, trace, peak, wall)
+        del st, eng, guard, trace
     return 0
 
 
