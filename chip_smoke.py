@@ -159,6 +159,39 @@ fails:
    in a fresh ``FleetEngine``, and the capped lane sliced there and
    resumed in a solo ``Engine``.
 
+16. the serve plane (``serve/``; run right after phase 15), two steps,
+   each step's wall time printed: (a) an in-process ``ServeDaemon`` on
+   the card (``ckpt_every_s`` 1e9, driven through ``step()``) serves
+   ``configs/dense_tgen50k.yaml``, submitted through the client as JSON
+   text (``TGEN50K_DOC``: 50,000 hosts, 200 ms, the digest words on), for
+   seeds 71 and 72: one 2-lane batch of 100,000 host columns, its
+   launches counted from 0 (the main path). The daemon's seed-71
+   experiment must hash to ``net_tgen50k.json``'s ``experiment_sha256``
+   and its 20 ring rows and metrics equal the golden's; seed 72's rows
+   and metrics must equal a solo ``Engine`` run on the card; the three
+   kernels, on the arguments of three rounds of window
+   ``SERVE_PATH_WINDOW`` (the hooks of phase 8), bit-equal to their plain
+   versions and timed against the byte bound; the idle budget must not
+   shrink while the batch is resident. Seeds 72 and 71 resubmitted (the
+   lanes swap) must hit the cache (the same engine, no ``FleetEngine``
+   built) and give the batch-1 streams. It prints the batch wall, ms per
+   round and aggregate events/s against the solo run, device ops and
+   reads per round of one more window against the solo run's, build
+   against rebind seconds, the snapshots ``run_fleet`` wrote at batch
+   end and their seconds, and the memory estimate against
+   ``memory_allocated`` (resident) and the swapped batch's
+   ``max_memory_allocated`` (peak), and what stays allocated between the
+   two batches must be no more than the cached engine's ctx tables (the
+   estimate's ``const``) and ``LEFTOVER_SLACK``; (b) ``tools/serveprobe.py`` with
+   ``--resilience`` and an over-budget config (JSON mirrors
+   of ``configs/serve_phold.yaml`` and ``configs/mem_overbudget.yaml``)
+   against ``python -m shadow1_tpu_torch serve`` and ``submit``
+   subprocesses on the card: round trip, cache hits, admission
+   (EXIT_MEMORY before any build), SIGTERM (EXIT_SERVE_SHUTDOWN),
+   waiting_headroom, queue_full, a queue TTL, an injected transient crash,
+   a priority-1 eviction and a restart on a drained spool, every served
+   stream equal to the port's solo CLI run.
+
 The path phases (8, 10, 12) rerun a golden only to one window past the
 window whose arguments they keep (``run_net_golden(stop_after=)``: the
 digest words of those windows are compared).
@@ -2294,6 +2327,382 @@ def fleet_recovery(dev) -> dict:
     return out
 
 
+# -- phase 16: the serve plane ----------------------------------------------
+
+SERVE_DIR = ROOT / "build" / "s16"
+# configs/dense_tgen50k.yaml as the JSON a tenant submits (the card has no
+# YAML parser), cut to SERVE_WINDOWS windows of 10 ms, the digest words on:
+# the experiment of golden/net_tgen50k.json for seed 71.
+SERVE_WINDOWS = 20
+TGEN50K_DOC = {
+    "general": {"seed": 71, "stop_time": "200 ms"},
+    "engine": {"scheduler": "tpu", "ev_cap": 96, "outbox_cap": 32,
+               "sockets_per_host": 8, "msgq_cap": 4, "max_rounds": 512,
+               "rcvbuf": 16384, "state_digest": 1},
+    "network": {"single_vertex": {"latency": "10 ms"}},
+    "hosts": [{"name": "node", "count": 50000, "bandwidth_up": "20 Mbit",
+               "bandwidth_down": "20 Mbit"}],
+    "app": {"model": "tgen", "params": {"fixed_size": True},
+            "defaults": {"start_time": "10 ms"},
+            "groups": {"node": {"active": 1, "streams": 1000000,
+                                "mean_bytes": 30000000,
+                                "mean_think_ns": "50 ms"}}},
+}
+SERVE_SEEDS = (71, 72)
+# Step (a) keeps three rounds of this window of the served batch.
+SERVE_PATH_WINDOW = 8
+# What may stay allocated between two served batches beyond the cached
+# engine's ctx tables (the allocator rounds each block up to 512 B).
+LEFTOVER_SLACK = 1 << 20
+# Step (b), for tools/serveprobe.py: configs/serve_phold.yaml as JSON, and
+# configs/mem_overbudget.yaml's PHOLD at 65,536 hosts and ev_cap 16,384
+# (its event buffer alone ~69 GB, so it never fits the card; fewer hosts
+# make its pricing on the meta device quicker).
+SERVE_PHOLD_DOC = {
+    "general": {"seed": 5, "stop_time": "40 ms"},
+    "engine": {"scheduler": "tpu", "ev_cap": 32, "metrics_ring": 10,
+               "state_digest": 1},
+    "network": {"single_vertex": {"latency": "1 ms"}},
+    "hosts": [{"name": "h", "count": 8}],
+    "app": {"model": "phold",
+            "params": {"mean_delay_ns": 2000000.0, "init_events": 3}},
+}
+OVERBUDGET_DOC = {
+    "general": {"seed": 1, "stop_time": "1 s"},
+    "engine": {"scheduler": "tpu", "ev_cap": 16384, "outbox_cap": 64,
+               "metrics_ring": 256},
+    "network": {"single_vertex": {"latency": "10 ms"}},
+    "hosts": [{"name": "h", "count": 65536}],
+    "app": {"model": "phold",
+            "params": {"mean_delay_ns": 2.0e7, "init_events": 8}},
+}
+
+
+def tgen_job(seed: int) -> str:
+    """The tenant's config file for ``seed`` (JSON text)."""
+    doc = json.loads(json.dumps(TGEN50K_DOC))
+    doc["general"]["seed"] = seed
+    path = SERVE_DIR / f"tgen50k_{seed}.json"
+    path.write_text(json.dumps(doc))
+    return str(path)
+
+
+class ServeProbe:
+    """Instruments one in-process ``ServeDaemon``: times its cache lookups
+    (an engine build on a miss, a rebind on a hit) and its lineage saves,
+    records the engines it serves and the FleetEngines built on the card
+    (meta-device builds of the memory estimate excluded), and samples the
+    idle budget at each chunk boundary of a batch (the eviction latch's
+    TTL sweep)."""
+
+    def __init__(self, daemon, dev):
+        self.d, self.dev = daemon, dev
+        self.gets, self.saves, self.budgets, self.built = [], [], [], 0
+
+    def __enter__(self):
+        from shadow1_tpu_torch.fleet.engine import FleetEngine
+        from shadow1_tpu_torch.lineage import Lineage
+
+        d, probe = self.d, self
+        get, expire = d.cache.get, d._expire_ttl
+        init, save = FleetEngine.__init__, Lineage.save
+
+        def timed_get(*a, **kw):
+            t0 = time.perf_counter()
+            eng, out = get(*a, **kw)
+            sync(probe.dev)
+            probe.gets.append((out, time.perf_counter() - t0, eng))
+            return eng, out
+
+        def sampled_expire():
+            probe.budgets.append(d._budget()[0])
+            return expire()
+
+        def counted_init(eng, *a, **kw):
+            init(eng, *a, **kw)
+            probe.built += eng.device.type != "meta"
+
+        def timed_save(lin, st, meta=None):
+            t0 = time.perf_counter()
+            seq = save(lin, st, meta)
+            probe.saves.append(time.perf_counter() - t0)
+            return seq
+
+        d.cache.get, d._expire_ttl = timed_get, sampled_expire
+        FleetEngine.__init__, Lineage.save = counted_init, timed_save
+        self._saved = (FleetEngine, init, Lineage, save)
+        return self
+
+    def __exit__(self, *exc):
+        fe, init, lin, save = self._saved
+        fe.__init__, lin.save = init, save
+        del self.d.cache.get, self.d._expire_ttl
+
+
+def served_rows(spool, job: str) -> list:
+    return [r for r in spool.read_results(job) if r["type"] == "ring"]
+
+
+def served_final(spool, job: str) -> dict:
+    final, = [r for r in spool.read_results(job) if r["type"] == "fleet_exp"]
+    return final
+
+
+def serve_batch(d, jobs, probe) -> dict:
+    """Submit ``jobs`` ((job id, seed) pairs) through the client, take
+    them in and run them as one batch; every one must be done in one batch
+    of len(jobs) lanes."""
+    from shadow1_tpu_torch.serve import client
+
+    for jid, seed in jobs:
+        client.submit(d.spool.root, tgen_job(seed), job_id=jid)
+    t0 = time.perf_counter()
+    d._safe_intake()
+    intake = time.perf_counter() - t0
+    require(all(jid in d.jobs for jid, _ in jobs),
+            f"serve: jobs not admitted: {[d.spool.read_status(j) for j, _ in jobs]}")
+    exps = {jid: d.jobs[jid].exp for jid, _ in jobs}
+    params = d.jobs[jobs[0][0]].params
+    sync(d.device)
+    t0 = time.perf_counter()
+    require(d.step(), "serve: the daemon ran no batch")
+    step_s = time.perf_counter() - t0
+    done = [e for e in _serve_log(d) if e.get("event") == "batch_done"][-1]
+    for jid, _ in jobs:
+        st = d.spool.read_status(jid)
+        require(st["state"] == "done" and st["lanes"] == len(jobs),
+                f"serve: job {jid} is {st}")
+    finals = {jid: served_final(d.spool, jid) for jid, _ in jobs}
+    return dict(exps=exps, params=params, intake_s=intake, step_s=step_s,
+                wall_s=done["wall_s"], finals=finals,
+                rounds=max(f["metrics"]["rounds"] for f in finals.values()),
+                events=sum(f["metrics"]["events"] for f in finals.values()),
+                cache=[e for e in _serve_log(d)
+                       if e.get("event") == "batch_start"][-1]["cache"])
+
+
+def _serve_log(d) -> list:
+    with open(d.spool.log_path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def serve_solo(dev, exp, params) -> dict:
+    """The solo Engine on the card over SERVE_WINDOWS windows (timed as
+    two halves), with the device ops and reads of one window after the
+    first half, on copies of its state."""
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+
+    eng = Engine(exp, params, device=dev)
+    half = SERVE_WINDOWS // 2
+    sync(dev)
+    t0 = time.perf_counter()
+    st = eng.run(n_windows=half)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    ops = one_window_costs(eng, st, lambda s: Engine.metrics_dict(s)["rounds"])
+    t0 = time.perf_counter()
+    st = eng.run(st, n_windows=SERVE_WINDOWS - half)
+    sync(dev)
+    wall += time.perf_counter() - t0
+    m = Engine.metrics_dict(st)
+    return dict(wall_s=wall, rows=drain_ring(st, eng.window), metrics=m,
+                rounds=m["rounds"], events=m["events"], **ops)
+
+
+def one_window_costs(eng, st, rounds_of) -> dict:
+    """Device operations and device→host reads per round of one window
+    run from ``st`` (each attempt on its own copy: the kernels update the
+    planes in place)."""
+    from shadow1_tpu_torch.convert import clone_state
+
+    r0 = rounds_of(st)
+    out = {}
+
+    def one_window(key):
+        out[key] = eng.run(clone_state(st), n_windows=1)
+        sync(eng.device)
+
+    n_ops = sum(c for _, c, _ in device_ops(lambda: one_window("ops")))
+    sync_reads(lambda: one_window("warm-up"))
+    reads = sync_reads(lambda: one_window("reads"))
+    r1 = rounds_of(out["reads"]) - r0
+    return dict(ops_per_round=n_ops / max(r1, 1),
+                reads_per_round=reads / max(r1, 1), extra_rounds=r1)
+
+
+def serve_tgen(dev, flush) -> dict:
+    """Step (a): the in-process daemon on the card, full width."""
+    import shutil
+
+    import torch
+
+    from shadow1_tpu_torch import mem
+    from shadow1_tpu_torch.config import compiled as ct
+    from shadow1_tpu_torch.core import popk
+    from shadow1_tpu_torch.serve.daemon import ServeDaemon
+
+    # A module that binds a kernel's wrapper when it is imported (``from
+    # ...popk import push_local``) must be imported before the path hooks
+    # go in, or it keeps the hook, and the hook's clones, for good.
+    import importlib
+
+    for name in ("core.phold", "net", "tcp.tcp", "apps.bitcoin",
+                 "apps.dgram", "apps.filexfer", "apps.tgen", "apps.tor"):
+        importlib.import_module(f"shadow1_tpu_torch.{name}")
+
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    gold = net_golden("tgen50k")
+    d = ServeDaemon(str(SERVE_DIR / "spool"), ckpt_every_s=1e9,
+                    device=dev).start()
+    try:
+        with ServeProbe(d, dev) as probe:
+            # (1)-(2): seeds 71 and 72 as one 2-lane batch, launches counted
+            # from 0 over it, three rounds' kernel arguments kept.
+            budget0 = d._budget()[0]
+            base = clean_allocator(dev)
+            zero_counts()
+            with NetPathCapture(SERVE_PATH_WINDOW) as cap:
+                b1 = serve_batch(d, (("a71", 71), ("a72", 72)), probe)
+            launches = dict(popk.LAUNCHES)
+            entries = dict(popk.PUSH_ENTRIES)
+            require(all(n > 0 for n in launches.values()),
+                    f"serve: kernels not launched on the batch: {launches}")
+            budget_in = list(probe.budgets)
+            budget1 = d._budget()[0]
+            # Two-tier admission needs the IDLE budget: the daemon's own
+            # resident batch must not shrink it.
+            require(min(budget_in + [budget1]) >= 0.99 * budget0,
+                    f"serve: the budget shrank while the batch was resident: "
+                    f"{budget0} B idle, {budget_in} B at its boundaries, "
+                    f"{budget1} B after")
+            sha = hashlib.sha256(json.dumps(
+                ct.experiment_arrays(b1["exps"]["a71"]),
+                sort_keys=True).encode()).hexdigest()
+            require(sha == gold["experiment_sha256"],
+                    "serve: the daemon's seed-71 experiment is not the "
+                    "golden's")
+            rows71 = served_rows(d.spool, "a71")
+            check_digests("served tgen50k seed 71", gold, rows71, 0,
+                          SERVE_WINDOWS)
+            require(b1["finals"]["a71"]["metrics"] == gold["metrics"],
+                    "serve: seed 71's metrics differ from the golden's")
+            kernels = {name: check_path(name, cap.cases(name), dev, flush,
+                                        expect=(1, 3))
+                       for name in ("pop", "push", "obox")}
+            actives = cap.actives()
+            del cap
+            params = b1["params"]
+            solo = serve_solo(dev, b1["exps"]["a72"], params)
+            rows72 = served_rows(d.spool, "a72")
+            require(_bare(rows72) == solo["rows"],
+                    "serve: seed 72's ring rows differ from its solo run's")
+            require(b1["finals"]["a72"]["metrics"] == solo["metrics"],
+                    "serve: seed 72's metrics differ from its solo run's")
+            build_s = [s for out, s, _ in probe.gets if out == "miss"]
+            require(len(build_s) == 1 and probe.built == 1,
+                    f"serve: batch 1 built {probe.built} engines")
+            engine1 = probe.gets[-1][2]
+            # (3): the lanes swapped — a cache hit, the same engine, no
+            # FleetEngine built; each stream equal to batch 1's.
+            built0, n_saves = probe.built, len(probe.saves)
+            # The swapped batch's peak, over what is allocated before it:
+            # the cached engine's ctx tables (the estimate's ``const``)
+            # among it.
+            before = clean_allocator(dev)
+            b2 = serve_batch(d, (("b72", 72), ("b71", 71)), probe)
+            peak = measured_peak(dev, before)
+            out, rebind_s, engine2 = probe.gets[-1]
+            require(out == "hit" and b2["cache"] == "hit",
+                    f"serve: the swapped batch was a {out}")
+            require(engine2 is engine1 and probe.built == built0,
+                    "serve: the hit built an engine")
+            for new, old in (("b71", "a71"), ("b72", "a72")):
+                require(_bare(served_rows(d.spool, new))
+                        == _bare(served_rows(d.spool, old)),
+                        f"serve: {new}'s stream differs from {old}'s")
+        exps = [b2["exps"]["b72"], b2["exps"]["b71"]]
+    finally:
+        d.close()
+    # (4): memory, and the device ops and reads per round of one more
+    # window after SERVE_WINDOWS / 2, on an engine like the served one.
+    from shadow1_tpu_torch.fleet.engine import FleetEngine
+
+    est = mem.estimate(exps[0], params, fleet=(exps, None))
+    base_r = clean_allocator(dev)
+    eng = FleetEngine(exps, params, device=dev)
+    st = eng.init_state()
+    sync(dev)
+    resident = torch.cuda.memory_allocated(dev) - base_r
+    ratio = est.resident_bytes / resident
+    require(abs(ratio - 1) <= mem.AUDIT_TOLERANCE,
+            f"served tgen50k: mem.estimate {est.resident_bytes} B vs "
+            f"{resident} B allocated after init_state (ratio {ratio:.3f})")
+    # Between the batches the daemon keeps only the cached engine's ctx
+    # tables: a batch's state or a clone left alive would show here.
+    leftover = before - base
+    require(leftover <= est.planes["const"] + LEFTOVER_SLACK,
+            f"served tgen50k: {leftover} B stay allocated between the "
+            f"batches, over the cached engine's ctx tables "
+            f"({est.planes['const']} B) and {LEFTOVER_SLACK} B of slack")
+    est_peak = est.peak_bytes - est.planes["const"]
+    require(est_peak >= peak["allocated"],
+            f"served tgen50k: mem.estimate's peak {est_peak} B (its ctx "
+            f"tables aside) is below the swapped batch's measured "
+            f"{peak['allocated']} B")
+    st = eng.run(st, n_windows=SERVE_WINDOWS // 2)
+    costs = one_window_costs(
+        eng, st, lambda s: max(m["rounds"] for m in eng.metrics_per_exp(s)))
+    del st, eng
+    return dict(b1=b1, b2=b2, solo=solo, launches=launches,
+                push_entries=entries, kernels=kernels, actives=actives,
+                build_s=build_s[0], rebind_s=rebind_s, saves=probe.saves,
+                batch_saves=n_saves,
+                budget=(budget0, budget_in, budget1), resident=resident,
+                est_resident=est.resident_bytes, peak=peak,
+                est_peak=est_peak, leftover=leftover,
+                est_const=est.planes["const"],
+                hosts=2 * exps[0].n_hosts,
+                **costs)
+
+
+def _bare(rows) -> list:
+    """Ring rows without the lane and job tags (a solo run's form)."""
+    return [{k: v for k, v in r.items() if k not in ("exp", "job")}
+            for r in rows]
+
+
+def serve_probe() -> dict:
+    """Step (b): ``tools/serveprobe.py`` with every gate, against the
+    port's ``serve`` and ``submit`` entry points on the card."""
+    import torch
+
+    cfg = SERVE_DIR / "serve_phold.json"
+    over = SERVE_DIR / "mem_overbudget.json"
+    cfg.write_text(json.dumps(SERVE_PHOLD_DOC))
+    over.write_text(json.dumps(OVERBUDGET_DOC))
+    torch.cuda.empty_cache()  # the daemons are other processes
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "shadow1_tpu_torch.tools.serveprobe",
+         str(cfg), "--seeds", "5,6", "--overbudget", str(over),
+         "--resilience"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in r.stderr.splitlines():
+        if line.startswith("[serveprobe]"):
+            log(f"  {line}")
+    require(r.returncode == 0, f"serveprobe failed (rc {r.returncode}): "
+            f"{r.stdout[-1500:]} {r.stderr[-1500:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    require(out["ok"] and out["rejected_overbudget"]
+            and out["resilience"]["bit_exact_jobs"] == 3
+            and out["preemption"]["bit_exact_jobs"] == 3,
+            f"serveprobe: {out}")
+    return dict(out, wall_s=wall)
+
+
 # -- phase 5: the kernels on the arguments of the main path -----------------
 
 class PathCapture:
@@ -2499,6 +2908,81 @@ def phase_fleet(dev, card: str) -> dict:
                 step_s=step_s)
 
 
+def phase_serve(dev, card: str) -> dict:
+    """Phase 16, its two steps, each step's wall time printed."""
+    import torch
+
+    step_s = {}
+
+    def step(name, t0):
+        step_s[name] = time.perf_counter() - t0
+        log(f"  serve step {name}: {step_s[name]:.1f} s wall")
+
+    t0 = time.perf_counter()
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    sv = serve_tgen(dev, flush)
+    del flush
+    b1, b2, solo = sv["b1"], sv["b2"], sv["solo"]
+    per_round = b1["wall_s"] / b1["rounds"] * 1e3
+    solo_round = solo["wall_s"] / solo["rounds"] * 1e3
+    log(f"served tgen50k (2 lanes, {sv['hosts']} host columns, "
+        f"{SERVE_WINDOWS} windows) on {card}: batch wall {b1['wall_s']:.3f} "
+        f"s ({b1['step_s']:.3f} s for the daemon's step, intake "
+        f"{b1['intake_s']:.3f} s), {b1['rounds']} rounds = {per_round:.2f} "
+        f"ms/round, {b1['events'] / b1['wall_s']:.0f} events/s aggregate; "
+        f"solo seed 72 {solo['wall_s']:.3f} s, {solo['rounds']} rounds = "
+        f"{solo_round:.2f} ms/round, {solo['events'] / solo['wall_s']:.0f} "
+        f"events/s; seed 71 equal to net_tgen50k.json (experiment SHA-256 "
+        f"and {SERVE_WINDOWS} windows of digest words), seed 72 equal to "
+        f"its solo run on the card")
+    log(f"served tgen50k launches over the batch: {sv['launches']} (push "
+        f"by entry {sv['push_entries']}) = " + ", ".join(
+            f"{k} {n / b1['rounds']:.2f}" for k, n in sv["launches"].items())
+        + " per round")
+    log(f"served tgen50k per round (window {SERVE_WINDOWS // 2}, "
+        f"{sv['extra_rounds']} rounds): {sv['ops_per_round']:.1f} device "
+        f"ops, {sv['reads_per_round']:.2f} device->host reads; solo seed 72 "
+        f"on the same window: {solo['ops_per_round']:.1f} ops, "
+        f"{solo['reads_per_round']:.2f} reads")
+    log(f"served tgen50k swapped (seeds 72, 71): cache {b2['cache']}, the "
+        f"same engine, no engine built; batch wall {b2['wall_s']:.3f} s "
+        f"({b2['step_s']:.3f} s step, intake {b2['intake_s']:.3f} s); "
+        f"engine build {sv['build_s']:.3f} s "
+        f"(miss) vs rebind {sv['rebind_s']:.3f} s (hit); streams equal to "
+        f"batch 1's")
+    log(f"served tgen50k snapshots at batch end: {len(sv['saves'])} "
+        f"(seconds {[round(x, 3) for x in sv['saves']]})")
+    b0, b_in, b_1 = sv["budget"]
+    log(f"served tgen50k idle budget (free + reserved): {b0} B before, "
+        f"{b_in} B at the batch's boundaries, {b_1} B after")
+    log(f"served tgen50k memory: mem.estimate resident "
+        f"{sv['est_resident']} B vs {sv['resident']} B allocated after "
+        f"init_state (ratio {sv['est_resident'] / sv['resident']:.4f}); "
+        f"estimated peak {sv['est_peak']} B (the ctx tables aside), "
+        f"measured peak of the swapped batch {sv['peak']['allocated']} B "
+        f"over what was allocated before it (ratio "
+        f"{sv['est_peak'] / sv['peak']['allocated']:.4f}); allocated "
+        f"between the two batches: {sv['leftover']} B (the cached "
+        f"engine's ctx tables, estimated: {sv['est_const']} B)")
+    log(f"serve path: kept rounds of window {SERVE_PATH_WINDOW} with "
+        f"{sv['actives']} popping host columns")
+    for name, r in sv["kernels"].items():
+        report_path(name, r, f"serve path (served tgen50k window "
+                    f"{SERVE_PATH_WINDOW}, H {sv['hosts']})")
+    step("tgen50k served", t0)
+
+    t0 = time.perf_counter()
+    pr = serve_probe()
+    log(f"serveprobe (serve_phold, seeds 5 and 6) on {card}: every gate "
+        f"passed in {pr['wall_s']:.1f} s — round trip "
+        f"{pr['windows_compared']}, cache hits {pr['cache_hits']}, "
+        f"over-budget rejected {pr['rejected_overbudget']}, shutdown rc "
+        f"{pr['shutdown_rc']}; resilience {json.dumps({k: v for k, v in pr['resilience'].items() if k != 'ledger'})}; "
+        f"preemption {json.dumps(pr['preemption'])}")
+    step("serveprobe", t0)
+    return dict(tgen=sv, probe=pr, step_s=step_s)
+
+
 def main() -> int:
     import torch
 
@@ -2605,6 +3089,12 @@ def main() -> int:
     t0 = time.perf_counter()
     fleet = phase_fleet(dev, card)
     phase_done("fleet", t0)
+
+    # Phase 16, the serve plane, right after: its in-path kernel timings
+    # need the profiler's traces whole too.
+    t0 = time.perf_counter()
+    serve = phase_serve(dev, card)
+    phase_done("serve", t0)
 
     t0 = time.perf_counter()
     net = run_net_golden("filexfer16k", dev, count=True)
@@ -2745,6 +3235,8 @@ def main() -> int:
         err = max(err, *(r["max_abs_err"] for r in lad.values()))
         fp = fleet["path"]["kernels"][name]
         err = max(err, fp["path_err"])
+        sp = serve["tgen"]["kernels"][name]
+        err = max(err, sp["path_err"])
         if name == "pop":
             err = max(err, fleet["sweep"]["until_err"])
         kernels.append({
@@ -2804,6 +3296,16 @@ def main() -> int:
             "fleet_path_wrapper_us": fp["path_wrapper_ms"] * 1e3,
             "fleet_path_case_us": [x * 1e3 for x in fp["path_case_ms"]],
             "fleet_path_active": fp["path_active"],
+            "serve_launches": serve["tgen"]["launches"][name],
+            "serve_launches_per_round": serve["tgen"]["launches"][name]
+            / serve["tgen"]["b1"]["rounds"],
+            "serve_path_err": sp["path_err"],
+            "serve_path_us": sp["path_ms"] * 1e3,
+            "serve_path_bound_us": sp["path_bound_ms"] * 1e3,
+            "serve_path_plain_us": sp["path_plain_ms"] * 1e3,
+            "serve_path_wrapper_us": sp["path_wrapper_ms"] * 1e3,
+            "serve_path_case_us": [x * 1e3 for x in sp["path_case_ms"]],
+            "serve_path_active": sp["path_active"],
         })
         if name == "pop":
             kernels[-1]["fleet_per_host_bound_err"] = \

@@ -51,8 +51,17 @@ hangs without progress give ``EXIT_HUNG``).
 ``--lane-finalize``: one ``fleet_exp`` record per experiment and a
 ``fleet_summary`` on stdout, ``exp``-tagged ring records and heartbeats on
 the record stream, and a rejected sweep as one ``fleet_config`` record
-(``EXIT_CONFIG``). The flags of shard and serve (``--engine
-cpu|sharded``) are parsed and refused, naming their ROADMAP item.
+(``EXIT_CONFIG``). The flags of shard (``--engine cpu|sharded``) are
+parsed and refused, naming their ROADMAP item.
+
+The serve plane (``serve/``) runs through two subcommands, dispatched
+before this parser as the reference does::
+
+    python -m shadow1_tpu_torch serve --spool DIR [--device cuda|cpu] ...
+    python -m shadow1_tpu_torch submit CFG --spool DIR [--priority P] ...
+
+``serve`` starts the multi-tenant daemon (``serve/daemon.py``) and
+``submit`` is its client (``serve/client.py``).
 """
 
 from __future__ import annotations
@@ -76,7 +85,7 @@ from shadow1_tpu_torch.consts import (
 
 MAX_RESPAWNS = 8
 
-_FLEET = "ROADMAP: Queue A item 6, serve, shard and tools"
+_FLEET = "ROADMAP: Queue A item 6, shard and the tools"
 
 
 def _config_fingerprint(config_path: str) -> str:
@@ -551,7 +560,17 @@ def _fleet_config_exit(e) -> int:
 
 
 def main(argv=None) -> int:
+    # The serve plane's subcommands: dispatched before the solo parser, so
+    # the solo surface (a positional config and flags) stays as it is.
     argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if argv and argv[0] == "serve":
+        from shadow1_tpu_torch.serve.daemon import main as serve_main
+
+        return serve_main(argv[1:])
+    if argv and argv[0] == "submit":
+        from shadow1_tpu_torch.serve.client import main as submit_main
+
+        return submit_main(argv[1:])
     ap = _parser()
     args = ap.parse_args(argv)
     _refuse_unported(ap, args)

@@ -476,15 +476,30 @@ def build_experiment(doc: dict, base_dir: str = ".") -> tuple[CompiledExperiment
     return exp, params, scheduler
 
 
-def load_experiment(path: str):
-    """Load a YAML experiment file → (CompiledExperiment, EngineParams,
-    scheduler). ``yaml`` is imported here, not at module import: the
-    machine with the card has no ``pyyaml``, and code that builds its
-    experiments in Python must not need it."""
-    import os
+def parse_config(text: str):
+    """A config document from its text: JSON when the text is a JSON
+    mapping, else YAML. Every JSON document is YAML, but the machine with
+    the card has no ``pyyaml``, so a JSON config must not need it: ``yaml``
+    is imported only for YAML text, never at module import."""
+    import json
 
+    try:
+        doc = json.loads(text)
+    except ValueError:
+        pass
+    else:
+        if isinstance(doc, dict):
+            return doc
     import yaml
 
+    return yaml.safe_load(text)
+
+
+def load_experiment(path: str):
+    """Load a YAML or JSON experiment file → (CompiledExperiment,
+    EngineParams, scheduler) (:func:`parse_config`)."""
+    import os
+
     with open(path) as f:
-        doc = yaml.safe_load(f)
+        doc = parse_config(f.read())
     return build_experiment(doc, base_dir=os.path.dirname(os.path.abspath(path)))

@@ -39,8 +39,9 @@ section (the PR 5 ``_reject_unknown`` pattern); typos *inside* a ``vary``
 entry fail in ``build_experiment``'s own section validation, since each
 merged document is compiled through the one standard path.
 
-``yaml`` is imported only by ``load_sweep``: the card's machine builds its
-sweeps in code (``config/compiled.sweep_phold_experiments``).
+``yaml`` is imported only by ``load_sweep``, and only for YAML text: the
+card's machine builds its sweeps in code
+(``config/compiled.sweep_phold_experiments``) or reads them as JSON.
 """
 
 from __future__ import annotations
@@ -292,11 +293,12 @@ def expand_sweep(doc: dict, base_dir: str = ".") -> FleetPlan:
 
 
 def load_sweep(path: str) -> FleetPlan:
-    """Load a YAML experiment file with a ``sweep:`` section → FleetPlan."""
+    """Load a YAML or JSON experiment file with a ``sweep:`` section →
+    FleetPlan (``config.experiment.parse_config``)."""
     import os
 
-    import yaml
+    from shadow1_tpu_torch.config.experiment import parse_config
 
     with open(path) as f:
-        doc = yaml.safe_load(f)
+        doc = parse_config(f.read())
     return expand_sweep(doc, base_dir=os.path.dirname(os.path.abspath(path)))

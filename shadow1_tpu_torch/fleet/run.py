@@ -232,7 +232,7 @@ def run_fleet(engine, st=None, n_windows=None, every_windows=None,
               emit_heartbeat=True, emit_ring=True, selfcheck=False,
               labels=None, ckpt_keep=3, drain=None, auto_caps=False,
               quarantine_base=None, emit_record=None, resume_meta=None,
-              recovery_seed=None):
+              recovery_seed=None, final_snapshot=True):
     """Run the fleet in chunks. Returns (final_state, FleetHeartbeat).
 
     Mirrors ``obs.run_with_heartbeat`` (compile excluded from the first
@@ -262,8 +262,10 @@ def run_fleet(engine, st=None, n_windows=None, every_windows=None,
     ({"quarantined": [gids], "finished": [gids]} from a resumed
     generation's meta) pre-populates the ledger so a respawned process's
     final summary still reports lanes that left the fleet before the
-    crash. The heartbeat's ``engine`` / ``labels`` / ``recovery``
-    attributes expose the live fleet shape."""
+    crash. ``final_snapshot=False`` skips the snapshot of the last
+    boundary (the serve daemon deletes a finished batch's lineage at
+    once). The heartbeat's ``engine`` /
+    ``labels`` / ``recovery`` attributes expose the live fleet shape."""
     from shadow1_tpu_torch import ckpt as _ckpt
     from shadow1_tpu_torch.convert import clone_state, fleet_to_saved
     from shadow1_tpu_torch.fleet.engine import FleetEngine
@@ -582,8 +584,8 @@ def run_fleet(engine, st=None, n_windows=None, every_windows=None,
         draining = drain is not None and drain.requested
         saved = False
         if lineage is not None and engine.n_exp > 0 and (
-                done >= total or draining
-                or now - last_save > ckpt_every_s):
+                final_snapshot if done >= total
+                else draining or now - last_save > ckpt_every_s):
             meta = {"win_start": sim_ns, "done_windows": done,
                     "lanes": [l.get("exp") for l in labels]}
             if recovery["quarantined"]:

@@ -38,7 +38,10 @@ own (eager PyTorch, not XLA's buffers):
 * ``rollback`` — one full state under ``on_overflow=retry``: the guard's
   chunk-start clone (``txn.OverflowGuard.rollback_point``). During a
   replay the tainted result is freed first, so the rollback copy and the
-  replaying state are all there is;
+  replaying state are all there is. A fleet under
+  ``on_lane_fail=quarantine`` holds the same clone (``fleet/run.py``
+  slices a failing lane out of the chunk-start state), so it is priced
+  there too — the serve daemon runs every batch so;
 * ``transient`` — the largest per-phase working set: the window end
   (``route_outbox``'s flattened [P·H] columns, ``deliver_batch``'s sort
   keys, ranks and gathered [5+NP, C, H] rows, and its new event-buffer
@@ -327,7 +330,7 @@ class MemEstimate:
                         key=lambda kv: -kv[1])
         lines.append("  planes: " + ", ".join(
             f"{k} {fmt_bytes(v)}" for k, v in ranked if v))
-        if self.peaks.get("rollback"):
+        if self.peaks.get("rollback") and p.on_overflow == "retry":
             lines.append(f"  --on-overflow halt  # frees the transactional "
                          f"rollback copy: {fmt_bytes(self.peaks['rollback'])}")
         if self.planes.get("telem"):
@@ -398,7 +401,9 @@ def estimate(exp, params, fleet=None) -> MemEstimate:
     biggest = max((t.numel() * t.element_size() for t in leaves), default=0)
     peaks = {
         "output": state,
-        "rollback": state if params.on_overflow == "retry" else 0,
+        "rollback": state if (params.on_overflow == "retry" or (
+            fleet is not None and params.on_lane_fail == "quarantine"))
+        else 0,
         "transient": max(window_end, rebase, _ROUND_LEAF_COPIES * biggest),
     }
     return MemEstimate(
@@ -471,11 +476,12 @@ def downshift(exp, params, budget: int, resumable: bool = False,
     if est.peak_bytes <= budget:
         return params, actions
     if params.on_overflow == "retry":
-        freed = est.peaks["rollback"]
         params = dataclasses.replace(params, on_overflow="halt")
+        halted = estimate(exp, params, fleet)
+        # A quarantining fleet keeps its chunk-start clone under halt.
         actions.append({"action": "drop_rollback", "on_overflow": "halt",
-                        "freed": int(freed)})
-        est = estimate(exp, params, fleet)
+                        "freed": int(est.peak_bytes - halted.peak_bytes)})
+        est = halted
     if est.peak_bytes > budget and params.metrics_ring > 0 and not resumable:
         min_w = 1 if params.state_digest else 0
         # A removed ring window frees its row in the state and in the

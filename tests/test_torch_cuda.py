@@ -35,6 +35,8 @@ copy on the card too, and a PHOLD retried there equals the straight run
 at the final cap.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -663,3 +665,54 @@ def test_retry_rollback_is_a_copy_on_cuda(dev):
     ref = ref_eng.run(n_windows=40)
     assert Engine.metrics_dict(st) == Engine.metrics_dict(ref)
     assert drain_ring(st, eng.window) == drain_ring(ref, eng.window)
+
+
+def test_serve_two_lanes_on_cuda_matches_cpu(dev, tmp_path):
+    """The serve daemon on the card: two PHOLD tenants (JSON configs, no
+    YAML parser needed) packed into one 2-lane batch launch the kernels,
+    and each tenant's record stream equals its solo run on the CPU; a
+    second pair is a cache hit that builds no engine."""
+    import json
+
+    from shadow1_tpu_torch.config.experiment import build_experiment
+    from shadow1_tpu_torch.serve import client
+    from shadow1_tpu_torch.serve.daemon import ServeDaemon
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+
+    def doc(seed):
+        return {"general": {"seed": seed, "stop_time": "40 ms"},
+                "engine": {"scheduler": "tpu", "ev_cap": 32,
+                           "metrics_ring": 10, "state_digest": 1},
+                "network": {"single_vertex": {"latency": "1 ms"}},
+                "hosts": [{"name": "h", "count": 8}],
+                "app": {"model": "phold", "params": {
+                    "mean_delay_ns": 2000000.0, "init_events": 3}}}
+
+    d = ServeDaemon(str(tmp_path / "spool"), ckpt_every_s=1e9,
+                    device=dev).start()
+    try:
+        for batch, seeds in ((0, (5, 6)), (1, (7, 8))):
+            jids = []
+            for s in seeds:
+                cfg = tmp_path / f"s{s}.json"
+                cfg.write_text(json.dumps(doc(s)))
+                jids.append(client.submit(d.spool.root, str(cfg)))
+            before = popk.LAUNCHES["pop"]
+            assert d.step()
+            assert popk.LAUNCHES["pop"] > before
+            for jid, s in zip(jids, seeds):
+                st = d.spool.read_status(jid)
+                assert st["state"] == "done" and st["lanes"] == 2, st
+                assert st["cache"] == ("miss", "hit")[batch]
+                exp, params, _ = build_experiment(doc(s))
+                ref = Engine(exp, dataclasses.replace(params,
+                                                      metrics_ring=40),
+                             device="cpu").run(n_windows=40)
+                rows = [{k: v for k, v in r.items()
+                         if k not in ("exp", "job")}
+                        for r in d.spool.read_results(jid)
+                        if r["type"] == "ring"]
+                assert rows == drain_ring(ref, exp.window)
+        assert d.cache.counters()["cache_misses"] == 1
+    finally:
+        d.close()

@@ -1,8 +1,9 @@
-"""Where a fidelity16k run, or a fleet, peaks in device memory on a CUDA
-card.
+"""Where a fidelity16k run, a fleet, or a served batch peaks in device
+memory on a CUDA card.
 
     python tools/torch_mem_peak.py          # fidelity16k
     python tools/torch_mem_peak.py fleet    # chip_smoke.py's fleet_filexfer16k
+    python tools/torch_mem_peak.py serve    # chip_smoke.py's served tgen50k
 
 Runs ``fidelity16k`` (``shadow1_tpu_torch/golden/net_fidelity16k.json``,
 16,384 hosts, every fidelity gate on) twice in chunks of 2 windows, as
@@ -18,6 +19,12 @@ model (``output``, ``rollback``, ``transient``) is checked against.
 ``fleet`` records ``chip_smoke.py`` phase 15's ``fleet_filexfer16k`` (4
 lanes of filexfer16k folded onto 65,536 host columns) from construction
 through its 10 windows, beside ``mem.estimate`` of that fleet.
+
+``serve`` records ``chip_smoke.py`` phase 16's served batch: an in-process
+``ServeDaemon`` on the card serving tgen50k for seeds 71 and 72 (JSON
+jobs, one 2-lane batch of 100,000 host columns, 20 windows), from the
+daemon's step to the batch's end, beside ``mem.estimate`` of the batch
+as the daemon prices it.
 
 Prints the card's name and power limit first.
 """
@@ -105,6 +112,46 @@ def fleet(dev) -> None:
     del st, eng
 
 
+def serve(dev) -> None:
+    import shutil
+
+    import torch
+
+    import chip_smoke as cs
+    from shadow1_tpu_torch import mem
+    from shadow1_tpu_torch.serve import client
+    from shadow1_tpu_torch.serve.daemon import ServeDaemon
+
+    shutil.rmtree(cs.SERVE_DIR, ignore_errors=True)
+    cs.SERVE_DIR.mkdir(parents=True)
+    d = ServeDaemon(str(cs.SERVE_DIR / "spool"), ckpt_every_s=1e9,
+                    device=dev).start()
+    try:
+        for seed in cs.SERVE_SEEDS:
+            client.submit(d.spool.root, cs.tgen_job(seed), job_id=f"t{seed}")
+        d._safe_intake()
+        jobs = [d.jobs[f"t{s}"] for s in cs.SERVE_SEEDS]
+        exps = [j.exp for j in jobs]
+        est = mem.estimate(exps[0], jobs[0].params, fleet=(exps, None))
+        print(f"mem.estimate: resident {est.resident_bytes} B, peak "
+              f"{est.peak_bytes} B; planes {est.planes}; peaks {est.peaks}",
+              flush=True)
+        base = cs.clean_allocator(dev)
+        torch.cuda.memory._record_memory_history(max_entries=4_000_000,
+                                                 stacks="python")
+        t0 = time.perf_counter()
+        assert d.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        trace = torch.cuda.memory._snapshot()["device_traces"][0]
+        torch.cuda.memory._record_memory_history(enabled=None)
+        report("served tgen50k (2 lanes)", trace, peak, wall)
+    finally:
+        d.close()
+        shutil.rmtree(cs.SERVE_DIR, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -124,8 +171,8 @@ def main() -> int:
         check=True).stdout.strip(), flush=True)
     _build.library()
     dev = torch.device("cuda")
-    if sys.argv[1:] == ["fleet"]:
-        fleet(dev)
+    if sys.argv[1:] in (["fleet"], ["serve"]):
+        {"fleet": fleet, "serve": serve}[sys.argv[1]](dev)
         return 0
     gold = cs.net_golden("fidelity16k")
     exp = cs.net_experiment("fidelity16k", gold)
