@@ -146,13 +146,15 @@ fails:
    0-9, every lane's metrics, ring rows and summaries equal to the port's
    solo ``Engine`` on the card; it prints the wall time, ms per round,
    rounds per window, aggregate events/s, the four solo runs' summed wall,
-   device operations and device→host reads per round of one more window,
-   and ``mem.estimate`` against ``memory_allocated`` after ``init_state``
-   (within 10 %) and against the run's ``max_memory_allocated`` (at or
-   above it); (3) the three kernels on the arguments of three rounds
-   of that fleet's window 8 (the hooks of phase 8), bit-equal to their
-   plain versions and timed against the byte bound; (4) on the sweep, each
-   equal to the golden: a run from ``ev_cap`` 4 under ``--on-overflow
+   device operations and device→host reads per round counted on the
+   fleet's own windows 10-12 as its run goes on (``CountedWindows``; lane
+   0 solo's ops on its window 10), and ``mem.estimate`` against
+   ``memory_allocated`` after ``init_state`` (within 10 %) and against
+   the run's ``max_memory_allocated`` (at or above it); (3) the three
+   kernels on the arguments of three rounds of that fleet's window 8
+   (the hooks of phase 8), bit-equal to their plain versions and timed
+   against the byte bound; (4) on the sweep, each equal to the golden: a
+   run from ``ev_cap`` 4 under ``--on-overflow
    retry``, a halt whose error names the lane and its seed, a
    ``--on-lane-fail quarantine`` of a lane forced to fail (a self-check
    violation) whose 16 survivors stay equal, a window-10 snapshot resumed
@@ -176,7 +178,9 @@ fails:
    lanes swap) must hit the cache (the same engine, no ``FleetEngine``
    built) and give the batch-1 streams. It prints the batch wall, ms per
    round and aggregate events/s against the solo run, device ops and
-   reads per round of one more window against the solo run's, build
+   reads per round counted on windows 10-12 of the swapped batch and of
+   the solo run (``CountedWindows``; the solo run's timing leaves them
+   out), build
    against rebind seconds, the snapshots ``run_fleet`` wrote at batch
    end and their seconds, and the memory estimate against
    ``memory_allocated`` (resident) and the swapped batch's
@@ -191,6 +195,36 @@ fails:
    waiting_headroom, queue_full, a queue TTL, an injected transient crash,
    a priority-1 eviction and a restart on a drained spool, every served
    stream equal to the port's solo CLI run.
+
+17. the operator tools (``shadow1_tpu_torch/tools/``; run last), on JSON
+   mirrors of the YAML configs (``tool_configs``), each step's wall time
+   printed: (b, first) ``memprobe.maxfit`` at the card's budget
+   (``mem.device_budget``) for fidelity16k and the 17-lane sweep; (a)
+   ``faultprobe sort0 scan0 pop phold tor 10`` as a subprocess, alone:
+   its first line must name ``cuda``, every probe report ok and launch
+   its kernels; its ``pop`` probe, in process, bit-equal to
+   ``push_local_plain`` / ``pop_until_plain`` on the same inputs; it
+   prints the PHOLD probe's ms per round; (c) three ``chaosprobe``
+   subprocesses side by side, each running its trials at once after its
+   straight run (``--jobs``) — solo on rung1 with ``--no-oracle``, 5
+   trials (``drain``, ``torn_head``, ``corrupt_head``, ``mid_write`` and
+   one random kind; 40 windows, the straight stream equal to
+   ``net_rung1.json``'s windows 0-39), the 17-lane sweep under ``--fleet
+   --extra "--on-overflow retry"`` from ``ev_cap`` 4 (2 trials: ``drain``,
+   ``torn_head``), and ``--serve 1`` on serve_phold — each verdict ok;
+   beside them the memory run, the CLI on rung1 under ``--on-overflow
+   retry --on-oom downshift`` with ``SHADOW1_MEM_BYTES`` between its halt
+   and retry peaks; meanwhile, in process, (b)
+   ``memprobe.audit_experiment`` of fidelity16k and ``audit_config`` of
+   dense_tgen50k within 10 %, and ``memprobe.subbatch_run`` on the sweep
+   (batches of 9, each through a snapshot; its launches counted from 0)
+   bit-identical and every lane equal to
+   ``golden/fleet_sweep_phold.json``; then (d) heartbeat_report,
+   flowreport, netreport and captune over record streams the program
+   wrote on the card — phase 13's split run (``OBS_RECORDS``), the solo
+   chaosprobe's CLI launches, the memory run and phase 16's daemon
+   (``serve.log``): each exits 0, and the lineage, memory, serve, flow
+   and link sections are there and not empty.
 
 The path phases (8, 10, 12) rerun a golden only to one window past the
 window whose arguments they keep (``run_net_golden(stop_after=)``: the
@@ -1142,6 +1176,8 @@ class NetPathCapture:
 # -- phase 13: checkpoint and observability ---------------------------------
 
 OBS_DIR = ROOT / "build" / "chip_smoke_obs"
+# The record stream of phase 13's split run, for phase 17's reports.
+OBS_RECORDS = ROOT / "build" / "chip_smoke_records" / "obs.jsonl"
 # The lineage of phase 13's split run: a generation every OBS_CHUNK
 # windows; the run stops at window OBS_SPLIT and a fresh engine resumes
 # from the lineage's head to the golden's end.
@@ -1157,6 +1193,12 @@ def obs_params(gold: dict, obs: dict, on: bool):
                   link_telem=1) if on else {})
     return EngineParams(**gold["params"], metrics_ring=gold["windows"],
                         state_digest=1, **extra)
+
+
+def hb_records(hb) -> list:
+    """A ``run_with_heartbeat`` heartbeat's stream: its heartbeats, then
+    the ring, flow and link records it drained."""
+    return hb.records + hb.ring_records + hb.flow_records + hb.link_records
 
 
 def sync_reads(run) -> int:
@@ -1272,6 +1314,9 @@ def run_obs_split(dev) -> dict:
     for e in prof.chrome_trace()["traceEvents"]:
         if e.get("ph") == "X":
             spans.setdefault(e["name"], []).append(e["dur"] / 1e6)
+    OBS_RECORDS.parent.mkdir(parents=True, exist_ok=True)
+    OBS_RECORDS.write_text("".join(
+        json.dumps(r) + "\n" for r in hb_records(hb1) + hb_records(hb2)))
     return dict(first_s=first_s, second_s=second_s, load_s=load_s,
                 snap_bytes=snap_bytes, spans=spans, launches=launches,
                 push_entries=entries, rounds=int(st.metrics.rounds),
@@ -2108,13 +2153,13 @@ def fleet_filexfer(dev) -> dict:
     path's launches counted from 0; lane 0's ring rows against
     net_filexfer16k.json; every lane against the port's solo Engine on the
     card; mem.estimate against the allocator; device ops and reads per
-    round of one more window."""
+    round counted on the windows that follow (``CountedWindows``), lane 0
+    solo's ops on its own window FLEET_WINDOWS."""
     import numpy as np
     import torch
 
     from shadow1_tpu_torch import mem
     from shadow1_tpu_torch.consts import EngineParams
-    from shadow1_tpu_torch.convert import clone_state
     from shadow1_tpu_torch.core import popk
     from shadow1_tpu_torch.core.engine import Engine
     from shadow1_tpu_torch.fleet.engine import FleetEngine
@@ -2173,41 +2218,30 @@ def fleet_filexfer(dev) -> dict:
                 f"fleet_filexfer16k lane {e}: summaries differ from the "
                 f"solo run's")
         if e == 0:
-            # Lane 0's solo window 10, the same window as the fleet's below.
-            r_solo = Engine.metrics_dict(ss)["rounds"]
-            solo_out = {}
-
-            def solo_window(s0=ss, eng0=solo):
-                solo_out["st"] = eng0.run(s0, n_windows=1)
-                sync(dev)
-
-            solo_ops = sum(c for _, c, _ in device_ops(solo_window))
-            solo_rounds = (Engine.metrics_dict(solo_out.pop("st"))["rounds"]
-                           - r_solo)
+            # Lane 0's solo run goes on: its window FLEET_WINDOWS counted,
+            # the fleet's first counted window below.
+            with CountedWindows(solo, FLEET_WINDOWS,
+                                lambda s: int(s.metrics.rounds),
+                                stages=("ops",)) as cw:
+                while cw.todo:
+                    ss = solo.run(ss, n_windows=1)
+            solo_ops = cw.costs["ops_per_round"]
+            count_s = cw.wall_s
         del ss, solo
-    # One more window: its device operations and host reads per round
-    # (each on its own copy: the kernels update the planes in place).
-    r0 = max(m["rounds"] for m in per)
-    copies = {k: clone_state(st) for k in ("ops", "warm-up", "reads")}
-    out = {}
-
-    def one_window(key):
-        out[key] = eng.run(copies.pop(key), n_windows=1)
-        sync(dev)
-
-    n_ops = sum(c for _, c, _ in device_ops(lambda: one_window("ops")))
-    sync_reads(lambda: one_window("warm-up"))
-    reads = sync_reads(lambda: one_window("reads"))
-    r1 = max(m["rounds"] for m in eng.metrics_per_exp(out["reads"])) - r0
-    del out
+    # The fleet's run goes on: device operations and host reads per round
+    # of its windows from FLEET_WINDOWS on.
+    with CountedWindows(eng, FLEET_WINDOWS, lambda s: int(
+            s.metrics.rounds.max())) as cw:
+        while cw.todo:
+            st = eng.run(st, n_windows=1)
+    del st
     return dict(wall_s=wall, launches=launches, push_entries=entries,
-                solo_ops_per_round=solo_ops / max(solo_rounds, 1),
+                solo_ops_per_round=solo_ops,
                 rounds=rounds, windows=FLEET_WINDOWS, hosts=eng.ctx.n_hosts,
                 events=sum(m["events"] for m in per), solo_wall_s=solo_wall,
-                ops_per_round=n_ops / max(r1, 1),
-                reads_per_round=reads / max(r1, 1), extra_rounds=r1,
                 resident=resident, estimated=est.resident_bytes,
-                ratio=ratio, peak=peak, est_peak=est.peak_bytes)
+                ratio=ratio, peak=peak, est_peak=est.peak_bytes,
+                count_s=count_s + cw.wall_s, **cw.costs)
 
 
 def fleet_path(dev, flush) -> dict:
@@ -2487,48 +2521,124 @@ def _serve_log(d) -> list:
 
 
 def serve_solo(dev, exp, params) -> dict:
-    """The solo Engine on the card over SERVE_WINDOWS windows (timed as
-    two halves), with the device ops and reads of one window after the
-    first half, on copies of its state."""
+    """The solo Engine on the card over SERVE_WINDOWS windows, the device
+    ops and reads counted on windows SERVE_WINDOWS / 2 on of the run
+    (``CountedWindows``), whose wall and rounds are left out of the
+    timing."""
     from shadow1_tpu_torch.core.engine import Engine
     from shadow1_tpu_torch.telemetry.ring import drain_ring
 
     eng = Engine(exp, params, device=dev)
-    half = SERVE_WINDOWS // 2
     sync(dev)
     t0 = time.perf_counter()
-    st = eng.run(n_windows=half)
-    sync(dev)
-    wall = time.perf_counter() - t0
-    ops = one_window_costs(eng, st, lambda s: Engine.metrics_dict(s)["rounds"])
-    t0 = time.perf_counter()
-    st = eng.run(st, n_windows=SERVE_WINDOWS - half)
-    sync(dev)
-    wall += time.perf_counter() - t0
+    with CountedWindows(eng, SERVE_WINDOWS // 2,
+                        lambda s: int(s.metrics.rounds)) as cw:
+        st = eng.run(n_windows=SERVE_WINDOWS)
+        sync(dev)
+    wall = time.perf_counter() - t0 - cw.wall_s
     m = Engine.metrics_dict(st)
     return dict(wall_s=wall, rows=drain_ring(st, eng.window), metrics=m,
-                rounds=m["rounds"], events=m["events"], **ops)
+                rounds=m["rounds"] - cw.rounds, events=m["events"],
+                **cw.costs)
 
 
-def one_window_costs(eng, st, rounds_of) -> dict:
-    """Device operations and device→host reads per round of one window
-    run from ``st`` (each attempt on its own copy: the kernels update the
-    planes in place)."""
-    from shadow1_tpu_torch.convert import clone_state
+def windows_of(st) -> int:
+    return int(st.metrics.windows.max())
 
-    r0 = rounds_of(st)
-    out = {}
 
-    def one_window(key):
-        out[key] = eng.run(clone_state(st), n_windows=1)
-        sync(eng.device)
+class CountedWindows:
+    """Device operations and device→host reads per round, counted on
+    windows of a run that is there anyway: a hook on ``eng.run`` that,
+    from window ``at`` on, runs one window under ``torch.profiler``
+    (counted; when CUPTI hands back no record, again on the next window,
+    up to ``attempts`` times), then one under ``sync_reads`` (a warm-up:
+    some sync warnings are issued once a process) and one under
+    ``sync_reads`` (counted). Every other window runs as it would, in the
+    calls the caller made. ``wall_s`` and ``rounds`` are those of the
+    counted windows, for callers that time the run around them; ``costs``
+    the counts per round (``ops_per_round``, ``reads_per_round``, and
+    ``extra_rounds``, the counted ops window's rounds)."""
 
-    n_ops = sum(c for _, c, _ in device_ops(lambda: one_window("ops")))
-    sync_reads(lambda: one_window("warm-up"))
-    reads = sync_reads(lambda: one_window("reads"))
-    r1 = rounds_of(out["reads"]) - r0
-    return dict(ops_per_round=n_ops / max(r1, 1),
-                reads_per_round=reads / max(r1, 1), extra_rounds=r1)
+    def __init__(self, eng, at: int, rounds_of, attempts: int = 3,
+                 stages=("ops", "warm-up", "reads")):
+        self.eng, self.at, self.rounds_of = eng, at, rounds_of
+        self.attempts = attempts
+        self.todo = list(stages)
+        self.wall_s, self.rounds = 0.0, 0
+        self.costs = {}
+
+    def __enter__(self):
+        self._own = self.eng.__dict__.get("run")
+        self._run = self.eng.run
+        self.eng.run = self.run
+        return self
+
+    def __exit__(self, *exc):
+        if self._own is None:
+            del self.eng.run
+        else:
+            self.eng.run = self._own
+
+    def run(self, st=None, n_windows=None):
+        # The state is handed over call to call (``held``), as
+        # ``ckpt.run_chunked`` does: no frame here keeps a window's input
+        # alive past the window, or the peak would hold a third state.
+        held = [self.eng.init_state() if st is None else st]
+        del st
+        n = self.eng.n_windows if n_windows is None else int(n_windows)
+        while n > 0:
+            k = n
+            if self.todo:
+                w = windows_of(held[0])
+                if w >= self.at:
+                    held.append(self._counted(held.pop()))
+                    n -= 1
+                    continue
+                k = min(n, self.at - w)
+            held.append(self._run(held.pop(), n_windows=k))
+            n -= k
+        return held.pop()
+
+    def _counted(self, st):
+        from torch.autograd.profiler import _filter_name
+        from torch.profiler import ProfilerActivity, profile
+
+        stage, box = self.todo[0], {"in": [st]}
+        r0 = self.rounds_of(st)
+        del st
+
+        def step():
+            box["st"] = self._run(box["in"].pop(), n_windows=1)
+            sync(self.eng.device)
+
+        t0 = time.perf_counter()
+        if stage == "ops":
+            # Device records only, counted from the profiler's raw events:
+            # the host ops' records and ``key_averages``' event objects
+            # would cost more than the window they count (~1,000 a round).
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                time.sleep(0.02)
+                step()
+                time.sleep(0.02)
+            ops = sum(1 for e in prof.profiler.kineto_results.events()
+                      if str(e.device_type()).endswith("CUDA")
+                      and not _filter_name(e.name()))
+            self.attempts -= 1
+            require(ops or self.attempts > 0, "torch.profiler recorded no "
+                    "device operation in the counted windows")
+        else:
+            ops = sync_reads(step)
+        self.wall_s += time.perf_counter() - t0
+        rounds = self.rounds_of(box["st"]) - r0
+        self.rounds += rounds
+        if stage == "ops" and ops:
+            self.costs.update(ops_per_round=ops / max(rounds, 1),
+                              extra_rounds=rounds)
+        elif stage == "reads":
+            self.costs["reads_per_round"] = ops / max(rounds, 1)
+        if stage != "ops" or ops:
+            self.todo.pop(0)
+        return box["st"]
 
 
 def serve_tgen(dev, flush) -> dict:
@@ -2611,8 +2721,15 @@ def serve_tgen(dev, flush) -> dict:
             # the cached engine's ctx tables (the estimate's ``const``)
             # among it.
             before = clean_allocator(dev)
-            b2 = serve_batch(d, (("b72", 72), ("b71", 71)), probe)
+            # Its device ops and reads per round, counted on its own
+            # windows from SERVE_WINDOWS / 2 on (CountedWindows).
+            with CountedWindows(
+                    engine1, SERVE_WINDOWS // 2,
+                    lambda s: int(s.metrics.rounds.max())) as cw:
+                b2 = serve_batch(d, (("b72", 72), ("b71", 71)), probe)
             peak = measured_peak(dev, before)
+            require(not cw.todo, f"serve: the counted windows did not all "
+                    f"run: {cw.todo} left")
             out, rebind_s, engine2 = probe.gets[-1]
             require(out == "hit" and b2["cache"] == "hit",
                     f"serve: the swapped batch was a {out}")
@@ -2625,8 +2742,8 @@ def serve_tgen(dev, flush) -> dict:
         exps = [b2["exps"]["b72"], b2["exps"]["b71"]]
     finally:
         d.close()
-    # (4): memory, and the device ops and reads per round of one more
-    # window after SERVE_WINDOWS / 2, on an engine like the served one.
+    # (4): memory: the resident estimate against an engine like the
+    # served one, built and initialised.
     from shadow1_tpu_torch.fleet.engine import FleetEngine
 
     est = mem.estimate(exps[0], params, fleet=(exps, None))
@@ -2651,9 +2768,6 @@ def serve_tgen(dev, flush) -> dict:
             f"served tgen50k: mem.estimate's peak {est_peak} B (its ctx "
             f"tables aside) is below the swapped batch's measured "
             f"{peak['allocated']} B")
-    st = eng.run(st, n_windows=SERVE_WINDOWS // 2)
-    costs = one_window_costs(
-        eng, st, lambda s: max(m["rounds"] for m in eng.metrics_per_exp(s)))
     del st, eng
     return dict(b1=b1, b2=b2, solo=solo, launches=launches,
                 push_entries=entries, kernels=kernels, actives=actives,
@@ -2663,8 +2777,8 @@ def serve_tgen(dev, flush) -> dict:
                 est_resident=est.resident_bytes, peak=peak,
                 est_peak=est_peak, leftover=leftover,
                 est_const=est.planes["const"],
-                hosts=2 * exps[0].n_hosts,
-                **costs)
+                hosts=2 * exps[0].n_hosts, count_s=cw.wall_s,
+                **cw.costs)
 
 
 def _bare(rows) -> list:
@@ -2701,6 +2815,476 @@ def serve_probe() -> dict:
             and out["preemption"]["bit_exact_jobs"] == 3,
             f"serveprobe: {out}")
     return dict(out, wall_s=wall)
+
+
+# -- phase 17: the operator tools --------------------------------------------
+
+TOOLS_DIR = ROOT / "build" / "s17"
+# configs/rung3_tor1k.yaml as JSON (faultprobe's tor probe on the card).
+TOR1K_DOC = {
+    "general": {"seed": 33, "stop_time": "60 s"},
+    "engine": {"scheduler": "tpu", "ev_cap": 256, "sockets_per_host": 64,
+               "msgq_cap": 64, "max_rounds": 1024, "compact_cap": 384},
+    "network": {"single_vertex": {"latency": "30 ms"}},
+    "hosts": [{"name": n, "count": c, "bandwidth_up": b, "bandwidth_down": b}
+              for n, c, b in (("guard", 30, "100 Mbit"),
+                              ("middle", 60, "100 Mbit"),
+                              ("exit", 30, "100 Mbit"),
+                              ("dirauth", 5, "100 Mbit"),
+                              ("client", 875, "20 Mbit"))],
+    "app": {"model": "tor", "params": {"ct_cap": 512, "cells_max": 120},
+            "defaults": {"mean_stream_cells": 40, "mean_think_ns": "2 s",
+                         "start_time": "100 ms"},
+            "groups": {"guard": {"role": 0, "relay_weight": 300,
+                                 "is_guard": True},
+                       "middle": {"role": 0, "relay_weight": 200},
+                       "exit": {"role": 0, "relay_weight": 250,
+                                "is_exit": True},
+                       "dirauth": {"role": 2},
+                       "client": {"role": 1, "n_circuits": 3,
+                                  "n_streams": 3}}},
+}
+# configs/rung1_filexfer.yaml as JSON; its GraphML path is made absolute
+# when the file is written (``tool_configs``).
+RUNG1_DOC = {
+    "general": {"seed": 11, "stop_time": "20 s"},
+    "engine": {"scheduler": "tpu", "ev_cap": 128},
+    "network": {"graphml": "configs/topology_2pop.graphml"},
+    "hosts": [{"name": "server", "count": 1, "vertex": "pop_west",
+               "bandwidth_up": "10 Mbit", "bandwidth_down": "10 Mbit"},
+              {"name": "client", "count": 1, "vertex": "pop_east",
+               "bandwidth_up": "10 Mbit", "bandwidth_down": "10 Mbit"}],
+    "app": {"model": "filexfer",
+            "groups": {"server": {"role": 0},
+                       "client": {"role": 1, "server": "@server",
+                                  "flow_bytes": 1000000, "flow_count": 1,
+                                  "start_time": "1 ms"}}},
+}
+# configs/sweep_phold.yaml's variants, in its order.
+SWEEP_VARIANTS = (
+    {}, {"network": {"single_vertex": {"loss": 0.02}}},
+    {"network": {"single_vertex": {"loss": 0.10}}},
+    {"faults": {"hosts": [{"group": "h", "down_at": "50 ms",
+                           "up_at": "100 ms"}]}})
+# Step (b): memprobe --subbatch's lanes per batch (17 lanes: 9 + 8).
+SUBBATCH_LANES = 9
+# Step (c): chaosprobe's windows and chunk; the solo trials (5: the four
+# special kinds and one random kind) and the fleet matrix's (2: drain and
+# torn_head, from an under-sized ev_cap under --on-overflow retry). The
+# three chaosprobe runs go side by side, each running its trials at once
+# after its straight run (--jobs): a launch is a supervisor and a child
+# that each start torch and reach the card, and a rung1 launch runs
+# nearly all of the golden's 1,683 rounds in its 40 windows.
+CHAOS_WINDOWS, CHAOS_CHUNK = 40, 10
+CHAOS_SOLO_TRIALS = 5
+CHAOS_FLEET_TRIALS, CHAOS_FLEET_CAP = 2, 4
+CHAOS_FLEET_WINDOWS, CHAOS_FLEET_CHUNK = 20, 5
+# Step (d): the CLI run beside them whose records give the reports'
+# memory section: rung1 under --on-overflow retry with a SHADOW1_MEM_BYTES
+# budget between its halt and retry peaks, so --on-oom downshift must drop
+# the rollback copy.
+MEMRUN_ARGS = ("--windows", "4", "--heartbeat", "2", "--on-overflow",
+               "retry", "--on-oom", "downshift")
+
+
+def sweep17_doc(**engine) -> dict:
+    """configs/sweep_phold.yaml as the 17 lanes of
+    golden/fleet_sweep_phold.json (``config.compiled
+    .sweep_phold_experiments``), in JSON: every seed under every variant,
+    seed-major, then seed 1 held to 2 rounds a window; ``engine``
+    overrides engine params."""
+    from shadow1_tpu_torch.config.compiled import SWEEP_PHOLD_SEEDS as seeds
+
+    return {
+        "general": {"seed": 1, "stop_time": "200 ms"},
+        "engine": {"scheduler": "tpu", "ev_cap": 64, "outbox_cap": 32,
+                   **engine},
+        "network": {"single_vertex": {"latency": "10 ms"}},
+        "hosts": [{"name": "h", "count": 64}],
+        "app": {"model": "phold",
+                "params": {"mean_delay_ns": 2.0e7, "init_events": 2}},
+        "sweep": {"seeds": [s for s in seeds for _ in SWEEP_VARIANTS]
+                  + [seeds[0]],
+                  "vary": [v for _ in seeds for v in SWEEP_VARIANTS]
+                  + [{"engine": {"max_rounds": 2}}]},
+    }
+
+
+def tool_configs() -> dict:
+    """Write the JSON mirrors phase 17 runs; name → path."""
+    rung1 = json.loads(json.dumps(RUNG1_DOC))
+    rung1["network"]["graphml"] = str(ROOT / RUNG1_DOC["network"]["graphml"])
+    # configs/dense_tgen50k.yaml: phase 16's tenant at the config's own
+    # horizon, without the digest words.
+    dense = json.loads(json.dumps(TGEN50K_DOC))
+    dense["general"]["stop_time"] = "20 s"
+    del dense["engine"]["state_digest"]
+    docs = {"tor1k": TOR1K_DOC, "rung1": rung1, "sweep17": sweep17_doc(),
+            "sweep17_small": sweep17_doc(ev_cap=CHAOS_FLEET_CAP),
+            "dense_tgen50k": dense, "serve_phold": SERVE_PHOLD_DOC}
+    paths = {}
+    for name, doc in docs.items():
+        paths[name] = str(TOOLS_DIR / f"{name}.json")
+        Path(paths[name]).write_text(json.dumps(doc))
+    return paths
+
+
+def start_tool(name: str, module: str, *args, env=None) -> tuple:
+    """``python -m shadow1_tpu_torch.tools.<module> args`` (``module``
+    "" for the CLI) on the card (no --device: the default), stdout and
+    stderr to files; ``env`` adds to the environment."""
+    out = TOOLS_DIR / f"{name}.out"
+    with open(out, "w") as fo, open(f"{out}.err", "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             ".".join(["shadow1_tpu_torch"] + (["tools", module] if module
+                                               else [])), *args],
+            cwd=ROOT, env={**os.environ, **(env or {})}, stdout=fo,
+            stderr=fe)
+    return name, proc, out, time.perf_counter()
+
+
+def finish_tools(tools, timeout: float) -> dict:
+    """Wait for ``start_tool`` processes: name → (its JSON lines, its
+    wall from start to exit)."""
+    out, pending = {}, list(tools)
+    deadline = time.perf_counter() + timeout
+    while pending:
+        for tool in list(pending):
+            name, proc, path, t0 = tool
+            rc = proc.poll()
+            if rc is None:
+                continue
+            pending.remove(tool)
+            text = Path(path).read_text()
+            require(rc == 0, f"phase 17: {name} exited {rc}: {text[-1500:]} "
+                    f"{Path(f'{path}.err').read_text()[-1500:]}")
+            out[name] = ([json.loads(s) for s in text.splitlines()
+                          if s.startswith("{")], time.perf_counter() - t0)
+        if pending and time.perf_counter() > deadline:
+            for _, proc, _, _ in pending:
+                proc.kill()
+                proc.wait()
+            raise AssertionError(f"phase 17: {[t[0] for t in pending]} ran "
+                                 f"past {timeout} s")
+        time.sleep(0.1)
+    return out
+
+
+def tools_faultprobe(dev, paths) -> dict:
+    """Step (a): faultprobe on the card, alone, then its pop probe in
+    process against the plain versions on the same inputs."""
+    from shadow1_tpu_torch.core.events import pop_until_plain, push_local_plain
+    from shadow1_tpu_torch.tools import faultprobe
+
+    (lines, wall), = finish_tools([start_tool(
+        "faultprobe", "faultprobe", "sort0", "scan0", "pop", "phold", "tor",
+        "10", "--tor-config", paths["tor1k"])], timeout=300).values()
+    head, probes = lines[0], {r["probe"]: r for r in lines[1:]}
+    require(head["backend"] == "cuda" and head["device"].startswith("cuda"),
+            f"faultprobe ran on {head}")
+    require(list(probes) == ["sort0", "scan0", "pop", "phold", "tor"]
+            and all(r["ok"] for r in probes.values()),
+            f"faultprobe: {lines}")
+    need = {"pop": ("pop", "push"), "phold": ("pop", "push", "obox"),
+            "tor": ("pop", "push", "obox")}
+    for probe, kernels in need.items():
+        got = probes[probe]["launches"]
+        require(all(got[k] > 0 for k in kernels),
+                f"faultprobe {probe}: kernels not launched: {got}")
+    buf, ev = faultprobe.pop_probe(dev)
+    b0, mask, t, kind, p, until = faultprobe.pop_inputs(dev)
+    b0, _ = push_local_plain(b0, mask, t, kind, p)
+    ref_buf, ref_ev = pop_until_plain(b0, until)
+    err = max(bit_equal("faultprobe pop: buffer", ref_buf, buf),
+              bit_equal("faultprobe pop: popped event", ref_ev, ev))
+    return dict(head=head, probes=probes, wall_s=wall, pop_err=err)
+
+
+def tools_memprobe(dev, paths) -> dict:
+    """Step (b) in process: --maxfit against the card's budget (before the
+    step (c) processes hold memory), --audit of fidelity16k (built in code:
+    it has no config file) and of dense_tgen50k's mirror, and --subbatch
+    on the 17-lane sweep mirror, each lane's stream against the golden."""
+    from shadow1_tpu_torch import mem
+    from shadow1_tpu_torch.tools import memprobe
+
+    gold = net_golden("fidelity16k")
+    exp, params = net_experiment("fidelity16k", gold), fid_params(gold)
+    clean_allocator(dev)
+    budget, source = mem.device_budget(dev)
+    require(source == "backend", f"the card's budget: {source}")
+    t0 = time.perf_counter()
+    fit = [memprobe.maxfit_experiment("fidelity16k", exp, params, budget),
+           memprobe.maxfit(paths["sweep17"], budget)]
+    fit_s = time.perf_counter() - t0
+    require(fit[0]["max_hosts"] >= exp.n_hosts and fit[1]["sweep_lanes"] == 17
+            and fit[1]["max_lanes"] == 17
+            and fit[1]["max_lanes_linear"] >= 17, f"memprobe --maxfit: {fit}")
+    return dict(budget=budget, maxfit=fit, maxfit_s=fit_s, exp=exp,
+                params=params)
+
+
+def tools_memprobe_runs(dev, paths, mp) -> dict:
+    """Step (b)'s runs, while step (c)'s processes run: the audits and the
+    sub-batch proof (its launches counted from 0: this step's path)."""
+    from shadow1_tpu_torch.core import popk
+    from shadow1_tpu_torch.tools import memprobe
+
+    t0 = time.perf_counter()
+    audit = [memprobe.audit_experiment("fidelity16k", mp["exp"],
+                                       mp["params"], None, dev),
+             memprobe.audit_config(paths["dense_tgen50k"], device=dev)]
+    audit_s = time.perf_counter() - t0
+    require(all(r["ok"] for r in audit), f"memprobe --audit: {audit}")
+    clean_allocator(dev)
+    gold = fleet_golden()
+    zero_counts()
+    t0 = time.perf_counter()
+    verdict, streams = memprobe.subbatch_run(
+        paths["sweep17"], SUBBATCH_LANES, None, lambda msg: None, dev)
+    sub_s = time.perf_counter() - t0
+    launches = dict(popk.LAUNCHES)
+    require(all(n > 0 for n in launches.values()),
+            f"memprobe --subbatch: kernels not launched: {launches}")
+    require(verdict["ok"] and verdict["experiments"] == 17
+            and verdict["ckpt_cycled"], f"memprobe --subbatch: {verdict}")
+    for e, lane in enumerate(gold["lanes"]):
+        got = [list(streams[e][w]) for w in sorted(streams[e])]
+        require(got == lane["digests"], f"memprobe --subbatch: lane {e}'s "
+                f"digest words differ from the golden's")
+    return dict(audit=audit, audit_s=audit_s, subbatch=verdict,
+                subbatch_s=sub_s, launches=launches)
+
+
+def memrun_budget(paths) -> int:
+    """Step (d): a byte budget between the memory run's halt and retry
+    peaks (``mem.estimate`` of the params its flags give)."""
+    import dataclasses
+
+    from shadow1_tpu_torch import cli, mem
+    from shadow1_tpu_torch.config.experiment import load_experiment
+
+    ap = cli._parser()
+    args = ap.parse_args([paths["rung1"], *MEMRUN_ARGS])
+    exp, params, _ = load_experiment(paths["rung1"])
+    params = cli._params(ap, args, exp, params)
+    retry = mem.estimate(exp, params).peak_bytes
+    halt = mem.estimate(exp, dataclasses.replace(
+        params, on_overflow="halt")).peak_bytes
+    require(halt < retry, f"memory run: halt {halt} B, retry {retry} B")
+    return (halt + retry) // 2
+
+
+def launch_log(paths, name: str) -> str:
+    """The CLI launches' record streams (stdout, then stderr, launch by
+    launch) joined into TOOLS_DIR / ``name``."""
+    path = TOOLS_DIR / name
+    path.write_text("".join(Path(p).read_text() for out in paths
+                            for p in (out, f"{out}.err")))
+    return str(path)
+
+
+def tools_reports() -> dict:
+    """Step (d): the four reports over the record streams the program
+    wrote on the card: phase 13's split fidelity16k run (heartbeats, ring,
+    flow and link records), the solo chaosprobe's CLI launches (lineage:
+    resumes, the drain), the memory run (its estimate, downshift and
+    final peak) and phase 16's daemon (``serve.log``); each exits 0, and
+    the lineage, memory, serve, flow and link sections are there and not
+    empty."""
+    import contextlib
+    import io
+
+    from shadow1_tpu_torch.tools import (
+        captune,
+        flowreport,
+        heartbeat_report,
+        netreport,
+    )
+
+    solo = TOOLS_DIR / "chaos_solo"
+    logs = {"obs": str(OBS_RECORDS),
+            "chaos": launch_log(sorted(solo.glob("t*_l*.out")),
+                                "chaos_solo.log"),
+            "mem": launch_log([TOOLS_DIR / "memrun.out"], "memrun.log"),
+            "serve": str(SERVE_DIR / "spool" / "serve.log")}
+    runs = [(heartbeat_report, [logs[k]]) for k in logs] + [
+        (flowreport, [logs["obs"]]), (netreport, [logs["obs"]]),
+        (captune, [logs["obs"], logs["mem"]])]
+    out = {}
+    t0 = time.perf_counter()
+    for module, argv in runs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = module.main(argv)
+        name = module.__name__.rsplit(".", 1)[-1]
+        require(rc == 0 and buf.getvalue().strip(),
+                f"{name} {argv}: rc {rc}")
+        out[f"{name} {Path(argv[0]).name}"] = len(buf.getvalue())
+    recs = [r for k in logs for r in heartbeat_report.load_records(logs[k])]
+    summary = heartbeat_report.summarize(recs, out=io.StringIO())
+    wall = time.perf_counter() - t0
+    for k in ("lineage", "memory", "serve", "flows", "links"):
+        require(summary.get(k), f"heartbeat_report: no {k} section")
+    lin = summary["lineage"]
+    ms = heartbeat_report.summarize(heartbeat_report.load_records(
+        logs["mem"]), out=io.StringIO()).get("memory", {})
+    require(lin["resumes"] >= 2 and lin["preempted_drains"] >= 1,
+            f"heartbeat_report lineage: {lin}")
+    require([d["action"] for d in ms.get("downshifts", [])]
+            == ["drop_rollback"] and ms.get("peak_in_use", 0) > 0,
+            f"heartbeat_report memory of the memory run: {ms}")
+    return dict(chars=out, wall_s=wall, lineage=lin,
+                memory={k: ms.get(k) for k in ("estimated_peak",
+                                               "peak_in_use", "downshifts")},
+                serve=summary["serve"], flows=len(summary["flows"]),
+                links=summary["links"])
+
+
+def chaos_stream(work: Path) -> list:
+    """The straight run's ring rows of a chaosprobe run kept in ``work``."""
+    return [json.loads(s) for s in (work / "ref.out").read_text().splitlines()
+            if s.startswith('{"type": "ring"')]
+
+
+def tools_chaos_start(paths) -> list:
+    """Steps (c) and (d): start the chaosprobe runs and the memory run
+    (``start_tool``); the solo chaosprobe keeps its launches' files in
+    TOOLS_DIR / "chaos_solo"."""
+    return [
+        start_tool("chaos_solo", "chaosprobe", paths["rung1"], "--no-oracle",
+                   "--trials", str(CHAOS_SOLO_TRIALS), "--jobs",
+                   str(CHAOS_SOLO_TRIALS), "--windows",
+                   str(CHAOS_WINDOWS), "--chunk", str(CHAOS_CHUNK), "--seed",
+                   "1", "--work", str(TOOLS_DIR / "chaos_solo"),
+                   "--json-only"),
+        start_tool("chaos_fleet", "chaosprobe", paths["sweep17_small"],
+                   "--fleet", "--no-oracle", "--extra", "--on-overflow retry",
+                   "--trials", str(CHAOS_FLEET_TRIALS), "--jobs",
+                   str(CHAOS_FLEET_TRIALS), "--windows",
+                   str(CHAOS_FLEET_WINDOWS), "--chunk",
+                   str(CHAOS_FLEET_CHUNK), "--json-only"),
+        start_tool("chaos_serve", "chaosprobe", paths["serve_phold"],
+                   "--serve", "1", "--seed", "3", "--json-only"),
+        start_tool("memrun", "", paths["rung1"], *MEMRUN_ARGS,
+                   env={"SHADOW1_MEM_BYTES": str(memrun_budget(paths))})]
+
+
+def tools_chaos_verdicts(chaos) -> tuple:
+    """Step (c): wait for the chaosprobe runs and the memory run and hold
+    the chaosprobe verdicts: each ok with every trial of its kinds; the
+    solo straight stream equal to ``net_rung1.json``'s windows; every
+    fleet lane's rows; the serve trial no torn record. (Name → verdict,
+    with its wall; the memory run's wall.)"""
+    done = finish_tools(chaos, timeout=600)
+    lines, memrun_s = done.pop("memrun")
+    require("metrics" in lines[-1], f"memory run: {lines[-1:]}")
+    verdicts = {}
+    for name, (lines, wall) in done.items():
+        verdicts[name] = v = dict(lines[-1], wall_s=wall)
+        require(v["ok"], f"phase 17: {name}: {v}")
+    solo, fl, sv = (verdicts[k] for k in ("chaos_solo", "chaos_fleet",
+                                          "chaos_serve"))
+    kinds = solo["kinds"]
+    require(solo["oracle_checked"] is False and not solo["fleet"]
+            and solo["trials"] == CHAOS_SOLO_TRIALS
+            and all(kinds.get(k) == 1 for k in ("drain", "torn_head",
+                                                "corrupt_head", "mid_write"))
+            and sum(kinds.values()) == CHAOS_SOLO_TRIALS
+            and solo["preempted_exits"] >= 1
+            and solo["lineage_fallbacks"] >= 1, f"chaos_solo: {solo}")
+    check_digests("chaosprobe rung1 straight run", net_golden("rung1"),
+                  chaos_stream(TOOLS_DIR / "chaos_solo"), 0, CHAOS_WINDOWS)
+    require(fl["fleet"] and fl["trials"] == CHAOS_FLEET_TRIALS
+            and fl["digest_rows"] == 17 * CHAOS_FLEET_WINDOWS,
+            f"chaos_fleet: {fl}")
+    require(sv["torn_records"] == [] and sv["trials"] == 1,
+            f"chaos_serve: {sv}")
+    return verdicts, memrun_s
+
+
+def phase_tools(dev, card: str) -> dict:
+    """Phase 17, the operator tools, its steps' wall times printed."""
+    import shutil
+
+    step_s = {}
+
+    def step(name, t0):
+        step_s[name] = time.perf_counter() - t0
+        log(f"  tools step {name}: {step_s[name]:.1f} s wall")
+
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    TOOLS_DIR.mkdir(parents=True)
+    paths = tool_configs()
+
+    t0 = time.perf_counter()
+    mp = tools_memprobe(dev, paths)
+    for r in mp["maxfit"]:
+        log(f"memprobe --maxfit {Path(r['config']).name} at the card's "
+            f"budget {r['budget']} B on {card}: {r['hosts']} hosts need "
+            f"{r['estimated_peak']} B, at most {r['max_hosts']} hosts"
+            + (f"; {r['sweep_lanes']} lanes, at most {r['max_lanes']} of "
+               f"them ({r['lane_bytes']} B a lane, {r['max_lanes_linear']} "
+               f"lanes by the linear envelope)" if "max_lanes" in r else "")
+            + f" ({mp['maxfit_s']:.1f} s for both)")
+    step("(b) memprobe --maxfit", t0)
+
+    t0 = time.perf_counter()
+    fp = tools_faultprobe(dev, paths)
+    pr = fp["probes"]
+    log(f"faultprobe on {fp['head']['name']} ({fp['head']['device']}): "
+        + ", ".join(f"{k} ok {r['wall_s']} s" for k, r in pr.items())
+        + f"; PHOLD probe (1,000 hosts, ev_cap 256) "
+        f"{pr['phold']['ms_per_round']} ms/round over {pr['phold']['rounds']}"
+        f" rounds; tor 10 windows {pr['tor']['events']} events; launches "
+        f"{ {k: r['launches'] for k, r in pr.items()} }; the pop probe's "
+        f"buffer and popped event bit-equal to pop_until_plain / "
+        f"push_local_plain; {fp['wall_s']:.1f} s in all")
+    step("(a) faultprobe", t0)
+
+    t0 = time.perf_counter()
+    chaos = tools_chaos_start(paths)
+    runs = tools_memprobe_runs(dev, paths, mp)
+    for r in runs["audit"]:
+        log(f"memprobe --audit {Path(r['config']).name} on {card}: resident "
+            f"estimate {r['estimated_resident']} B vs {r['measured_live']} B "
+            f"allocated (ratio {r['ratio']}), ok")
+    sb = runs["subbatch"]
+    log(f"memprobe --subbatch sweep17 ({sb['experiments']} lanes, "
+        f"{sb['windows']} windows, batches of {sb['lanes_per_batch']} through "
+        f"a snapshot at window {sb['windows'] // 2}): every lane's digest "
+        f"stream and parity metrics bit-identical to the full fleet's and "
+        f"every lane equal to golden/fleet_sweep_phold.json; launches "
+        f"{runs['launches']}; audit {runs['audit_s']:.1f} s, subbatch "
+        f"{runs['subbatch_s']:.1f} s")
+    verdicts, memrun_s = tools_chaos_verdicts(chaos)
+    for name, v in sorted(verdicts.items()):
+        if name == "chaos_serve":
+            what = (f"{[t['kind'] for t in v['verdicts']]}, "
+                    f"{sum(t['windows_compared'] for t in v['verdicts'])} "
+                    f"windows compared with solo, no torn record")
+        else:
+            what = (f"{v['kinds']}, {v['launches']} launches, "
+                    f"{v['preempted_exits']} drain(s), "
+                    f"{v['lineage_fallbacks']} lineage fallback(s), "
+                    f"{v['digest_rows']} digest rows, straight run "
+                    f"{v['straight_wall_s']} s")
+        log(f"chaosprobe {name} on {card}: ok, {what}; {v['wall_s']:.1f} s "
+            f"wall (the three runs and the memory run side by side)")
+    log(f"chaosprobe rung1 straight run equal to golden/net_rung1.json "
+        f"windows 0-{CHAOS_WINDOWS - 1}")
+    rep = tools_reports()
+    log(f"reports over the records of phase 13's split run, the solo "
+        f"chaosprobe's CLI launches, the memory run ({memrun_s:.1f} s wall) "
+        f"and phase 16's daemon: {rep['chars']} characters printed, every "
+        f"one exit 0; lineage {rep['lineage']}, memory {rep['memory']}, "
+        f"serve jobs {rep['serve']['jobs']} batches "
+        f"{rep['serve']['batches']}, {rep['flows']} flows, links "
+        f"{rep['links']} ({rep['wall_s']:.1f} s)")
+    step("(b)-(d) memprobe, chaosprobe, reports", t0)
+    return dict(faultprobe=fp, memprobe=dict(mp, **runs), reports=rep,
+                chaos=verdicts, memrun_s=memrun_s, step_s=step_s)
 
 
 # -- phase 5: the kernels on the arguments of the main path -----------------
@@ -2872,8 +3456,9 @@ def phase_fleet(dev, card: str) -> dict:
     log(f"fleet_filexfer16k per round (window {FLEET_WINDOWS}, "
         f"{fx['extra_rounds']} rounds): {fx['ops_per_round']:.1f} device "
         f"ops (lane 0 solo, same window: {fx['solo_ops_per_round']:.1f}), "
-        f"{fx['reads_per_round']:.2f} device->host reads; launches "
-        f"{fx['launches']} (push by entry {fx['push_entries']})")
+        f"{fx['reads_per_round']:.2f} device->host reads ({fx['count_s']:.1f}"
+        f" s in the counted windows); launches {fx['launches']} (push by "
+        f"entry {fx['push_entries']})")
     log(f"fleet_filexfer16k memory: mem.estimate resident "
         f"{fx['estimated']} B vs {fx['resident']} B allocated after "
         f"init_state (ratio {fx['ratio']:.4f}); estimated peak "
@@ -2941,7 +3526,8 @@ def phase_serve(dev, card: str) -> dict:
         + " per round")
     log(f"served tgen50k per round (window {SERVE_WINDOWS // 2}, "
         f"{sv['extra_rounds']} rounds): {sv['ops_per_round']:.1f} device "
-        f"ops, {sv['reads_per_round']:.2f} device->host reads; solo seed 72 "
+        f"ops, {sv['reads_per_round']:.2f} device->host reads (counted in "
+        f"the swapped batch, {sv['count_s']:.1f} s); solo seed 72 "
         f"on the same window: {solo['ops_per_round']:.1f} ops, "
         f"{solo['reads_per_round']:.2f} reads")
     log(f"served tgen50k swapped (seeds 72, 71): cache {b2['cache']}, the "
@@ -3222,6 +3808,10 @@ def main() -> int:
     t0 = time.perf_counter()
     rec = phase_recovery(dev, card)
     phase_done("recovery planes", t0)
+
+    t0 = time.perf_counter()
+    tools = phase_tools(dev, card)
+    phase_done("operator tools", t0)
 
     kernels = []
     for name, r in checks.items():

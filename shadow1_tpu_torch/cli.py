@@ -296,8 +296,10 @@ def _supervise(child_argv, ckpt_path, config_path,
                        else f"rc={rc}, raw CUDA out-of-memory on stderr")
                 print(f"[supervise] child exhausted device memory ({how}) "
                       f"— deterministic config-vs-device condition; not "
-                      f"respawning. Apply the memory advice above or rerun "
-                      f"with --on-oom downshift", file=sys.stderr,
+                      f"respawning. Apply the memory advice above, rerun "
+                      f"with --on-oom downshift, or probe the feasible "
+                      f"envelope: python -m shadow1_tpu_torch.tools.memprobe "
+                      f"{config_path} --maxfit", file=sys.stderr,
                       flush=True)
                 return EXIT_MEMORY
             if rc == EXIT_CAPACITY:
@@ -339,7 +341,9 @@ def _supervise(child_argv, ckpt_path, config_path,
                     print(f"[supervise] two consecutive watchdog kills with "
                           f"no forward progress at sim_ns={max(progress, 0)} "
                           f"— the hang is deterministic at that point; "
-                          f"further respawns would repeat it",
+                          f"further respawns would repeat it. Check the "
+                          f"card and its kernels without this run: "
+                          f"python -m shadow1_tpu_torch.tools.faultprobe",
                           file=sys.stderr, flush=True)
                     return EXIT_HUNG
             else:
@@ -349,7 +353,10 @@ def _supervise(child_argv, ckpt_path, config_path,
                           f"with no forward progress at "
                           f"sim_ns={max(progress, 0)} — the fault is "
                           f"deterministic at that point; further respawns "
-                          f"would repeat it", file=sys.stderr, flush=True)
+                          f"would repeat it. Diagnose device and kernel "
+                          f"faults with python -m "
+                          f"shadow1_tpu_torch.tools.faultprobe",
+                          file=sys.stderr, flush=True)
                     return rc
             if attempt == MAX_RESPAWNS:
                 return rc
@@ -1249,9 +1256,11 @@ def _memory_exit_runtime(args, e, phase: str = "run") -> int:
     EXIT_MEMORY for the supervisor."""
     print(f"[mem] device memory exhausted during {phase}: {str(e)[:2000]}",
           file=sys.stderr, flush=True)
-    print("[mem] deterministic config-vs-device condition — rerun with "
-          "--on-oom downshift or shrink the dominant plane (the mem record "
-          "above attributes bytes per plane)", file=sys.stderr, flush=True)
+    print(f"[mem] deterministic config-vs-device condition — rerun with "
+          f"--on-oom downshift, shrink the dominant plane (the mem record "
+          f"above attributes bytes per plane), or probe the feasible "
+          f"envelope: python -m shadow1_tpu_torch.tools.memprobe "
+          f"{args.config} --maxfit", file=sys.stderr, flush=True)
     print(json.dumps({
         "error": "memory_exhausted",
         "phase": phase,

@@ -340,6 +340,51 @@ def resolve_watchlist(entries, dns, sockets_per_host: int) -> tuple:
     return tuple(probes)
 
 
+def resolve_edges(entries, vertex_names) -> tuple:
+    """``"VS:VD"`` edge specs → tuple of (src_vertex, dst_vertex) int pairs.
+
+    Each half is a topology vertex name (GraphML node id) or a numeric
+    vertex id — the same namespace link records report. Used by the
+    pcapdump ``--edge`` filter. Duplicates collapse, first occurrence wins
+    the order. Every failure raises WatchlistError with a typo-grade
+    message (the CLI maps it onto ap.error → EXIT_CONFIG, like the probe
+    watchlist)."""
+    names = [str(n) for n in (vertex_names or [])]
+    idx = {n: i for i, n in enumerate(names)}
+    n_v = len(names)
+
+    def one(txt, whole):
+        txt = txt.strip()
+        if txt.lstrip("-").isdigit():
+            v = int(txt)
+            if not (0 <= v < n_v if n_v else v >= 0):
+                raise WatchlistError(
+                    f"edge {whole!r}: vertex id {v} out of range "
+                    f"(vertices 0..{n_v - 1})")
+            return v
+        if txt in idx:
+            return idx[txt]
+        import difflib
+
+        close = difflib.get_close_matches(txt, names, n=3)
+        hint = f" — did you mean {', '.join(map(repr, close))}?" \
+            if close else ""
+        raise WatchlistError(
+            f"edge {whole!r}: unknown vertex {txt!r}{hint}")
+
+    edges: list[tuple[int, int]] = []
+    for e in entries:
+        txt = str(e)
+        src, sep, dst = txt.partition(":")
+        if not sep or not src.strip() or not dst.strip():
+            raise WatchlistError(
+                f"edge {txt!r}: expected SRC_VERTEX:DST_VERTEX")
+        pr = (one(src, txt), one(dst, txt))
+        if pr not in edges:
+            edges.append(pr)
+    return tuple(edges)
+
+
 def build_experiment(doc: dict, base_dir: str = ".") -> tuple[CompiledExperiment, EngineParams, str]:
     """YAML document → (CompiledExperiment, EngineParams, scheduler)."""
     import os

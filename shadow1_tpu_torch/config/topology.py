@@ -30,17 +30,15 @@ def load_graphml(path: str):
 
     Directed GraphML (Shadow's published Tor topologies use
     edgedefault="directed" with possibly asymmetric latencies) keeps each
-    direction separate; undirected input is symmetrized."""
-    import networkx as nx
-
-    g = nx.read_graphml(path)
-    directed = g.is_directed()
-    nodes = list(g.nodes())
+    direction separate; undirected input is symmetrized. Read with the
+    standard library's XML parser (:func:`_read_graphml_xml`), so the
+    port needs no networkx."""
+    nodes, edge_list, directed = _read_graphml_xml(path)
     index = {n: i for i, n in enumerate(nodes)}
     v = len(nodes)
     lat = np.full((v, v), np.inf)
     loss = np.zeros((v, v))
-    for a, b, data in g.edges(data=True):
+    for a, b, data in edge_list:
         if "latency_ns" in data:
             l_ns = float(data["latency_ns"])
         elif "latency" in data:
@@ -57,6 +55,34 @@ def load_graphml(path: str):
             lat[j, i] = l_ns
             loss[j, i] = p
     return nodes, lat, loss, directed
+
+
+def _read_graphml_xml(path: str):
+    """(node ids, [(source, target, {attr name: text})], directed) of a
+    GraphML file, as networkx's ``read_graphml`` gives them for the files
+    this loader reads: nodes in document order (an edge's undeclared end
+    appended), edge data by ``attr.name`` (a key's ``<default>`` is not
+    filled in, as networkx does not), ``edgedefault="directed"`` directed
+    and any other value not."""
+    import xml.etree.ElementTree as ET
+
+    root = ET.parse(path).getroot()
+    ns = root.tag[:root.tag.index("}") + 1] if root.tag.startswith("{") else ""
+    names = {k.get("id"): k.get("attr.name", k.get("id"))
+             for k in root.findall(ns + "key")}
+    graph = root.find(ns + "graph")
+    nodes = [n.get("id") for n in graph.findall(ns + "node")]
+    seen = set(nodes)
+    edges = []
+    for e in graph.findall(ns + "edge"):
+        for end in (e.get("source"), e.get("target")):
+            if end not in seen:
+                seen.add(end)
+                nodes.append(end)
+        data = {names.get(d.get("key"), d.get("key")): d.text
+                for d in e.findall(ns + "data")}
+        edges.append((e.get("source"), e.get("target"), data))
+    return nodes, edges, graph.get("edgedefault") == "directed"
 
 
 def compile_paths(lat_e: np.ndarray, loss_e: np.ndarray,

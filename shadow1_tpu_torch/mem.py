@@ -358,7 +358,7 @@ class MemEstimate:
                 eng_lines.append(f"    {knob}: {pick}  # from {cur}")
         if eng_lines and residual <= budget:
             lines.append("  engine:  # size precisely from a recorded "
-                         "run: python -m shadow1_tpu.tools.captune")
+                         "run: python -m shadow1_tpu_torch.tools.captune")
             lines.extend(eng_lines)
         lines.append("  or rerun with --on-oom downshift (rollback drop → "
                      "ring shrink → fleet sub-batches, in that order)")

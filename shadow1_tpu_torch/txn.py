@@ -99,7 +99,7 @@ class CapacityExceededError(RuntimeError):
             f"{self.advice}\n"
             "or rerun with --on-overflow retry (transactional grow+replay) "
             "/ --auto-caps; size precisely from a recorded run: python -m "
-            "shadow1_tpu.tools.captune <run.log>")
+            "shadow1_tpu_torch.tools.captune <run.log>")
 
 
 class SelfCheckError(RuntimeError):

@@ -32,7 +32,8 @@ Bitcoin flood, and a two-tile run with every fidelity gate on, whose
 virtual CPU launches the push kernel through ``push_back`` every round
 and defers events through it. The overflow guard's rollback point is a
 copy on the card too, and a PHOLD retried there equals the straight run
-at the final cap.
+at the final cap. The profiler's raw device events count what
+``key_averages()`` counts (``chip_smoke.py`` counts the raw events).
 """
 
 import dataclasses
@@ -716,3 +717,40 @@ def test_serve_two_lanes_on_cuda_matches_cpu(dev, tmp_path):
         assert d.cache.counters()["cache_misses"] == 1
     finally:
         d.close()
+
+
+def test_raw_events_count_as_key_averages(dev):
+    """``chip_smoke.py``'s ``CountedWindows`` counts a window's device
+    operations from the profiler's raw events; ``key_averages()`` counts
+    the same, far slower (an event object each). One window of the
+    filexfer16k layout (16,384 hosts) traced with CPU and CUDA activities,
+    one with CUDA alone: the two counts are equal and not 0. With ``-s``
+    it prints both counts and the seconds each way took."""
+    import time
+
+    from torch.autograd.profiler import _filter_name
+    from torch.profiler import ProfilerActivity, profile
+
+    exp = tiled_filexfer_experiment(2048, seed=42, end_time=800 * MS)
+    eng = Engine(exp, EngineParams(ev_cap=512), device=dev)
+    st = eng.run(n_windows=10)
+    torch.cuda.synchronize()
+    for acts in ([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 [ProfilerActivity.CUDA]):
+        r0 = int(st.metrics.rounds)
+        with profile(activities=acts) as prof:
+            st = eng.run(st, n_windows=1)
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        raw = sum(1 for e in prof.profiler.kineto_results.events()
+                  if str(e.device_type()).endswith("CUDA")
+                  and not _filter_name(e.name()))
+        t_raw = time.perf_counter() - t
+        t = time.perf_counter()
+        ka = sum(e.count for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA") and e.count > 0)
+        t_ka = time.perf_counter() - t
+        print(f"activities {[a.name for a in acts]}: rounds "
+              f"{int(st.metrics.rounds) - r0}, raw events {raw} "
+              f"({t_raw:.2f} s), key_averages {ka} ({t_ka:.2f} s)")
+        assert raw == ka and raw > 0
