@@ -206,10 +206,11 @@ fails:
    ``push_local_plain`` / ``pop_until_plain`` on the same inputs; it
    prints the PHOLD probe's ms per round; (c) three ``chaosprobe``
    subprocesses side by side, each running its trials at once after its
-   straight run (``--jobs``) — solo on rung1 with ``--no-oracle``, 5
-   trials (``drain``, ``torn_head``, ``corrupt_head``, ``mid_write`` and
-   one random kind; 40 windows, the straight stream equal to
-   ``net_rung1.json``'s windows 0-39), the 17-lane sweep under ``--fleet
+   straight run (``--jobs``) — solo on rung1, 4 trials (``drain``,
+   ``torn_head``, ``corrupt_head`` and ``mid_write``; 40 windows, the
+   straight stream equal to ``net_rung1.json``'s windows 0-39
+   and cross-checked against ``--engine cpu``, the numpy oracle:
+   ``"oracle_checked": true``), the 17-lane sweep under ``--fleet
    --extra "--on-overflow retry"`` from ``ev_cap`` 4 (2 trials: ``drain``,
    ``torn_head``), and ``--serve 1`` on serve_phold — each verdict ok;
    beside them the memory run, the CLI on rung1 under ``--on-overflow
@@ -226,9 +227,40 @@ fails:
    (``serve.log``): each exits 0, and the lineage, memory, serve, flow
    and link sections are there and not empty.
 
-The path phases (8, 10, 12) rerun a golden only to one window past the
-window whose arguments they keep (``run_net_golden(stop_after=)``: the
-digest words of those windows are compared).
+18. the oracle and the comparator (``cpu_engine/``, ``native/`` and the
+   tools on them; run last), three steps, each step's wall time printed:
+   (a) the C++ thread-per-core comparators, built with g++ from the
+   checkout's sources in threads started with the script (a failed build
+   fails the phase), on bench PHOLD (``os.cpu_count()`` threads and
+   ``NATIVE_THREADS``) and on ``filexfer16k``, ``tgen50k``, ``tor10k``
+   and ``bitcoin5k`` built in code from the goldens: their counters equal
+   to the goldens (and, for PHOLD, to the CUDA bench run); each
+   comparator's wall and events/s printed beside the CUDA engine's run of
+   the same config and windows in this call, and the host's CPU model and
+   core count; (b) the host-only work, run in a process of its own (no
+   CUDA device visible) from the end of phase 2 on, beside the card
+   phases (``OracleHostWork``): the numpy oracle at full width with the
+   digest words on, ``tor10k`` (40 windows) and ``bitcoin5k`` (60): every
+   Metrics field it keeps, every summary sum and per-host SHA-256 and
+   every digest word equal to the golden; the CLI's ``--engine cpu`` on
+   rung1 (40 windows), its stderr digest rows held here to phase 7's CUDA
+   ring rows; ``pcapdump`` on rung1 (one ``--host``, one ``--edge``: each
+   file's SHA-256), ``activeprobe`` and ``depthprobe`` on tor10k's
+   mirror, each against the JAX package's rows in
+   ``golden/oracle_tools.json`` (``tools/torch_golden.py``); (c) the
+   tools on the card, in process, on JSON mirrors (``oracle_configs``),
+   against the same golden: ``fleetprobe`` (``FLEETPROBE_RUNS``: the
+   4-lane sweep against its solo runs on the card and on the oracle, the
+   same sweep under ``--retry``, and phase 17's 17-lane sweep under
+   ``--retry``) and ``occprobe`` on dense_tgen50k at its full width, each
+   with its launches counted from 0 and every kernel launched.
+
+The golden runs of phases 7, 9 and 11 time nothing against a bound: they
+run as four processes side by side (``GoldenWorkers``, ``GOLDEN_GROUPS``),
+after phase 16 and before phase 8, and their checks follow in this
+process. The path phases (8, 10, 12) rerun a golden only to one window
+past the window whose arguments they keep (``run_net_golden(stop_after=)``:
+the digest words of those windows are compared).
 
 Each phase's wall time is printed, and the whole script's. It then prints a ``{"kernels": [...]}``
 line, the card's name and power limit, and last ``{"ok": true, "device":
@@ -914,7 +946,7 @@ def run_golden(name: str, dev, *, count: bool = False) -> dict:
                              f"(golden, port): {diff or got}")
     return dict(wall_s=wall, events=metrics["events"],
                 rounds=metrics["rounds"], windows=metrics["windows"],
-                launches=launches)
+                launches=launches, metrics=metrics)
 
 
 # -- phase 7: the net slice -------------------------------------------------
@@ -994,13 +1026,13 @@ def run_net_golden(name: str, dev, *, count: bool = False,
     wall = time.perf_counter() - t0
     launches = dict(popk.LAUNCHES) if count else None
     entries = dict(popk.PUSH_ENTRIES) if count else None
+    rows = drain_ring(st, eng.window)
     if stop_after is not None:
-        check_digests(name, gold, drain_ring(st, eng.window), 0, stop_after)
+        check_digests(name, gold, rows, 0, stop_after)
         got = None
     else:
-        got = check_net_golden(name, gold, eng, st,
-                               drain_ring(st, eng.window))
-    return dict(wall_s=wall, events=metrics["events"],
+        got = check_net_golden(name, gold, eng, st, rows)
+    return dict(wall_s=wall, events=metrics["events"], rows=rows,
                 rounds=metrics["rounds"], windows=metrics["windows"],
                 hosts=exp.n_hosts, launches=launches, push_entries=entries,
                 init_push=init_push if count else None, metrics=metrics,
@@ -1055,6 +1087,97 @@ def check_digests(name: str, gold: dict, rows, first: int, last: int) -> None:
                     f"{name}: first differing digest word: window {w}, "
                     f"subsystem {f.removeprefix('dg_')}: golden {x}, port "
                     f"{row[f]}")
+
+
+# The golden runs of phases 7, 9 and 11 (``golden_jobs``) time nothing
+# against a bound: they run as processes side by side, each one host thread
+# driving the card (idle most of a round), grouped to about equal walls
+# (PR 12's whole runs on the card: churn8 136-163 s, rung2 compacted
+# 119-145 s, filexfer16k with rung1 92-111 s, the rest 100-120 s).
+GOLDEN_GROUPS = (("churn8",), ("rung2/compact48",), ("filexfer16k", "rung1"))
+
+
+def golden_jobs() -> list:
+    """(label, golden, run_net_golden keywords) of phases 7, 9 and 11."""
+    jobs = [("filexfer16k", "filexfer16k", dict(count=True)),
+            ("rung1", "rung1", {})]
+    for name in APP_RUNS:
+        for cap in net_golden(name).get("compact_caps", [None]):
+            # rung2's full-width run stops early (its digest words are
+            # held); the compacted run goes the whole horizon.
+            jobs.append((name if not cap else f"{name}/compact{cap}", name,
+                         dict(count=True, compact_cap=cap,
+                              stop_after=(RUNG2_PLAIN_WINDOWS
+                                          if name == "rung2" and not cap
+                                          else None))))
+    return jobs + [(name, name, dict(count=True)) for name in FID_RUNS]
+
+
+def golden_worker(labels: list, out_path: str) -> None:
+    """Run the golden jobs ``labels`` on the card in this process
+    (``GoldenWorkers``); write their results, or the error, to
+    ``out_path``."""
+    import traceback
+
+    import torch
+
+    from shadow1_tpu_torch.core import _build
+
+    try:
+        _build.library()
+        jobs = {label: (name, kw) for label, name, kw in golden_jobs()}
+        res = {}
+        for label in labels:
+            name, kw = jobs[label]
+            res[label] = run_net_golden(name, torch.device("cuda"), **kw)
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        res = {"error": traceback.format_exc()}
+    Path(out_path).write_text(json.dumps(res, default=int))
+
+
+class GoldenWorkers:
+    """``golden_worker`` processes, one per group of ``GOLDEN_GROUPS`` and
+    one for the other jobs, started together; ``join`` waits for them all
+    and returns label → result (``run_net_golden``'s), raising the first
+    error."""
+
+    def __init__(self):
+        labels = [label for label, _, _ in golden_jobs()]
+        grouped = {label for group in GOLDEN_GROUPS for label in group}
+        groups = list(GOLDEN_GROUPS) + [
+            tuple(x for x in labels if x not in grouped)]
+        out = ROOT / "build" / "chip_smoke_golden"
+        out.mkdir(parents=True, exist_ok=True)
+        self.procs = []
+        for i, group in enumerate(groups):
+            path = out / f"w{i}.json"
+            path.unlink(missing_ok=True)
+            self.procs.append((path, subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke; "
+                 f"chip_smoke.golden_worker({list(group)!r}, "
+                 f"{str(path)!r})"], cwd=ROOT, stdout=subprocess.DEVNULL)))
+
+    def kill(self) -> None:
+        for _, proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def join(self, timeout: float = 900) -> dict:
+        deadline = time.perf_counter() + timeout
+        res = {}
+        try:
+            for path, proc in self.procs:
+                rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+                require(rc == 0 and path.exists(),
+                        f"golden worker {path.name} exited {rc}")
+                got = json.loads(path.read_text())
+                require("error" not in got, f"golden worker {path.name}: "
+                        f"{got.get('error', '')[-3000:]}")
+                res.update(got)
+        finally:
+            self.kill()
+        return res
 
 
 class NetPathCapture:
@@ -2868,15 +2991,16 @@ SWEEP_VARIANTS = (
                            "up_at": "100 ms"}]}})
 # Step (b): memprobe --subbatch's lanes per batch (17 lanes: 9 + 8).
 SUBBATCH_LANES = 9
-# Step (c): chaosprobe's windows and chunk; the solo trials (5: the four
-# special kinds and one random kind) and the fleet matrix's (2: drain and
+# Step (c): chaosprobe's windows and chunk; the solo trials (4: the four
+# special kinds; a random fifth gave its time to the straight run's oracle
+# cross-check and phase 18) and the fleet matrix's (2: drain and
 # torn_head, from an under-sized ev_cap under --on-overflow retry). The
 # three chaosprobe runs go side by side, each running its trials at once
 # after its straight run (--jobs): a launch is a supervisor and a child
 # that each start torch and reach the card, and a rung1 launch runs
 # nearly all of the golden's 1,683 rounds in its 40 windows.
 CHAOS_WINDOWS, CHAOS_CHUNK = 40, 10
-CHAOS_SOLO_TRIALS = 5
+CHAOS_SOLO_TRIALS = 4
 CHAOS_FLEET_TRIALS, CHAOS_FLEET_CAP = 2, 4
 CHAOS_FLEET_WINDOWS, CHAOS_FLEET_CHUNK = 20, 5
 # Step (d): the CLI run beside them whose records give the reports'
@@ -3153,7 +3277,7 @@ def tools_chaos_start(paths) -> list:
     (``start_tool``); the solo chaosprobe keeps its launches' files in
     TOOLS_DIR / "chaos_solo"."""
     return [
-        start_tool("chaos_solo", "chaosprobe", paths["rung1"], "--no-oracle",
+        start_tool("chaos_solo", "chaosprobe", paths["rung1"],
                    "--trials", str(CHAOS_SOLO_TRIALS), "--jobs",
                    str(CHAOS_SOLO_TRIALS), "--windows",
                    str(CHAOS_WINDOWS), "--chunk", str(CHAOS_CHUNK), "--seed",
@@ -3187,7 +3311,7 @@ def tools_chaos_verdicts(chaos) -> tuple:
     solo, fl, sv = (verdicts[k] for k in ("chaos_solo", "chaos_fleet",
                                           "chaos_serve"))
     kinds = solo["kinds"]
-    require(solo["oracle_checked"] is False and not solo["fleet"]
+    require(solo["oracle_checked"] is True and not solo["fleet"]
             and solo["trials"] == CHAOS_SOLO_TRIALS
             and all(kinds.get(k) == 1 for k in ("drain", "torn_head",
                                                 "corrupt_head", "mid_write"))
@@ -3288,6 +3412,489 @@ def phase_tools(dev, card: str) -> dict:
 
 
 # -- phase 5: the kernels on the arguments of the main path -----------------
+
+# -- phase 18: the oracle and the comparator -----------------------------
+
+ORACLE_DIR = ROOT / "build" / "s18"
+# configs/rung4_tor10k.yaml as JSON: activeprobe and depthprobe run the
+# oracle on it for ORACLE_PROBE_WINDOWS windows (tor10k's golden depth).
+TOR10K_DOC = {
+    "general": {"seed": 44, "stop_time": "60 s"},
+    "engine": {"scheduler": "tpu", "ev_cap": 256, "sockets_per_host": 128,
+               "msgq_cap": 64, "max_rounds": 1024, "compact_cap": 1280},
+    "network": {"single_vertex": {"latency": "30 ms"}},
+    "hosts": [{"name": n, "count": c, "bandwidth_up": b, "bandwidth_down": b}
+              for n, c, b in (("guard", 300, "200 Mbit"),
+                              ("middle", 500, "200 Mbit"),
+                              ("exit", 200, "200 Mbit"),
+                              ("dirauth", 10, "200 Mbit"),
+                              ("client", 8990, "20 Mbit"))],
+    "app": {"model": "tor", "params": {"ct_cap": 1024, "cells_max": 120},
+            "defaults": {"mean_stream_cells": 40, "mean_think_ns": "5 s",
+                         "start_time": "200 ms"},
+            "groups": {"guard": {"role": 0, "relay_weight": 300,
+                                 "is_guard": True},
+                       "middle": {"role": 0, "relay_weight": 200},
+                       "exit": {"role": 0, "relay_weight": 250,
+                                "is_exit": True},
+                       "dirauth": {"role": 2},
+                       "client": {"role": 1, "n_circuits": 2,
+                                  "n_streams": 3,
+                                  "start_time": {"start": "200 ms",
+                                                 "interval": "2 ms"}}}},
+}
+ORACLE_PROBE_WINDOWS = 40
+# pcapdump on rung1: one --host and one --edge capture of its first 20
+# windows (the handshake and the first flow's data in both directions).
+PCAP_RUNS = {"host": ("--windows", "20", "--host", "client"),
+             "edge": ("--windows", "20", "--edge", "pop_west:pop_east")}
+# occprobe on dense_tgen50k at its full width: 20 windows, in chunks of 5.
+OCC_ARGS = ("--windows", "20", "--step", "5")
+# fleetprobe: configs/sweep_phold.yaml's 4 lanes against their solo runs
+# on both sides; the same sweep at ev_cap CHAOS_FLEET_CAP under --retry
+# (grown to 8), both sides; and phase 17's 17-lane sweep at that cap under
+# --retry, where the oracle side differs in 3 lanes as the reference's
+# does (two overflow at the grown cap 8: the oracle pushes an arrival at
+# once, the batched engines at the window's end; one is held to 2 rounds
+# a window, which the oracle does not model). Each verdict must equal the
+# reference's; those marked True must be ok.
+_RETRY = ("--retry", "--sides", "tpu,cpu", "--windows",
+          str(CHAOS_FLEET_WINDOWS), "--chunk", str(CHAOS_FLEET_CHUNK))
+FLEETPROBE_RUNS = {
+    "sides": ("sweep_phold", ("--sides", "tpu,cpu"), True),
+    "retry": ("sweep_phold_small", _RETRY, True),
+    "retry17": ("sweep17_small", _RETRY, False),
+}
+# The oracle's full-width runs (net goldens) and the comparator's.
+ORACLE_RUNS = ("tor10k", "bitcoin5k")
+NATIVE_NET_RUNS = ("filexfer16k", "tgen50k", "tor10k", "bitcoin5k")
+ORACLE_CLI_WINDOWS = 40
+# The comparator's thread counts at bench PHOLD beside os.cpu_count().
+NATIVE_THREADS = 16
+
+
+def sweep_phold_doc(**engine) -> dict:
+    """configs/sweep_phold.yaml in JSON (4 seeds, one variant each)."""
+    return {
+        "general": {"seed": 1, "stop_time": "200 ms"},
+        "engine": {"scheduler": "tpu", "ev_cap": 64, "outbox_cap": 32,
+                   **engine},
+        "network": {"single_vertex": {"latency": "10 ms"}},
+        "hosts": [{"name": "h", "count": 64}],
+        "app": {"model": "phold",
+                "params": {"mean_delay_ns": 2.0e7, "init_events": 2}},
+        "sweep": {"seeds": [1, 2, 3, 4], "vary": list(SWEEP_VARIANTS)},
+    }
+
+
+def oracle_configs(out_dir: Path = None) -> dict:
+    """Write the JSON mirrors phase 18 runs (``tools/torch_golden.py``
+    writes the reference's rows from the same files); name → path."""
+    out_dir = Path(out_dir or ORACLE_DIR)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rung1 = json.loads(json.dumps(RUNG1_DOC))
+    rung1["network"]["graphml"] = str(ROOT / RUNG1_DOC["network"]["graphml"])
+    dense = json.loads(json.dumps(TGEN50K_DOC))
+    dense["general"]["stop_time"] = "20 s"
+    del dense["engine"]["state_digest"]
+    docs = {"rung1": rung1, "tor10k": TOR10K_DOC,
+            "dense_tgen50k": dense, "sweep_phold": sweep_phold_doc(),
+            "sweep_phold_small": sweep_phold_doc(ev_cap=CHAOS_FLEET_CAP),
+            "sweep17_small": sweep17_doc(ev_cap=CHAOS_FLEET_CAP)}
+    paths = {}
+    for name, doc in docs.items():
+        paths[name] = str(out_dir / f"{name}.json")
+        Path(paths[name]).write_text(json.dumps(doc))
+    return paths
+
+
+class NativeBuild:
+    """Both comparators built with g++ from the checkout's sources, in
+    threads started with the script (beside nvcc), each timed; ``join``
+    raises the first build's error: a failed build fails phase 18."""
+
+    def __init__(self):
+        import threading
+
+        from shadow1_tpu_torch import native
+
+        self.seconds, self.errors = {}, []
+
+        def build(name, fn):
+            t0 = time.perf_counter()
+            try:
+                fn(force=True)
+            except Exception as e:  # noqa: BLE001 — re-raised by join
+                self.errors.append(e)
+            self.seconds[name] = time.perf_counter() - t0
+
+        self.threads = [threading.Thread(target=build, args=a) for a in (
+            ("phold", native.ensure_built),
+            ("net", native.ensure_net_built))]
+        for t in self.threads:
+            t.start()
+
+    def join(self) -> dict:
+        for t in self.threads:
+            t.join()
+        if self.errors:
+            raise self.errors[0]
+        return self.seconds
+
+
+def host_cpu() -> str:
+    """The host's CPU model (``/proc/cpuinfo``'s model name, else
+    ``lscpu``'s, else its vendor, family and model numbers) and logical
+    core count."""
+    known = lambda v: v and v.strip().lower() != "unknown"  # noqa: E731
+    info = {}
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, val = line.partition(":")
+            info.setdefault(key.strip().lower(), val.strip())
+    except OSError:
+        pass
+    model = info.get("model name", "")
+    if not known(model):
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=10).stdout
+        except (OSError, subprocess.SubprocessError):
+            out = ""
+        model = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                      if ln.lower().startswith("model name")), "")
+    if not known(model):
+        model = (f"{info.get('vendor_id', '?')} family "
+                 f"{info.get('cpu family', '?')} model {info.get('model', '?')}"
+                 f" stepping {info.get('stepping', '?')} (no model name)")
+    return f"{model}, {os.cpu_count()} logical cores"
+
+
+def oracle_native(cuda: dict) -> dict:
+    """Step (a): the comparator on bench PHOLD (os.cpu_count() threads and
+    NATIVE_THREADS) and on the net goldens, its counters equal to the
+    goldens (and, for PHOLD, to the CUDA bench run), its wall beside the
+    CUDA engine's run of the same config and windows (``cuda``)."""
+    from shadow1_tpu_torch import native
+    from shadow1_tpu_torch.consts import EngineParams
+
+    gold = json.loads((ROOT / "shadow1_tpu_torch" / "golden"
+                       / "phold_bench.json").read_text())
+    cfg = gold["config"]
+    keys = ("events", "pkts_sent", "pkts_delivered", "ev_overflow",
+            "ob_overflow")
+    out = {}
+    for threads in (os.cpu_count(), NATIVE_THREADS):
+        r = native.run_phold(
+            n_hosts=cfg["n_hosts"], seed=cfg["seed"],
+            n_windows=cfg["windows"], window_ns=cfg["latency_ns"],
+            mean_delay_ns=cfg["mean_delay_ns"],
+            init_events=cfg["init_events"], ev_cap=cfg["ev_cap"],
+            outbox_cap=cfg["outbox_cap"], n_threads=threads)
+        for k in keys:
+            require(r[k] == gold["metrics"][k] == cuda["bench"]["metrics"][k],
+                    f"comparator bench PHOLD ({threads} threads): {k} "
+                    f"{r[k]}, golden {gold['metrics'][k]}, CUDA "
+                    f"{cuda['bench']['metrics'][k]}")
+        out[f"bench/{threads}"] = r
+    for name in NATIVE_NET_RUNS:
+        g = net_golden(name)
+        exp = net_experiment(name, g)
+        r = native.run_net(exp, EngineParams(**g["params"]), g["windows"])
+        for k in ("events", "pkts_sent", "pkts_delivered"):
+            require(r[k] == g["metrics"][k], f"comparator {name}: {k} "
+                    f"{r[k]}, golden {g['metrics'][k]}")
+        out[name] = r
+    return out
+
+
+def oracle_full_width() -> dict:
+    """The numpy oracle at full width on ORACLE_RUNS, held to each golden
+    in every Metrics field it keeps, every summary sum and per-host
+    SHA-256 and every digest word."""
+    import numpy as np
+
+    from shadow1_tpu_torch.consts import EngineParams
+    from shadow1_tpu_torch.cpu_engine import CpuEngine
+
+    out = {}
+    for name in ORACLE_RUNS:
+        g = net_golden(name)
+        exp = net_experiment(name, g)
+        params = EngineParams(**g["params"], metrics_ring=g["windows"],
+                              state_digest=1)
+        t0 = time.perf_counter()
+        eng = CpuEngine(exp, params)
+        t1 = time.perf_counter()
+        m = eng.run(n_windows=g["windows"])
+        t2 = time.perf_counter()
+        diff = {k: (g["metrics"].get(k), v) for k, v in m.items()
+                if g["metrics"].get(k) != v}
+        require(not diff, f"oracle {name}: metrics differ from the golden "
+                f"(golden, oracle): {diff}")
+        summ = eng.summary()
+        got = {k: int(np.asarray(summ[k]).sum()) for k in g["summary"]}
+        require(got == g["summary"], f"oracle {name}: summary {got}")
+        for k, want in g["sha256"].items():
+            h = hashlib.sha256(np.asarray(summ[k], "<i8").tobytes())
+            require(h.hexdigest() == want,
+                    f"oracle {name}: per-host {k} differs from the golden")
+        check_digests(f"oracle {name}", g, [dict(r, type="ring")
+                                            for r in eng.digest_rows],
+                      0, g["windows"])
+        out[name] = dict(build_s=t1 - t0, run_s=t2 - t1, hosts=exp.n_hosts,
+                         events=m["events"], windows=g["windows"],
+                         metrics=len(m))
+    return out
+
+
+def oracle_cli_rung1(paths) -> dict:
+    """``python -m shadow1_tpu_torch --engine cpu`` on rung1, in process:
+    its wall and its stderr digest rows."""
+    import contextlib
+    import io
+
+    from shadow1_tpu_torch import cli
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as so, \
+            contextlib.redirect_stderr(err):
+        rc = cli.main([paths["rung1"], "--engine", "cpu", "--windows",
+                       str(ORACLE_CLI_WINDOWS), "--state-digest", "on"])
+    res = json.loads(so.getvalue().strip().splitlines()[-1])
+    require(rc == 0 and res["engine"] == "cpu"
+            and res["windows"] == ORACLE_CLI_WINDOWS,
+            f"--engine cpu on rung1: rc {rc}, {res}")
+    return dict(wall_s=time.perf_counter() - t0,
+                events=res["metrics"]["events"],
+                rows=[json.loads(s) for s in err.getvalue().splitlines()
+                      if s.startswith('{"type": "digest"')])
+
+
+def _tool_main(module, argv) -> tuple:
+    """``module.main(argv)`` in process: (rc, stdout lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    return rc, buf.getvalue().strip().splitlines()
+
+
+def oracle_tools_golden() -> dict:
+    return json.loads((ROOT / "shadow1_tpu_torch" / "golden"
+                       / "oracle_tools.json").read_text())
+
+
+def oracle_host_tools(paths, step_s: dict) -> dict:
+    """The tools on the oracle (pcapdump on rung1; activeprobe and
+    depthprobe on tor10k's mirror), each against the reference's rows in
+    ``golden/oracle_tools.json``."""
+    from shadow1_tpu_torch.tools import activeprobe, depthprobe, pcapdump
+
+    gold = oracle_tools_golden()
+    out = {}
+    t0 = time.perf_counter()
+    for case, args in PCAP_RUNS.items():
+        pcap = ORACLE_DIR / f"{case}.pcap"
+        rc, _ = _tool_main(pcapdump, [paths["rung1"], str(pcap), *args])
+        data = pcap.read_bytes()
+        want = gold["pcap"][case]
+        require(rc == 0 and list(args) == want["args"]
+                and hashlib.sha256(data).hexdigest() == want["sha256"],
+                f"pcapdump rung1 {case}: {len(data)} bytes, golden "
+                f"{want['bytes']}")
+        out[f"pcap_{case}"] = len(data)
+    step_s["pcapdump"] = time.perf_counter() - t0
+    for name, module in (("activeprobe", activeprobe),
+                         ("depthprobe", depthprobe)):
+        t0 = time.perf_counter()
+        rc, lines = _tool_main(module, [paths["tor10k"], "--windows",
+                                        str(ORACLE_PROBE_WINDOWS)])
+        step_s[name] = time.perf_counter() - t0
+        row = json.loads(lines[-1])
+        row.pop("config")
+        require(rc == 0 and row == gold[name]["row"],
+                f"{name} tor10k: {row}, golden {gold[name]['row']}")
+        out[name] = row
+    return out
+
+
+def oracle_host_child(out_path: str) -> None:
+    """Phase 18's host-only work, in a process of its own started with the
+    script (``OracleHostWork``): the oracle at full width, ``--engine
+    cpu`` on rung1 and the host tools. Writes its results, or the error,
+    as JSON to ``out_path``."""
+    import traceback
+
+    try:
+        paths = oracle_configs()
+        t0 = time.perf_counter()
+        res = {"oracle": oracle_full_width()}
+        res["oracle_s"] = time.perf_counter() - t0
+        res["cli_rung1"] = oracle_cli_rung1(paths)
+        res["step_s"] = {}
+        res["tools"] = oracle_host_tools(paths, res["step_s"])
+        res["cpu"] = host_cpu()
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        res = {"error": traceback.format_exc()}
+    Path(out_path).write_text(json.dumps(res))
+
+
+class OracleHostWork:
+    """``oracle_host_child`` in a subprocess (no CUDA device visible: it
+    runs on the host only), started after the kernels' build so that it
+    overlaps the card phases; ``join`` waits for it and raises its error.
+    It uses one core of the host beside the main process's."""
+
+    def __init__(self):
+        ORACLE_DIR.mkdir(parents=True, exist_ok=True)
+        self.out = ORACLE_DIR / "host.json"
+        self.out.unlink(missing_ok=True)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.oracle_host_child({str(self.out)!r})"],
+            cwd=ROOT, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+            stdout=subprocess.DEVNULL)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def join(self, timeout: float = 600) -> dict:
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            self.kill()
+        waited = time.perf_counter() - self.t0
+        require(rc == 0 and self.out.exists(),
+                f"phase 18's host process exited {rc}")
+        res = json.loads(self.out.read_text())
+        require("error" not in res, f"phase 18's host work: "
+                f"{res.get('error', '')[-3000:]}")
+        res["since_start_s"] = waited
+        return res
+
+
+def oracle_card_tools(dev, paths) -> dict:
+    """The tools on the card, in process, each run's launches counted from
+    0 and every kernel launched: fleetprobe (``FLEETPROBE_RUNS``) and
+    occprobe on dense_tgen50k at its full width, against the reference's
+    verdicts and row in ``golden/oracle_tools.json``."""
+    from shadow1_tpu_torch.tools import fleetprobe, occprobe
+
+    gold = oracle_tools_golden()
+    out, step_s = {}, {}
+
+    def counted(name, module, argv):
+        zero_counts()
+        t0 = time.perf_counter()
+        rc, lines = _tool_main(module, argv)
+        step_s[name] = time.perf_counter() - t0
+        launches = read_counts()
+        require(all(launches[k] > 0 for k in ("pop", "push", "obox")),
+                f"{name}: kernels not launched: {launches}")
+        return rc, json.loads(lines[-1]), launches
+
+    for case, (cfg, args, ok) in FLEETPROBE_RUNS.items():
+        rc, v, n = counted(f"fleetprobe {case}", fleetprobe,
+                           [paths[cfg], *args, "--json-only"])
+        want = gold["fleetprobe"][case]
+        require(list(args) == want["args"] and v == want["verdict"]
+                and (rc == 0) == ok and v["ok"] is ok
+                and not [m for m in v["mismatches"] if m["side"] == "tpu"],
+                f"fleetprobe {case} ({cfg}): rc {rc}, {v}; the reference's "
+                f"{want['verdict']}")
+        if "--retry" in args:
+            require(v["chunk_retries"] > 0, f"fleetprobe {case}: no retry")
+        out[f"fleetprobe_{case}"] = dict(verdict=v, launches=n)
+    rc, row, n = counted("occprobe", occprobe, [paths["dense_tgen50k"],
+                                                *OCC_ARGS])
+    row.pop("config")
+    require(rc == 0 and row["ev_overflow"] == 0
+            and row == gold["occprobe"]["row"],
+            f"occprobe dense_tgen50k: rc {rc}, {row}, golden "
+            f"{gold['occprobe']['row']}")
+    out["occprobe"] = dict(row=row, launches=n)
+    out["step_s"] = step_s
+    return out
+
+
+def phase_oracle(dev, card: str, cuda: dict, builds: NativeBuild,
+                 host: OracleHostWork) -> dict:
+    """Phase 18, the oracle and the comparator, its steps' wall printed.
+    ``cuda``: the CUDA engine's runs of the same configs and windows in
+    this call (name → run_golden / run_net_golden result); ``host``: the
+    host-only work, running since the build."""
+    from shadow1_tpu_torch.core.digest import DIGEST_FIELDS
+
+    t0 = time.perf_counter()
+    build_s = builds.join()
+    log(f"comparator build (g++ -O2, in threads beside nvcc): "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in build_s.items()))
+    cpu = host_cpu()
+    nat = oracle_native(cuda)
+    for name, r in nat.items():
+        base = name.split("/")[0]
+        c = cuda[base]
+        log(f"comparator {name}: {r['events']} events in {r['wall_s']} s = "
+            f"{r['events_per_sec']} events/s ({r['n_threads']} threads on "
+            f"{cpu}); the CUDA engine {c['events']} events in "
+            f"{c['wall_s']:.3f} s = {c['events'] / c['wall_s']:.0f} events/s "
+            f"on {card}" + ("" if base == "bench" else
+                            " (side by side with the other golden runs)")
+            + "; counters equal to the golden")
+    log(f"  oracle step (a): {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    hw = host.join()
+    for name in ORACLE_RUNS:
+        r = hw["oracle"][name]
+        log(f"oracle {name} ({r['hosts']} hosts, {r['windows']} windows): "
+            f"build {r['build_s']:.2f} s, run {r['run_s']:.2f} s "
+            f"({r['events']} events) on {hw['cpu']}, in a process beside "
+            f"the card phases; its {r['metrics']} metrics, every summary "
+            f"and every digest word equal to the golden")
+    cl = hw["cli_rung1"]
+    want = [r for r in cuda["rung1"]["rows"]
+            if r["type"] == "ring"][:ORACLE_CLI_WINDOWS]
+    require([(r["window"], *(r[f] for f in DIGEST_FIELDS))
+             for r in cl["rows"]]
+            == [(r["window"], *(r[f] for f in DIGEST_FIELDS)) for r in want]
+            and len(cl["rows"]) == ORACLE_CLI_WINDOWS,
+            "--engine cpu on rung1: the digest rows differ from the CUDA "
+            "run's ring rows")
+    log(f"oracle --engine cpu rung1 ({ORACLE_CLI_WINDOWS} windows, in "
+        f"process): {cl['wall_s']:.2f} s, digest rows equal to the CUDA "
+        f"run's ring rows")
+    tools = hw["tools"]
+    log(f"pcapdump rung1: " + ", ".join(
+        f"{c} {tools[f'pcap_{c}']} bytes" for c in PCAP_RUNS)
+        + "; SHA-256 equal to the reference's")
+    log(f"activeprobe tor10k: {tools['activeprobe']}; depthprobe tor10k: "
+        f"{tools['depthprobe']}; equal to the reference's")
+    log(f"  oracle step (b): host process joined {hw['since_start_s']:.1f} s "
+        f"after its start (oracle {hw['oracle_s']:.1f} s, "
+        + json.dumps({k: round(v, 1) for k, v in hw["step_s"].items()})
+        + f"); {time.perf_counter() - t0:.1f} s wall here")
+    t0 = time.perf_counter()
+    card_tools = oracle_card_tools(dev, oracle_configs())
+    for case, (cfg, _, _) in FLEETPROBE_RUNS.items():
+        r = card_tools[f"fleetprobe_{case}"]
+        log(f"fleetprobe {case} ({cfg}) on the card: {r['verdict']}, equal "
+            f"to the reference's; launches {r['launches']}")
+    log(f"occprobe dense_tgen50k (50,000 hosts, {' '.join(OCC_ARGS)}) on "
+        f"the card: {card_tools['occprobe']['row']}, equal to the "
+        f"reference's; launches {card_tools['occprobe']['launches']}")
+    log(f"  oracle step (c): {time.perf_counter() - t0:.1f} s wall; "
+        + json.dumps({k: round(v, 1)
+                      for k, v in card_tools["step_s"].items()}))
+    return dict(native=nat, host=hw, tools=card_tools, build_s=build_s,
+                cpu=cpu)
+
 
 class PathCapture:
     """Function-level hooks around the names through which the engine and
@@ -3582,6 +4189,8 @@ def main() -> int:
     from shadow1_tpu_torch.core import _build
 
     t_start = time.perf_counter()
+    # Phase 18's comparators build with g++ beside nvcc.
+    native_builds = NativeBuild()
     phase_s = {}
 
     def phase_done(name: str, t0: float) -> None:
@@ -3598,6 +4207,11 @@ def main() -> int:
     info = _build.build()
     _build.library()
     log(f"build: {info['seconds']:.2f} s (built={info['built']})")
+    # Phase 18's host-only work runs beside the card phases from here.
+    import atexit
+
+    oracle_host = OracleHostWork()
+    atexit.register(oracle_host.kill)
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
@@ -3682,8 +4296,16 @@ def main() -> int:
     serve = phase_serve(dev, card)
     phase_done("serve", t0)
 
+    # Phases 7, 9 and 11: the golden runs, side by side in processes of
+    # their own; their checks and logs follow, phase by phase.
     t0 = time.perf_counter()
-    net = run_net_golden("filexfer16k", dev, count=True)
+    golden_procs = GoldenWorkers()
+    atexit.register(golden_procs.kill)
+    golden = golden_procs.join()
+    phase_done("golden runs of phases 7, 9 and 11, side by side", t0)
+
+    t0 = time.perf_counter()
+    net = golden["filexfer16k"]
     log(f"net slice filexfer16k ({net['hosts']} hosts): {net['events']} "
         f"events, {net['rounds']} rounds, {net['windows']} windows in "
         f"{net['wall_s']:.3f} s = {net['events'] / net['wall_s']:.0f} "
@@ -3696,7 +4318,7 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the net path: {missing}")
     log(f"launches on the filexfer16k run: {net_launches} over "
         f"{net['rounds']} rounds")
-    rung1 = run_net_golden("rung1", dev)
+    rung1 = golden["rung1"]
     log(f"net slice rung1 ({rung1['hosts']} hosts): {rung1['events']} "
         f"events, {rung1['rounds']} rounds, {rung1['windows']} windows in "
         f"{rung1['wall_s']:.3f} s ({rung1['wall_s'] / rung1['rounds'] * 1e3:.2f}"
@@ -3716,16 +4338,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     apps = {}
-    for name in APP_RUNS:
-        for cap in net_golden(name).get("compact_caps", [None]):
-            label = name if not cap else f"{name}/compact{cap}"
-            # rung2's full-width run stops early (its digest words are
-            # held); the compacted run goes the whole horizon.
-            stop = (RUNG2_PLAIN_WINDOWS if name == "rung2" and not cap
-                    else None)
-            r = apps[label] = run_net_golden(name, dev, count=True,
-                                             compact_cap=cap,
-                                             stop_after=stop)
+    for label, name, _ in golden_jobs():
+        if name in APP_RUNS:
+            r = apps[label] = golden[label]
             missing = [k for k, n in r["launches"].items() if n <= 0]
             require(not missing, f"{label}: kernels not launched: {missing}")
             log(f"app slice {label} ({r['hosts']} hosts): {r['events']} "
@@ -3757,7 +4372,7 @@ def main() -> int:
     t0 = time.perf_counter()
     fid = {}
     for name in FID_RUNS:
-        r = fid[name] = run_net_golden(name, dev, count=True)
+        r = fid[name] = golden[name]
         missing = [k for k, n in r["launches"].items() if n <= 0]
         require(not missing, f"{name}: kernels not launched: {missing}")
         m = r["metrics"]
@@ -3812,6 +4427,13 @@ def main() -> int:
     t0 = time.perf_counter()
     tools = phase_tools(dev, card)
     phase_done("operator tools", t0)
+
+    t0 = time.perf_counter()
+    phase_oracle(dev, card, {
+        "bench": bench, "filexfer16k": net, "tgen50k": apps["tgen50k"],
+        "tor10k": apps["tor10k"], "bitcoin5k": fid["bitcoin5k"],
+        "rung1": rung1}, native_builds, oracle_host)
+    phase_done("oracle and comparator", t0)
 
     kernels = []
     for name, r in checks.items():

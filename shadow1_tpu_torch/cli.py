@@ -51,8 +51,14 @@ hangs without progress give ``EXIT_HUNG``).
 ``--lane-finalize``: one ``fleet_exp`` record per experiment and a
 ``fleet_summary`` on stdout, ``exp``-tagged ring records and heartbeats on
 the record stream, and a rejected sweep as one ``fleet_config`` record
-(``EXIT_CONFIG``). The flags of shard (``--engine cpu|sharded``) are
-parsed and refused, naming their ROADMAP item.
+(``EXIT_CONFIG``).
+
+``--engine cpu`` (or ``engine.scheduler: cpu``) runs the numpy oracle
+(``cpu_engine/``) on the host: the result line on stdout, its digest,
+work, flow and link rows on stderr. It is an explicit host engine, so
+``--device`` other than ``cpu`` is refused beside it, as are the batched
+engine's chunked-run flags; nothing falls back to it. ``--engine sharded``
+is parsed and refused, naming its ROADMAP item.
 
 The serve plane (``serve/``) runs through two subcommands, dispatched
 before this parser as the reference does::
@@ -385,8 +391,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine", choices=["cpu", "tpu", "sharded"],
                     default=None,
                     help="'tpu' is the port's batched engine (the default); "
-                         "'cpu' (the numpy oracle) and 'sharded' are not "
-                         "ported")
+                         "'cpu' is the numpy oracle on the host; 'sharded' "
+                         "is not ported")
     ap.add_argument("--windows", type=int, default=None,
                     help="windows to run (default: to the config's "
                          "stop_time; under --resume, the windows left)")
@@ -494,16 +500,32 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(ap, args) -> None:
-    if args.engine in ("cpu", "sharded"):
-        ap.error(f"--engine {args.engine} is not ported yet ({_FLEET}); "
+    if args.engine == "sharded":
+        ap.error(f"--engine sharded is not ported yet ({_FLEET}); "
                  f"--engine tpu is the port's batched engine")
 
 
-def _params(ap, args, exp, params):
+def _refuse_for_oracle(ap, args) -> None:
+    """The oracle runs eagerly on the host: no device but the CPU, and
+    none of the batched engine's chunked-run flags."""
+    if args.device is not None and args.device != "cpu":
+        ap.error(f"--engine cpu is the numpy oracle on the host; "
+                 f"--device {args.device} contradicts it")
+    if (args.save_state or args.resume or args.heartbeat or args.tracker
+            or args.profile or args.ckpt or args.trace or args.metrics_ring
+            or args.auto_caps or args.on_overflow == "retry"
+            or args.on_oom == "downshift"):
+        ap.error("--save-state/--resume/--heartbeat/--tracker/--profile/"
+                 "--ckpt/--trace/--metrics-ring/--auto-caps/"
+                 "--on-overflow retry/--on-oom downshift require a batched "
+                 "engine (tpu)")
+
+
+def _params(ap, args, exp, params, engine_kind: str = "tpu"):
     """The config's EngineParams with the flags applied, and the reference's
     auto-ring rule: the digest words and the probe rows ride a ring, so one
     is set (the heartbeat's depth, else 64) when neither config nor flag
-    gave one."""
+    gave one. The oracle needs no ring: its rows go straight to stderr."""
     from shadow1_tpu_torch.config.experiment import (
         WatchlistError,
         resolve_watchlist,
@@ -527,7 +549,7 @@ def _params(ap, args, exp, params):
         params = dataclasses.replace(
             params, link_telem=int(args.link_telem == "on"))
     if ((params.state_digest or params.probes) and params.metrics_ring <= 0
-            and args.metrics_ring is None):
+            and args.metrics_ring is None and engine_kind != "cpu"):
         params = dataclasses.replace(params,
                                      metrics_ring=args.heartbeat or 64)
     if args.on_overflow is not None:
@@ -615,20 +637,23 @@ def main(argv=None) -> int:
         except WatchlistError as e:
             ap.error(str(e))
     engine_kind = args.engine or scheduler
+    if engine_kind == "cpu":
+        _refuse_for_oracle(ap, args)
     if engine_kind != "tpu":
         if args.fleet:
             return _fleet_config_exit(FleetConfigError(
                 f"--fleet batches the single-device engine; "
                 f"engine={engine_kind!r} is not composable with the "
                 f"experiment axis", kind="mode", knob="engine"))
-        ap.error(f"engine.scheduler {engine_kind!r} is not ported yet "
-                 f"({_FLEET})")
+        if engine_kind != "cpu":
+            ap.error(f"engine.scheduler {engine_kind!r} is not ported yet "
+                     f"({_FLEET})")
     if args.faults == "off":
         # The healthy-world A/B strips every experiment's schedule (a
         # vary[] entry's too); legacy per-group stop_time churn stays.
         for fexp in (fleet_plan.exps if args.fleet else [exp]):
             fexp.faults = None
-    params = _params(ap, args, exp, params)
+    params = _params(ap, args, exp, params, engine_kind)
     if args.on_lane_fail is not None or args.lane_finalize:
         if not args.fleet:
             ap.error("--on-lane-fail/--lane-finalize are fleet lane "
@@ -646,6 +671,8 @@ def main(argv=None) -> int:
                  "(total or N-more?); drop one of them")
     if args.ckpt_keep < 1:
         ap.error("--ckpt-keep must be >= 1")
+    if engine_kind == "cpu":
+        return _oracle_main(args, exp, params)
     if args.ckpt and not args.supervised_child:
         # The parent never touches the card: all device work happens in
         # the supervised children.
@@ -668,8 +695,9 @@ def main(argv=None) -> int:
     auto_caps = bool(args.auto_caps or params.auto_caps)
 
     # ---- pre-flight memory budget (mem.py): the estimate from the config
-    # alone (a meta-device init, no state-sized allocation) against what
-    # this process can hold on the card, before the engine is built.
+    # alone (a meta-device init, or a host one for a small state; nothing
+    # on the card) against what this process can hold on the card, before
+    # the engine is built.
     pre_downshift_retry = False  # retry demoted by a memory downshift
     sub_batch = None             # a fleet's lanes per sequential batch
     budget, budget_src = mem.device_budget(device)
@@ -883,6 +911,46 @@ def main(argv=None) -> int:
         device=(torch.cuda.get_device_name(eng.device)
                 if eng.device.type == "cuda" else "cpu"),
         guard=guard, controller=controller)
+    print(json.dumps(out))
+    return EXIT_OK
+
+
+def _oracle_main(args, exp, params) -> int:
+    """``--engine cpu``: the numpy oracle on the host. Config-level
+    ``auto_caps`` and ``on_overflow: retry`` stay inert there (it cannot
+    re-run a window; halt and the self-check apply as boundary checks),
+    with a warning. Its per-window digest, work, flow and link rows, the
+    comparands of the batched engine's ring, flow and link records, go to
+    stderr; the result line to stdout."""
+    from shadow1_tpu_torch.cpu_engine import CpuEngine
+    from shadow1_tpu_torch.log import SimLogger
+    from shadow1_tpu_torch.txn import CapacityExceededError
+
+    log = SimLogger(level=args.log_level)
+    log.info("experiment loaded", hosts=exp.n_hosts, engine="cpu",
+             window_ns=exp.window)
+    if params.auto_caps:
+        log.warning("engine.auto_caps ignored: the cpu oracle runs eagerly "
+                    "per event, there is no chunked window loop to retune")
+    if params.on_overflow == "retry":
+        log.warning("engine.on_overflow=retry ignored: the eager cpu oracle "
+                    "cannot replay a window; halt and --selfcheck apply as "
+                    "boundary checks")
+    t0 = time.perf_counter()
+    eng = CpuEngine(exp, params)
+    try:
+        metrics = eng.run(n_windows=args.windows)
+    except CapacityExceededError as e:
+        return _capacity_exit(e)
+    summary = eng.summary()
+    n_windows = args.windows if args.windows is not None else eng.n_windows
+    rows = ((eng.digest_rows if params.state_digest else []) + eng.work_rows
+            + eng.probe_rows + eng.link_rows)
+    for rec in rows:
+        print(json.dumps(rec), file=sys.stderr)
+    wall = time.perf_counter() - t0
+    out = result_record(exp, params, metrics, {}, summary, n_windows, wall,
+                        resumed=False, device="cpu", engine="cpu")
     print(json.dumps(out))
     return EXIT_OK
 
@@ -1271,7 +1339,7 @@ def _memory_exit_runtime(args, e, phase: str = "run") -> int:
 
 def result_record(exp, params, metrics, metrics0, summary, n_windows, wall,
                   *, resumed: bool, device: str, guard=None,
-                  controller=None) -> dict:
+                  controller=None, engine: str = "tpu") -> dict:
     """The result line: the reference's keys with their meaning, and the
     port's ``device`` and ``summary``. Rates cover this invocation: under
     --resume the snapshot's metrics are taken out. ``caps`` are the caps
@@ -1286,7 +1354,7 @@ def result_record(exp, params, metrics, metrics0, summary, n_windows, wall,
     sim_s = n_windows * exp.window / 1e9
     ev_run = metrics["events"] - metrics0.get("events", 0)
     out = {
-        "engine": "tpu",
+        "engine": engine,
         "device": device,
         "hosts": exp.n_hosts,
         "window_ns": exp.window,
@@ -1323,5 +1391,5 @@ def result_record(exp, params, metrics, metrics0, summary, n_windows, wall,
             "final": controller.final_caps or {
                 "ev_cap": params.ev_cap, "outbox_cap": params.outbox_cap}}
     out["summary"] = {k: int(v) for k, v in summary.items()
-                      if getattr(v, "ndim", 1) == 0}
+                      if isinstance(v, int) or getattr(v, "ndim", 1) == 0}
     return out

@@ -4,8 +4,10 @@ downshift planning (port of ``mem.py``, solo engine).
 * **pre-flight estimator** (:func:`estimate`): the engine state is built on
   ``torch.device("meta")`` through the real model-init path
   (:func:`abstract_state`), so the per-leaf shapes and dtypes are exactly
-  ``Engine.init_state``'s and no state-sized allocation happens. On top of
-  the resident state ride the port's own peaks (below).
+  ``Engine.init_state``'s and no state-sized allocation happens; a small
+  state is built on the host instead (:func:`_init_device`: the same
+  shapes, without the meta device's first-use cost). On top of the
+  resident state ride the port's own peaks (below).
 * **budget check** (:func:`check_budget`): estimate against the device
   budget (:func:`device_budget`: ``SHADOW1_MEM_BYTES`` wins, else what
   this process can still hold on the card — the free bytes
@@ -63,6 +65,7 @@ import dataclasses
 import math
 import os
 
+import numpy as np
 import torch
 
 from shadow1_tpu_torch.consts import EXIT_MEMORY, NP  # noqa: F401 (re-export)
@@ -241,6 +244,28 @@ def tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(tree, []))
 
 
+# A state of at most this many slot cells (host columns × per-host slots)
+# is built on the host for the estimate (:func:`_init_device`): at most a
+# few hundred MB for a moment. A process's first op on the meta device
+# imports ``torch._dynamo`` (7.0-8.9 s on the H100 machine, 2 s on 8 cores
+# here), which every small CLI launch would otherwise pay.
+_HOST_INIT_CELLS = 1 << 22
+
+
+def _init_device(exp, params, fleet=None) -> str:
+    """"cpu" when the state the estimate builds is small, else "meta":
+    host columns times the per-host slots of the event buffer, the
+    outbox, the sockets with their message FIFOs and the apps' per-host
+    tables (Tor's circuit table, Bitcoin's per-transaction rows)."""
+    cfg = exp.model_cfg
+    per_host = (params.ev_cap + params.outbox_cap
+                + params.sockets_per_host * (params.msgq_cap + 1)
+                + int(cfg.get("ct_cap", 0))
+                + np.size(cfg.get("tx_origin", ())))
+    cols = exp.n_hosts * (len(fleet[0]) if fleet is not None else 1)
+    return "cpu" if cols * per_host <= _HOST_INIT_CELLS else "meta"
+
+
 def abstract_state(exp, params, fleet=None):
     """(state, ctx) of an ``Engine`` built on ``torch.device("meta")``: the
     model-init path (the restart capture and the handlers' tables
@@ -248,16 +273,19 @@ def abstract_state(exp, params, fleet=None):
     ``Engine.init_state``'s shapes and dtypes and no state-sized
     allocation happens. The ctx tables are meta tensors too (the host-side
     numpy tables they come from are the config's own); ``const`` is priced
-    from their shapes. ``fleet`` = (experiments, max_rounds) builds a
-    ``FleetEngine`` instead (E lanes folded onto the host axis)."""
+    from their shapes. A small state is built on the host instead
+    (:func:`_init_device`): the same shapes and dtypes. ``fleet`` =
+    (experiments, max_rounds) builds a ``FleetEngine`` instead (E lanes
+    folded onto the host axis)."""
+    device = _init_device(exp, params, fleet)
     if fleet is not None:
         from shadow1_tpu_torch.fleet.engine import FleetEngine
 
-        eng = FleetEngine(fleet[0], params, fleet[1], device="meta")
+        eng = FleetEngine(fleet[0], params, fleet[1], device=device)
     else:
         from shadow1_tpu_torch.core.engine import Engine
 
-        eng = Engine(exp, params, device="meta")
+        eng = Engine(exp, params, device=device)
     return eng.init_state(), eng.ctx
 
 

@@ -148,3 +148,88 @@ def exponential_ns(b: torch.Tensor, mean_ns) -> torch.Tensor:
 def randint(b: torch.Tensor, n) -> torch.Tensor:
     """u32 bits → int32 in [0, n) by 64-bit multiply-shift."""
     return _srl(b * n, 32).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# NumPy twins (rng.py:171-224): the eager oracle's draws (cpu_engine/).
+# Every transform above is integer arithmetic, so each has an exact
+# host-side twin in uint64 numpy. The constants are np.uint64 so that no
+# uint64-with-int mix promotes to float64.
+# --------------------------------------------------------------------------
+_U64_1 = np.uint64(1)
+_C1_NP = np.uint64(0xBF58476D1CE4E5B9)
+_C2_NP = np.uint64(0x94D049BB133111EB)
+_P1_NP = np.uint64(0x9E3779B97F4A7C15)
+_P2_NP = np.uint64(0xC2B2AE3D27D4EB4F)
+_P3_NP = np.uint64(0x165667B19E3779F9)
+_LOG_TBL_U64 = _LOG_TBL_NP.astype(np.uint64)
+_LN2_Q32 = np.uint64(round(np.log(2.0) * 2 ** 32))
+
+
+def base_key_np(seed: int) -> np.uint64:
+    """``base_key`` as the reference's u64 scalar (the oracle's key)."""
+    return np.uint64(int(seed) * 0x9E3779B97F4A7C15 + 0x94D049BB133111EB
+                     & _M64)
+
+
+def _mix_np(z):
+    z = z ^ (z >> np.uint64(30))
+    z = z * _C1_NP
+    z = z ^ (z >> np.uint64(27))
+    z = z * _C2_NP
+    z = z ^ (z >> np.uint64(31))
+    return z
+
+
+def bits_np(seed_key, purpose, host, ctr) -> np.ndarray:
+    """``bits`` in numpy: u32 draws for (purpose, host, ctr)."""
+    with np.errstate(over="ignore"):  # u64 wraparound is the point
+        z = (
+            np.uint64(seed_key)
+            + np.uint64(purpose) * _P1_NP
+            + np.asarray(host, np.uint64) * _P2_NP
+            + np.asarray(ctr, np.uint64) * _P3_NP
+        )
+        z = _mix_np(_mix_np(z))
+    return (z >> np.uint64(32)).astype(np.uint32)
+
+
+def uniform01(b) -> np.ndarray:
+    """u32 bits → float32 in [0, 1) (display use only; decisions compare
+    integer thresholds)."""
+    return np.asarray(b).astype(np.float32) * np.float32(2.0 ** -32)
+
+
+def _neg_log1m_q32_np(b: np.ndarray) -> np.ndarray:
+    x = (_U64_1 << np.uint64(32)) - b.astype(np.uint64)
+    # floor(log2 x) via frexp (exact: x <= 2**32 is exactly representable).
+    _, e = np.frexp(x.astype(np.float64))
+    k = (e - 1).astype(np.uint64)
+    m = x << (np.uint64(63) - k)
+    frac = (m << _U64_1) >> _U64_1
+    idx = (frac >> np.uint64(63 - _LOG_BITS)).astype(np.int64)
+    rem = (frac >> np.uint64(63 - _LOG_BITS - 24)) & np.uint64((1 << 24) - 1)
+    lo = _LOG_TBL_U64[idx]
+    hi = _LOG_TBL_U64[idx + 1]
+    log2_frac_q32 = lo + (((hi - lo) * rem) >> np.uint64(24))
+    log2_x_q32 = (k << np.uint64(32)) + log2_frac_q32
+    e2_q32 = (np.uint64(32) << np.uint64(32)) - log2_x_q32
+    return (e2_q32 * (_LN2_Q32 >> np.uint64(5))) >> np.uint64(27)
+
+
+def exponential_ns_np(b: np.ndarray, mean_ns) -> np.ndarray:
+    """``exponential_ns`` in numpy (int64 ns, at least 1)."""
+    e_q32 = _neg_log1m_q32_np(np.asarray(b))
+    mean = np.round(np.asarray(mean_ns, np.float64)).astype(np.uint64)
+    mean = np.minimum(mean, _U64_1 << np.uint64(38))
+    e_hi = e_q32 >> np.uint64(32)
+    e_lo = e_q32 & np.uint64(0xFFFFFFFF)
+    d = mean * e_hi + ((mean * (e_lo >> np.uint64(7))) >> np.uint64(25))
+    return np.maximum(d.astype(np.int64), 1)
+
+
+def randint_np(b, n) -> np.ndarray:
+    """``randint`` in numpy: int32 in [0, n)."""
+    return (
+        (np.asarray(b, np.uint64) * np.uint64(n)) >> np.uint64(32)
+    ).astype(np.int32)

@@ -10,7 +10,7 @@ engine:
   (:mod:`serve.daemon`): accepts YAML or JSON experiment configs over a
   filesystem spool + Unix-socket JSON-line protocol, admits them against
   the device memory budget (:mod:`shadow1_tpu_torch.mem` pre-flight,
-  priced on the meta device BEFORE any engine is built), packs
+  priced off the card BEFORE any engine is built), packs
   shape-compatible jobs into fleet lanes (:mod:`shadow1_tpu_torch.fleet`),
   and streams per-job telemetry into the spool. It runs on CUDA unless
   given ``--device cpu``; with no card it raises;

@@ -12,7 +12,7 @@ through four planes:
    building one (hit/miss/evict counters on the ledger);
 2. **two-tier admission with backpressure**: every submission is priced
    by the ``mem.estimate`` pre-flight (the state built on the meta
-   device) BEFORE any engine is built; only a job that could never fit an
+   device, or on the host when small) BEFORE any engine is built; only a job that could never fit an
    IDLE device is rejected (``error=memory_budget`` advice record). One
    that fits idle but not the live headroom is admitted as
    ``waiting_headroom`` and scheduled when the resident batch drains; the
@@ -46,7 +46,7 @@ plane's commit-before-snapshot drain, so neither cohabitation nor
 eviction can move a single bit of any tenant's stream.
 
 Threads: the socket thread reads and writes spool files only. Admission
-(pricing on the meta device), engine builds and every batch run on the
+(pricing off the card), engine builds and every batch run on the
 main loop's thread, the only one that touches the card.
 
 Transient-failure retry (cli._supervise's classification, batch-scoped):
@@ -880,7 +880,8 @@ class ServeDaemon:
                   ) -> ServeJob | None:
         """Submission → ServeJob, or None after writing the rejection.
         Pure config work — no engine, no device allocation (the memory
-        side builds the state on the meta device)."""
+        side builds the state on the meta device, or on the host when
+        small)."""
         from shadow1_tpu_torch import mem
         from shadow1_tpu_torch.config.experiment import (
             build_experiment,

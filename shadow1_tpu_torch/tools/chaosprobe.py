@@ -1,7 +1,7 @@
 """Kill-anywhere chaos harness — randomized preemption/crash trials (port
 of ``tools/chaosprobe.py``).
 
-    python -m shadow1_tpu_torch.tools.chaosprobe CONFIG --no-oracle
+    python -m shadow1_tpu_torch.tools.chaosprobe CONFIG [--no-oracle]
         [--windows N] [--chunk C] [--trials T] [--seed S] [--fleet]
         [--keep K] [--jobs N] [--work DIR] [--device DEV] [--json-only]
 
@@ -38,10 +38,10 @@ nothing ever touched. This probe proves it empirically:
    (per-experiment streams).
 
 **The oracle cross-check** (solo only) pins the straight stream to the
-eager numpy oracle (``--engine cpu``), which the port does not have yet
-(ROADMAP: Queue A item 6c). A solo run therefore needs ``--no-oracle``;
-without it the probe exits 1 and says why, and every verdict says
-``"oracle_checked": false``. It never skips the check silently.
+eager numpy oracle: ``--engine cpu`` on the same config and windows, its
+digest rows (stderr) equal to the straight run's ring rows window by
+window, or the probe exits 3 before any trial. ``--no-oracle`` opts out;
+the verdict's ``"oracle_checked"`` says whether the check ran.
 
 Every launch runs ``python -m shadow1_tpu_torch`` with the probe's
 ``--device`` (default: CUDA, which must be present); the children's record
@@ -106,9 +106,6 @@ def _child_pids(ppid: int) -> list[int]:
 
 # The port's record stream (ring rows) is a launch's stdout; its logs and
 # the supervisor's resume/lineage records are its stderr.
-NO_ORACLE = ("the cpu-oracle cross-check needs --engine cpu, which the "
-             "port does not have yet (ROADMAP: Queue A item 6c); pass "
-             "--no-oracle to run the trials without it")
 NO_PARITYTRACE = ("the port's paritytrace arrives with ROADMAP Queue A item "
                   "6d; until then run the named window solo and compare its "
                   "ring rows with the straight run's")
@@ -452,10 +449,8 @@ def main(argv=None) -> int:
                          "quarantined exactly N lanes (forced-lane-halt "
                          "matrix)")
     ap.add_argument("--no-oracle", action="store_true",
-                    help="run without the cpu-oracle digest cross-check of "
-                         "the straight run (solo only; the fleet has none): "
-                         "required for a solo run until the port has the "
-                         "oracle (ROADMAP: Queue A item 6c)")
+                    help="skip the cpu-oracle digest cross-check of the "
+                         "straight run (solo only; the fleet has none)")
     ap.add_argument("--serve", type=int, default=0, metavar="N",
                     help="run N serve-daemon kill trials instead of the "
                          "supervised matrix: SIGKILL the daemon at a "
@@ -499,12 +494,6 @@ def main(argv=None) -> int:
             return 1
     if args.serve:
         return _serve_trials(args)
-    if not args.fleet and not args.no_oracle:
-        print(f"chaosprobe: {NO_ORACLE}", file=sys.stderr, flush=True)
-        print(json.dumps({"ok": False, "error": "oracle_unavailable",
-                          "message": NO_ORACLE, "oracle_checked": False}))
-        return 1
-
     rng = random.Random(args.seed)
     work = _workdir(args, "chaosprobe_")
     say = (lambda *a: None) if args.json_only else (
@@ -560,9 +549,42 @@ def main(argv=None) -> int:
             "quarantined": sorted(ref_quar)}))
         return 1
 
-    # The cpu-oracle cross-check waits for the port's oracle (ROADMAP:
-    # Queue A item 6c); a solo run got here only with --no-oracle.
+    # ---- cpu-oracle cross-check of the straight stream ------------------
     oracle_checked = False
+    if not args.no_oracle and not args.fleet:
+        orc_err = os.path.join(work, "oracle.stderr")
+        with open(orc_err, "w") as ef:
+            r = subprocess.run(
+                [sys.executable, "-m", "shadow1_tpu_torch", args.config,
+                 "--engine", "cpu", "--windows", str(args.windows),
+                 "--state-digest", "on"],
+                env=env0, stdout=subprocess.DEVNULL, stderr=ef,
+                timeout=args.timeout_s)
+        if r.returncode != 0:
+            print(json.dumps({"ok": False, "error": "oracle run failed",
+                              "rc": r.returncode, "stderr": orc_err}))
+            return 1
+        from shadow1_tpu_torch.core.digest import DIGEST_FIELDS
+
+        orc = {}
+        with open(orc_err) as f:
+            for line in f:
+                line = line.strip()
+                if line.startswith("{"):
+                    rec = json.loads(line)
+                    if rec.get("type") == "digest":
+                        orc[(None, rec["window"])] = tuple(
+                            rec[f] for f in DIGEST_FIELDS)
+        if orc != ref_stream:
+            bad = sorted(w for w in ref_stream
+                         if orc.get(w) != ref_stream[w])[:1]
+            print(json.dumps({
+                "ok": False, "error": "straight run diverges from the cpu "
+                "oracle (not a chaos failure — bisect it first)",
+                "first_window": bad, "paritytrace": NO_PARITYTRACE}))
+            return EXIT_DIVERGED
+        oracle_checked = True
+        say(f"[chaosprobe] oracle cross-check ok ({len(orc)} windows)")
 
     # ---- trial schedule --------------------------------------------------
     kinds = list(SPECIAL_KINDS[:max(0, min(args.trials,

@@ -143,7 +143,8 @@ def maxfit(path: str, budget: int) -> dict:
 def maxfit_experiment(label: str, exp, params, budget: int,
                       plan=None) -> dict:
     """The feasible envelope at ``budget`` — estimator-only (every estimate
-    is built on the meta device), so nothing is allocated on the card."""
+    is built on the meta device, or on the host when small), so nothing is
+    allocated on the card."""
     from shadow1_tpu_torch import mem
 
     # ONE real estimate; the search is arithmetic: every state plane is

@@ -12,9 +12,8 @@ keeps the true size, exactly how truncated captures work).
 Capture runs on the CPU oracle (``CpuEngine(capture=...)``): the eager
 engine sees every packet at routing time, which is the fidelity-debugging
 context pcap serves; the batched engine's device loop intentionally never
-surfaces per-packet records. The port's oracle and ``pcapdump`` (the CLI)
-come with it (ROADMAP: Queue A item 6c); until then the writer is driven
-by hand.
+surfaces per-packet records. ``tools/pcapdump.py`` is the command line
+that runs the oracle with this writer as its capture hook.
 """
 
 from __future__ import annotations

@@ -16,9 +16,9 @@ flows and the digest words on:
   after its window-4 snapshot (backoff 0): the respawned child resumes
   from the lineage and the run ends equal to the straight one;
 * ``--tracker``, ``--trace`` and ``--profile`` write their files;
-* the flags of the recovery planes run; every flag of fleet/shard/serve
-  is refused with its ROADMAP item, as are the reference's ambiguous
-  combinations.
+* the flags of the recovery planes run; ``--engine sharded`` is refused
+  with its ROADMAP item, ``--engine cpu --device cuda`` as a
+  contradiction, as are the reference's ambiguous combinations.
 """
 
 import json
@@ -204,7 +204,8 @@ def test_profile_writes_device_trace(tmp_path, capsys):
     (["--on-oom", "downshift"], "item 5"), (["--selfcheck"], "item 5"),
     (["--watchdog-s", "30"], "item 5"), (["--fleet"], "sweep:"),
     (["--on-lane-fail", "quarantine"], "need --fleet"),
-    (["--lane-finalize"], "need --fleet"), (["--engine", "cpu"], "item 6"),
+    (["--lane-finalize"], "need --fleet"),
+    (["--engine", "cpu", "--device", "cuda"], "contradicts"),
     (["--engine", "sharded"], "item 6"),
     (["--ckpt", "x.npz", "--resume", "y.npz", "--windows", "3"],
      "ambiguous"),
@@ -218,8 +219,10 @@ def test_refused_flags_name_their_item(flags, item, capsys):
     since the fleet slice: ``--fleet`` on this solo config (no ``sweep:``
     section) is the reference's structured ``fleet_config`` rejection
     (EXIT_CONFIG), and the lane policies without ``--fleet`` are refused
-    as they are there. The engines of item 6 and the reference's
-    ambiguous combinations stay refused."""
+    as they are there. The sharded engine (item 6) and the reference's
+    ambiguous combinations stay refused; the numpy oracle (``--engine
+    cpu``) runs on the host, so a CUDA ``--device`` beside it is refused
+    as a contradiction."""
     import torch
 
     from shadow1_tpu_torch import cli

@@ -145,16 +145,27 @@ def daemon(tmp_path):
 
 @pytest.fixture
 def builds(monkeypatch):
-    """Every FleetEngine built on a real device (the meta-device builds
-    of the memory estimate excluded) and every kernel build request."""
+    """Every FleetEngine built to run a batch (the memory estimate's
+    builds excluded: on the meta device, or on the host for a small
+    state) and every kernel build request."""
+    from shadow1_tpu_torch import mem
     from shadow1_tpu_torch.core import _build
 
     seen = {"engines": 0, "kernels": 0}
     init = FleetEngine.__init__
+    abstract_state = mem.abstract_state
+    estimating = []
+
+    def flagged(*a, **kw):
+        estimating.append(True)
+        try:
+            return abstract_state(*a, **kw)
+        finally:
+            estimating.pop()
 
     def counting_init(self, *a, **kw):
         init(self, *a, **kw)
-        if self.device.type != "meta":
+        if self.device.type != "meta" and not estimating:
             seen["engines"] += 1
 
     def counting_build(*a, **kw):
@@ -162,6 +173,7 @@ def builds(monkeypatch):
         raise AssertionError("the CPU path builds no kernel")
 
     monkeypatch.setattr(FleetEngine, "__init__", counting_init)
+    monkeypatch.setattr(mem, "abstract_state", flagged)
     monkeypatch.setattr(_build, "build", counting_build)
     monkeypatch.setattr(_build, "library", counting_build)
     return seen

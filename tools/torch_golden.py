@@ -27,7 +27,14 @@ Runs each slice configuration below through the JAX package's ``Engine``
   per-host summary array and the per-window digest words;
 * a snapshot (``ckpt_<name>.npz``, ``CKPT_CONFIGS``): the JAX package's
   ``ckpt.save_state`` of a YAML config's state at a window, with the
-  telemetry ring and the digest words on.
+  telemetry ring and the digest words on;
+* the oracle's tools (``oracle_tools.json``): the JAX package's
+  ``pcapdump`` (the SHA-256 and size of each ``.pcap``), ``activeprobe``,
+  ``depthprobe`` and ``occprobe`` (their JSON rows, ``config`` left out)
+  and ``fleetprobe`` (its verdicts)
+  on the JSON mirrors ``chip_smoke.oracle_configs`` writes, with the
+  arguments ``chip_smoke.py`` phase 18 gives the port's tools (occprobe
+  on dense_tgen50k's 50,000 hosts takes a few minutes).
 
 ``chip_smoke.py`` builds the same experiments in the port, runs them on the
 H100 and compares — the machine with the card has no JAX, so the reference
@@ -38,8 +45,8 @@ travels as these files.
 Names: ``bench``, ``lossy`` (PHOLD), ``filexfer16k``, ``rung1``,
 ``tgen50k``, ``rung2``, ``tor10k``, ``dgram4k``, ``bitcoin5k``, ``churn8``,
 ``fidelity16k`` (net), ``fidelity16k_obs`` (the planes; ~8 minutes),
-``ckpt_churn8_w75`` (the snapshot; seconds) and ``fleet_sweep_phold`` (the
-fleet; seconds). ``filexfer16k``
+``ckpt_churn8_w75`` (the snapshot; seconds), ``fleet_sweep_phold`` (the
+fleet; seconds) and ``oracle_tools``. ``filexfer16k``
 (16,384 hosts) takes about 35 minutes on 8 CPU cores; each golden records
 its own wall time and peak memory.
 
@@ -477,12 +484,64 @@ def run_net_reference(spec: dict) -> tuple[dict, float]:
     return rec, seconds
 
 
+def run_tools_reference() -> tuple[dict, float]:
+    """The JAX package's oracle tools on phase 18's JSON mirrors, each a
+    subprocess on the CPU, with phase 18's arguments."""
+    import subprocess
+    import tempfile
+
+    import chip_smoke as cs
+
+    t0 = time.perf_counter()
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+
+    def tool(name, *args, check=True):
+        r = subprocess.run(
+            [sys.executable, "-m", f"shadow1_tpu.tools.{name}", *args],
+            cwd=ROOT, env=env, capture_output=True, text=True, check=check)
+        return r.stdout.strip().splitlines()[-1]
+
+    def row(name, *args):
+        rec = json.loads(tool(name, *args))
+        del rec["config"]
+        return {"args": list(args[1:]), "row": rec}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = cs.oracle_configs(Path(tmp))
+        pcap = {}
+        for case, args in cs.PCAP_RUNS.items():
+            out = Path(tmp) / f"{case}.pcap"
+            tool("pcapdump", paths["rung1"], str(out), *args)
+            data = out.read_bytes()
+            pcap[case] = {"args": list(args), "bytes": len(data),
+                          "sha256": hashlib.sha256(data).hexdigest()}
+        win = ("--windows", str(cs.ORACLE_PROBE_WINDOWS))
+        fleet = {case: {"args": list(args), "verdict": json.loads(tool(
+                     "fleetprobe", paths[cfg], *args, "--json-only",
+                     check=False))}
+                 for case, (cfg, args, _) in cs.FLEETPROBE_RUNS.items()}
+        rec = {"pcap": pcap, "fleetprobe": fleet,
+               "activeprobe": row("activeprobe", paths["tor10k"], *win),
+               "depthprobe": row("depthprobe", paths["tor10k"], *win),
+               "occprobe": row("occprobe", paths["dense_tgen50k"],
+                               *cs.OCC_ARGS)}
+    return rec, time.perf_counter() - t0
+
+
 def main(argv: list[str]) -> int:
     sys.path.insert(0, str(ROOT))
     names = argv or (list(CONFIGS) + list(NET_CONFIGS) + list(OBS_CONFIGS)
-                     + list(CKPT_CONFIGS) + list(FLEET_CONFIGS))
+                     + list(CKPT_CONFIGS) + list(FLEET_CONFIGS)
+                     + ["oracle_tools"])
     GOLDEN.mkdir(parents=True, exist_ok=True)
     for name in names:
+        if name == "oracle_tools":
+            rec, seconds = run_tools_reference()
+            path = GOLDEN / "oracle_tools.json"
+            path.write_text(json.dumps(rec, indent=1, sort_keys=True) + "\n")
+            print(f"{path.relative_to(ROOT)} in {seconds:.1f} s",
+                  file=sys.stderr)
+            continue
         if name in FLEET_CONFIGS:
             rec, seconds = run_fleet_reference(*FLEET_CONFIGS[name])
             path = GOLDEN / f"{name}.json"
