@@ -255,6 +255,33 @@ fails:
    ``--retry``) and ``occprobe`` on dense_tgen50k at its full width, each
    with its launches counted from 0 and every kernel launched.
 
+19. the sharded engine (``shard/``; run last), three steps, each step's
+   wall time printed, after reading the card's compute mode: (a) tor10k
+   at its full width through a ``ShardedEngine`` in a world of one rank
+   (NCCL, in this process), its launches and exchanges counted from 0
+   and every kernel launched, equal to ``golden/net_tor10k.json`` in
+   every metric (``rounds`` included), summary and digest word, its
+   ``x2x_max_fill`` and ms per round printed beside the solo engine's on
+   the same windows in this call; (b) unless the card is in
+   ``Exclusive_Process`` mode (then printed, and not run), 2 gloo ranks
+   on the one card (one spawned group, ``shard2_rank``): filexfer16k's
+   20 windows at 8,192 columns each, equal to
+   ``golden/shard2_filexfer16k.json`` (the JAX ``ShardedEngine`` over 2
+   devices) and, but for the per-shard counters, to
+   ``net_filexfer16k.json``; rank 0 holds the three kernels to their
+   plain versions on window ``NET_PATH_WINDOW``'s arguments, timed; then
+   the reference's convergent case on 8 gloo ranks (``convergent_rank``:
+   at 2 ranks the auto cap is already the full cap): the auto cap's
+   retry fires and equals the full-cap run and the solo engine, and the
+   auto cap set explicitly raises; (c) beside (b), subprocesses on JSON
+   mirrors (``shard_configs``): ``paritytrace rung1 tpu sharded:1``
+   (identical) and with ``--inject 5:rng`` (exit 3, naming (5, rng)),
+   ``churnprobe churn --sides cpu,tpu,sharded:1`` (ok, accounting
+   closed; its oracle side in a process of its own), ``torchrun
+   --nproc-per-node 1 -m shadow1_tpu_torch rung1 --engine sharded``
+   against the solo CLI's result line, and ``crossover --hosts
+   2000,10000``.
+
 The golden runs of phases 7, 9 and 11 time nothing against a bound: they
 run as four processes side by side (``GoldenWorkers``, ``GOLDEN_GROUPS``),
 after phase 16 and before phase 8, and their checks follow in this
@@ -1040,12 +1067,12 @@ def run_net_golden(name: str, dev, *, count: bool = False,
 
 
 def check_net_golden(name: str, gold: dict, eng, st, rows,
-                     first: int = 0) -> dict:
+                     first: int = 0, skip=()) -> dict:
     """Hold a net run to its golden: the ring ``rows`` of windows ``first``
     on (every digest word; the first differing (window, subsystem) is
-    named), every Metrics field, the summary entries (each summed over
-    hosts) and the SHA-256 of each per-host summary array. Returns the
-    summary sums."""
+    named), every Metrics field but those in ``skip``, the summary
+    entries (each summed over hosts) and the SHA-256 of each per-host
+    summary array. Returns the summary sums."""
     import numpy as np
 
     from shadow1_tpu_torch.core.engine import Engine
@@ -1053,7 +1080,7 @@ def check_net_golden(name: str, gold: dict, eng, st, rows,
     check_digests(name, gold, rows, first, gold["windows"])
     metrics = Engine.metrics_dict(st)
     diff = {k: (gold["metrics"][k], v) for k, v in metrics.items()
-            if gold["metrics"].get(k) != v}
+            if gold["metrics"].get(k) != v and k not in skip}
     require(not diff and set(metrics) == set(gold["metrics"]),
             f"{name}: metrics differ from the JAX golden (golden, port): "
             f"{diff}")
@@ -3896,6 +3923,461 @@ def phase_oracle(dev, card: str, cuda: dict, builds: NativeBuild,
                 cpu=cpu)
 
 
+# -- phase 19: the sharded engine ---------------------------------------------
+
+SHARD_DIR = ROOT / "build" / "s19"
+# configs/churn_filexfer.yaml as JSON (churnprobe on the card); its GraphML
+# path is made absolute when the file is written (``shard_configs``).
+CHURN_DOC = {
+    "general": {"seed": 42, "stop_time": "6 s"},
+    "engine": {"scheduler": "tpu", "ev_cap": 512},
+    "network": {"graphml": "configs/topology_2pop.graphml"},
+    "hosts": [{"name": "server", "count": 1, "vertex": "pop_west",
+               "bandwidth_up": "20 Mbit", "bandwidth_down": "20 Mbit"},
+              {"name": "client", "count": 7, "vertex": "pop_east",
+               "bandwidth_up": "10 Mbit", "bandwidth_down": "10 Mbit"}],
+    "app": {"model": "filexfer",
+            "groups": {"server": {"role": 0},
+                       "client": {"role": 1, "server": "@server",
+                                  "flow_bytes": 250000, "flow_count": 12,
+                                  "start_time": {"start": "10 ms",
+                                                 "interval": "30 ms"}}}},
+    "faults": {
+        "hosts": [{"host": 2, "down_at": "800 ms", "up_at": "1.2 s"},
+                  {"host": 2, "down_at": "2 s", "up_at": "2.4 s"},
+                  {"host": 3, "down_at": "1.5 s", "up_at": "1.9 s"}],
+        "links": [{"src_vertex": "pop_west", "dst_vertex": "pop_east",
+                   "down_at": "3 s", "up_at": "3.25 s"}],
+        "loss": [{"src_vertex": "pop_west", "dst_vertex": "pop_east",
+                  "from": "3.5 s", "until": "4.5 s", "loss": 0.08}]},
+}
+# Step (c): paritytrace compares rung1's first PARITY_WINDOWS windows in
+# chunks of PARITY_CHUNK, and its injection run INJECT_WINDOWS; churnprobe
+# runs churn8's first CHURN_WINDOWS (its oracle side in a process of its
+# own); the CLI runs rung1's first CLI_WINDOWS, sharded and solo;
+# crossover two sizes of the dense tgen mesh over CROSSOVER_WINDOWS.
+PARITY_WINDOWS, PARITY_CHUNK = 100, 50
+INJECT_WINDOWS = 12
+CHURN_WINDOWS, CHURN_CHUNK = 40, 20
+CLI_WINDOWS = 100
+CROSSOVER_HOSTS, CROSSOVER_WINDOWS = "2000,10000", 10
+# Step (b): the reference's convergent case (every client of 32 → host 0,
+# tests/test_shard_parity.py::test_x2x_auto_retry_convergent_traffic), at
+# its 8 ranks of 4 hosts. At 2 ranks the auto cap, ceil(2·h_local·
+# outbox_cap / D), is already the full cap h_local·outbox_cap, so no retry
+# can fire there.
+CONVERGENT_RANKS, CONVERGENT_WINDOWS = 8, 4
+CONVERGENT_PARAMS = dict(ev_cap=64, outbox_cap=16, sockets_per_host=4)
+# Metrics each rank counts for its own round loop, summed over the ranks
+# (and the exchange's gauge, which a solo run does not have).
+PER_SHARD = ("rounds", "round_cap_hits", "x2x_max_fill", "compact_max_fill",
+             "fires_pkt", "fires_deliver", "fires_timer", "fires_txr",
+             "fires_app")
+
+
+def compute_mode() -> str:
+    """The card's compute mode, as nvidia-smi reports it."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    lines = r.stdout.strip().splitlines()
+    return lines[0].strip() if r.returncode == 0 and lines else "unknown"
+
+
+def shard_configs() -> dict:
+    """Write the JSON mirrors phase 19's tools run; name → path."""
+    SHARD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for name, doc in (("rung1", RUNG1_DOC), ("churn", CHURN_DOC)):
+        doc = json.loads(json.dumps(doc))
+        doc["network"]["graphml"] = str(ROOT / doc["network"]["graphml"])
+        paths[name] = str(SHARD_DIR / f"{name}.json")
+        Path(paths[name]).write_text(json.dumps(doc))
+    return paths
+
+
+def shard_golden() -> dict:
+    return json.loads((ROOT / "shadow1_tpu_torch" / "golden"
+                       / "shard2_filexfer16k.json").read_text())
+
+
+def shard_world_of_one(dev) -> dict:
+    """Step (a): tor10k at its full width (10,000 hosts, compact_cap
+    1280, 40 windows) through a ShardedEngine in a world of one rank
+    (NCCL, in this process), its launches and exchanges counted from 0,
+    held to golden/net_tor10k.json in every metric (rounds included; the
+    exchange's x2x_max_fill, which a solo run has not, is printed), the
+    summary and the digest words; then the solo Engine on the same
+    windows, for the ms per round beside it."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from shadow1_tpu_torch.consts import EngineParams
+    from shadow1_tpu_torch.core import compact
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.shard import engine as shard
+    from shadow1_tpu_torch.shard.launch import init_world
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+
+    gold = net_golden("tor10k")
+    exp = net_experiment("tor10k", gold)
+    windows = gold["windows"]
+    params = EngineParams(**gold["params"], metrics_ring=windows,
+                          state_digest=1)
+    tmp = tempfile.mkdtemp(prefix="shadow1_s19_")
+    init_world("nccl", 0, 1, os.path.join(tmp, "store"))
+    try:
+        eng = shard.ShardedEngine(exp, params, device=dev)
+        sync(dev)
+        zero_counts()
+        for k in compact.WINDOWS:
+            compact.WINDOWS[k] = 0
+        shard.EXCHANGES["all_to_all"] = 0
+        t0 = time.perf_counter()
+        st = eng.run(eng.init_state(), n_windows=windows)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches, exchanges = read_counts(), shard.EXCHANGES["all_to_all"]
+        cw = dict(compact.WINDOWS)
+        m = Engine.metrics_dict(st)
+        check_net_golden("tor10k", gold, eng, st, drain_ring(st, eng.window),
+                         skip=("x2x_max_fill",))
+        bucket = (eng._x2x_cap, eng._full_cap)
+        st = eng = None
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    missing = [k for k in ("pop", "push", "obox") if launches[k] <= 0]
+    require(not missing, f"sharded tor10k: kernels not launched: {missing}")
+    require(exchanges == windows, f"sharded tor10k: {exchanges} exchanges "
+            f"in {windows} windows")
+    require(cw["compact"] > 0, f"sharded tor10k: no compacted window {cw}")
+    solo = Engine(exp, params, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    st = solo.run(n_windows=windows)
+    sync(dev)
+    solo_wall = time.perf_counter() - t0
+    require(Engine.metrics_dict(st)["rounds"] == m["rounds"],
+            "sharded tor10k: one rank ran other rounds than the solo engine")
+    return dict(wall_s=wall, rounds=m["rounds"], events=m["events"],
+                windows=windows, hosts=exp.n_hosts, launches=launches,
+                exchanges=exchanges, compact_windows=cw,
+                x2x_max_fill=m["x2x_max_fill"], bucket=bucket,
+                solo_wall_s=solo_wall)
+
+
+def shard2_rank(rank, world) -> dict:
+    """Step (b), one of the 2 gloo ranks on the card: filexfer16k's 20
+    windows at 8,192 columns each, the launches counted from 0, held to
+    golden/shard2_filexfer16k.json (the JAX ShardedEngine over 2 devices:
+    every field) and to net_filexfer16k.json (every field but the
+    per-shard ones). Rank 0 keeps the kernels' arguments of window
+    NET_PATH_WINDOW (``NetPathCapture``) and holds each kernel to its
+    plain version on them, timed (``check_path``)."""
+    import contextlib
+
+    import torch
+
+    from shadow1_tpu_torch.consts import EngineParams
+    from shadow1_tpu_torch.core import _build, popk
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.shard import engine as shard
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+
+    _build.library()
+    dev = torch.device("cuda", 0)
+    gold, solo_gold = shard_golden(), net_golden("filexfer16k")
+    exp = net_experiment("shard2_filexfer16k", gold)
+    windows = gold["windows"]
+    params = EngineParams(**gold["params"], metrics_ring=windows,
+                          state_digest=1)
+    eng = shard.ShardedEngine(exp, params, device=dev)
+    sync(dev)
+    zero_counts()
+    shard.EXCHANGES["all_to_all"] = 0
+    cap = NetPathCapture() if rank == 0 else contextlib.nullcontext()
+    with cap:
+        t0 = time.perf_counter()
+        st = eng.init_state()
+        init_push = popk.LAUNCHES["push"]
+        st = eng.run(st, n_windows=windows)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    launches = read_counts()
+    check_net_golden("shard2_filexfer16k", gold, eng, st,
+                     drain_ring(st, eng.window))
+    m = Engine.metrics_dict(st)
+    diff = {k: (solo_gold["metrics"][k], v) for k, v in m.items()
+            if k not in PER_SHARD and solo_gold["metrics"][k] != v}
+    require(not diff, f"2 ranks: metrics differ from net_filexfer16k.json "
+            f"(golden, port): {diff}")
+    out = dict(wall_s=wall, rounds=m["rounds"], events=m["events"],
+               windows=windows, hosts=exp.n_hosts, h_local=eng.h_local,
+               launches=launches, init_push=init_push,
+               rank_rounds=int(eng.local_metrics.rounds),
+               exchanges=shard.EXCHANGES["all_to_all"],
+               x2x_max_fill=m["x2x_max_fill"],
+               bucket=(eng._x2x_cap, eng._full_cap))
+    if rank == 0:
+        st = eng = None
+        flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+        out["kernels"] = {name: check_path(name, cap.cases(name), dev, flush,
+                                           expect=(1, 3))
+                          for name in ("pop", "push", "obox")}
+        out["actives"] = cap.actives()
+    return out
+
+
+def convergent_experiment():
+    """The reference's convergent filexfer: 32 hosts, every client → host
+    0, 10 ms paths with 1 % loss."""
+    import numpy as np
+
+    from shadow1_tpu_torch.config.compiled import single_vertex_experiment
+
+    n = 32
+    role = np.full(n, 1, np.int64)
+    role[0] = 0
+    return single_vertex_experiment(
+        n_hosts=n, seed=42, end_time=1_000_000_000, latency_ns=10_000_000,
+        loss=0.01, bw_bits=10**7, model="net",
+        model_cfg={"app": "filexfer", "role": role,
+                   "server": np.zeros(n, np.int64),
+                   "flow_bytes": np.full(n, 30_000, np.int64),
+                   "start_time": np.full(n, 1_000_000, np.int64),
+                   "flow_count": np.where(role == 1, 1, 0)})
+
+
+def convergent_rank(rank, world) -> dict:
+    """Step (b), one of the 8 gloo ranks on the card: the auto cap
+    overflows and ``run`` reruns at the full cap (a RuntimeWarning); the
+    full cap set explicitly gives the same metrics; the auto cap set
+    explicitly raises. Rank 0 also runs the solo engine."""
+    import dataclasses
+    import warnings
+
+    import torch
+
+    from shadow1_tpu_torch.consts import EngineParams
+    from shadow1_tpu_torch.core import _build
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.shard.engine import ShardedEngine
+
+    _build.library()
+    dev = torch.device("cuda", 0)
+    exp, params = convergent_experiment(), EngineParams(**CONVERGENT_PARAMS)
+    eng = ShardedEngine(exp, params, device=dev)
+    cap0 = eng._x2x_cap
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        auto = Engine.metrics_dict(eng.run(n_windows=CONVERGENT_WINDOWS))
+    full = Engine.metrics_dict(ShardedEngine(
+        exp, dataclasses.replace(params, x2x_cap=eng._full_cap),
+        device=dev).run(n_windows=CONVERGENT_WINDOWS))
+    try:
+        ShardedEngine(exp, dataclasses.replace(params, x2x_cap=cap0),
+                      device=dev).run(n_windows=CONVERGENT_WINDOWS)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    out = dict(cap0=cap0, cap=eng._x2x_cap, full_cap=eng._full_cap,
+               warned=any(issubclass(w.category, RuntimeWarning)
+                          and "x2x" in str(w.message) for w in caught),
+               auto=auto, full=full, raised=raised)
+    if rank == 0:
+        out["solo"] = Engine.metrics_dict(Engine(exp, params, device=dev).run(
+            n_windows=CONVERGENT_WINDOWS))
+    return out
+
+
+def start_shard_tools(paths) -> list:
+    """Step (c)'s subprocesses, started together: (name, process, stdout
+    file, start)."""
+    py = sys.executable
+    tool = [py, "-m", "shadow1_tpu_torch.tools.{}"]
+    cmds = {
+        "paritytrace": [*tool[:2], tool[2].format("paritytrace"),
+                        paths["rung1"], "tpu", "sharded:1", "--windows",
+                        str(PARITY_WINDOWS), "--chunk", str(PARITY_CHUNK)],
+        "paritytrace_inject": [*tool[:2], tool[2].format("paritytrace"),
+                               paths["rung1"], "tpu", "sharded:1",
+                               "--windows", str(INJECT_WINDOWS), "--chunk",
+                               "10", "--inject", "5:rng"],
+        "churnprobe": [*tool[:2], tool[2].format("churnprobe"),
+                       paths["churn"], "--sides", "cpu,tpu,sharded:1",
+                       "--windows", str(CHURN_WINDOWS), "--chunk",
+                       str(CHURN_CHUNK)],
+        "cli_sharded": [py, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc-per-node", "1", "-m", "shadow1_tpu_torch",
+                        paths["rung1"], "--engine", "sharded", "--windows",
+                        str(CLI_WINDOWS)],
+        "cli_solo": [py, "-m", "shadow1_tpu_torch", paths["rung1"],
+                     "--windows", str(CLI_WINDOWS)],
+        "crossover": [*tool[:2], tool[2].format("crossover"), "--hosts",
+                      CROSSOVER_HOSTS, "--windows", str(CROSSOVER_WINDOWS)],
+    }
+    out = []
+    for name, cmd in cmds.items():
+        path = SHARD_DIR / f"{name}.out"
+        with open(path, "w") as fo, open(f"{path}.err", "w") as fe:
+            out.append((name, subprocess.Popen(cmd, cwd=ROOT, stdout=fo,
+                                               stderr=fe), path,
+                        time.perf_counter()))
+    return out
+
+
+def finish_shard_tools(tools, timeout: float) -> dict:
+    """Wait for ``start_shard_tools``' processes: name → (exit code, JSON
+    lines of stdout, stderr, wall); a process past ``timeout`` is killed
+    and fails the phase."""
+    res, deadline = {}, time.perf_counter() + timeout
+    try:
+        for name, proc, path, t0 in tools:
+            try:
+                rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"phase 19: {name} ran past {timeout} s")
+            res[name] = (rc, [json.loads(s) for s in
+                              Path(path).read_text().splitlines()
+                              if s.startswith("{")],
+                         Path(f"{path}.err").read_text(),
+                         time.perf_counter() - t0)
+    finally:
+        for _, proc, _, _ in tools:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return res
+
+
+def check_shard_tools(res: dict) -> dict:
+    """Step (c)'s verdicts."""
+    def ok(name, want=0):
+        rc, lines, err, _ = res[name]
+        require(rc == want and lines, f"phase 19: {name} exited {rc} "
+                f"(expected {want}): {err[-2000:]}")
+        return lines
+
+    pt = ok("paritytrace")[-1]
+    require(pt["first_divergence"] is None
+            and pt["windows_compared"] == PARITY_WINDOWS,
+            f"paritytrace tpu sharded:1: {pt}")
+    inj = ok("paritytrace_inject", 3)[-1]
+    require(inj["first_divergence"] == {"window": 5, "subsystems": ["rng"]},
+            f"paritytrace --inject 5:rng named {inj['first_divergence']}")
+    ch = ok("churnprobe")[-1]
+    require(ch["ok"] and all(a["closes"] for a in ch["accounting"].values()),
+            f"churnprobe: {ch}")
+    sh, solo = ok("cli_sharded")[-1], ok("cli_solo")[-1]
+    require(sh["engine"] == "sharded" and solo["engine"] == "tpu",
+            f"the CLI's engines: {sh['engine']}, {solo['engine']}")
+    diff = {k: (solo["metrics"][k], v) for k, v in sh["metrics"].items()
+            if k != "x2x_max_fill" and solo["metrics"][k] != v}
+    require(not diff and sh["summary"] == solo["summary"],
+            f"torchrun --engine sharded differs from the solo CLI: {diff}")
+    rows = ok("crossover")
+    require(len(rows) == len(CROSSOVER_HOSTS.split(","))
+            and all(r.get("events_per_sec") and r.get("cpp_events_per_sec")
+                    and r.get("events_match") for r in rows),
+            f"crossover rows: {rows}")
+    return dict(paritytrace=pt, inject=inj, churnprobe=ch, cli=sh,
+                crossover=rows,
+                wall_s={k: v[3] for k, v in res.items()})
+
+
+def phase_shard(dev, card: str) -> dict:
+    """Phase 19, its steps' wall printed."""
+    from shadow1_tpu_torch.shard.launch import RankGroup
+
+    mode = compute_mode()
+    log(f"sharded engine: the card's compute mode is {mode}")
+    step_s = {}
+
+    def step(name, t0):
+        step_s[name] = time.perf_counter() - t0
+        log(f"  shard step {name}: {step_s[name]:.1f} s wall")
+
+    t0 = time.perf_counter()
+    a = shard_world_of_one(dev)
+    ms, solo_ms = (a["wall_s"] / a["rounds"] * 1e3,
+                   a["solo_wall_s"] / a["rounds"] * 1e3)
+    log(f"sharded tor10k, one rank, NCCL ({a['hosts']} hosts, compact_cap "
+        f"1280): {a['events']} events, {a['rounds']} rounds, "
+        f"{a['windows']} windows in {a['wall_s']:.3f} s = {ms:.2f} ms/round; "
+        f"the solo engine {a['solo_wall_s']:.3f} s = {solo_ms:.2f} ms/round "
+        f"in this call on {card} ({ms / solo_ms:.3f}x); every metric, "
+        f"summary and digest word equal to net_tor10k.json; x2x_max_fill "
+        f"{a['x2x_max_fill']} (bucket {a['bucket'][0]}, full "
+        f"{a['bucket'][1]}); {a['exchanges']} all_to_all; launches "
+        f"{a['launches']}; compaction windows {a['compact_windows']}")
+    step("world of one", t0)
+
+    t0 = time.perf_counter()
+    # The tools need the card lightly: they run beside step (b).
+    tools = start_shard_tools(shard_configs())
+    b = None
+    if mode == "Exclusive_Process":
+        log("sharded engine: step (b) not run — the card is in "
+            "Exclusive_Process mode, where two processes cannot share it")
+    else:
+        with RankGroup(2, "gloo", "cuda", deadline_s=600, threads=0) as g:
+            b = g.call(shard2_rank)
+        per = b["wall_s"] / b["rounds"] * 1e3
+        log(f"sharded filexfer16k, 2 gloo ranks on the one card "
+            f"({b['h_local']} columns each): {b['events']} events, "
+            f"{b['rounds']} rounds (summed over the ranks), {b['windows']} "
+            f"windows in {b['wall_s']:.3f} s = {per:.2f} ms per rank-round "
+            f"on {card}; every field equal to shard2_filexfer16k.json (the "
+            f"JAX ShardedEngine over 2 devices), every field but the "
+            f"per-shard ones equal to net_filexfer16k.json; x2x_max_fill "
+            f"{b['x2x_max_fill']} (bucket {b['bucket'][0]}); "
+            f"{b['exchanges']} all_to_all; rank 0's launches {b['launches']} "
+            f"({b['init_push']} pushes at init) over its own "
+            f"{b['rank_rounds']} rounds")
+        for name, r in b["kernels"].items():
+            report_path(name, r, f"2-rank sharded path (filexfer16k window "
+                        f"{NET_PATH_WINDOW}, h_local {b['h_local']})")
+        step("2 ranks on one card", t0)
+        t0 = time.perf_counter()
+        with RankGroup(CONVERGENT_RANKS, "gloo", "cuda", deadline_s=600,
+                       threads=0) as g:
+            c = g.call(convergent_rank)
+        require(c["cap"] == c["full_cap"] > c["cap0"] and c["warned"],
+                f"convergent: the auto cap did not retry: {c}")
+        require(c["auto"] == c["full"], "convergent: the retried run "
+                "differs from the full-cap run")
+        require(c["raised"] and "x2x_cap" in c["raised"],
+                f"convergent: the explicit cap did not raise: {c['raised']}")
+        diff = {k: (c["solo"][k], v) for k, v in c["auto"].items()
+                if k not in PER_SHARD and c["solo"][k] != v}
+        require(not diff, f"convergent: differs from the solo engine {diff}")
+        log(f"convergent filexfer, {CONVERGENT_RANKS} gloo ranks on the one "
+            f"card: the auto cap {c['cap0']} overflowed (demand "
+            f"{c['auto']['x2x_max_fill']}) and run() reran at the full cap "
+            f"{c['full_cap']} with a RuntimeWarning; equal to the full-cap "
+            f"run and, but for the per-shard counters, to the solo engine; "
+            f"an explicit cap of {c['cap0']} raised")
+        b["convergent"] = c
+        step("convergent retry", t0)
+    t0 = time.perf_counter()
+    tl = check_shard_tools(finish_shard_tools(tools, timeout=600))
+    log(f"paritytrace rung1 tpu sharded:1: identical over "
+        f"{PARITY_WINDOWS} windows; --inject 5:rng named (5, rng); "
+        f"churnprobe churn8 cpu,tpu,sharded:1 ({CHURN_WINDOWS} windows): ok,"
+        f" accounting closed; torchrun --nproc-per-node 1 --engine sharded "
+        f"rung1: the solo CLI's result line; crossover "
+        + "; ".join(f"{r['n_hosts']} hosts {r['events_per_sec']} events/s "
+                    f"vs C++ {r['cpp_events_per_sec']}" for r in tl["crossover"])
+        + "; walls " + json.dumps({k: round(v, 1)
+                                   for k, v in tl["wall_s"].items()}))
+    step("tools (joined)", t0)
+    return dict(one=a, two=b, tools=tl, mode=mode, step_s=step_s)
+
+
 class PathCapture:
     """Function-level hooks around the names through which the engine and
     the PHOLD handler call the kernels' wrappers (``engine.pop_until``,
@@ -4435,6 +4917,10 @@ def main() -> int:
         "rung1": rung1}, native_builds, oracle_host)
     phase_done("oracle and comparator", t0)
 
+    t0 = time.perf_counter()
+    shard = phase_shard(dev, card)
+    phase_done("sharded engine", t0)
+
     kernels = []
     for name, r in checks.items():
         n = net_checks[name]
@@ -4451,6 +4937,9 @@ def main() -> int:
         err = max(err, sp["path_err"])
         if name == "pop":
             err = max(err, fleet["sweep"]["until_err"])
+        two = shard["two"]
+        if two is not None:
+            err = max(err, two["kernels"][name]["path_err"])
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "design": DESIGN[name],
@@ -4518,7 +5007,28 @@ def main() -> int:
             "serve_path_wrapper_us": sp["path_wrapper_ms"] * 1e3,
             "serve_path_case_us": [x * 1e3 for x in sp["path_case_ms"]],
             "serve_path_active": sp["path_active"],
+            "shard_launches": shard["one"]["launches"][name],
+            "shard_launches_per_round": shard["one"]["launches"][name]
+            / shard["one"]["rounds"],
         })
+        if two is not None:
+            k2 = two["kernels"][name]
+            kernels[-1].update({
+                # Rank 0's launches over rank 0's own rounds, init_state's
+                # pushes left out.
+                "shard2_launches": two["launches"][name],
+                "shard2_launches_per_round": (
+                    two["launches"][name]
+                    - (two["init_push"] if name == "push" else 0))
+                / two["rank_rounds"],
+                "shard2_path_err": k2["path_err"],
+                "shard2_path_us": k2["path_ms"] * 1e3,
+                "shard2_path_bound_us": k2["path_bound_ms"] * 1e3,
+                "shard2_path_plain_us": k2["path_plain_ms"] * 1e3,
+                "shard2_path_wrapper_us": k2["path_wrapper_ms"] * 1e3,
+                "shard2_path_case_us": [x * 1e3 for x in k2["path_case_ms"]],
+                "shard2_path_active": k2["path_active"],
+            })
         if name == "pop":
             kernels[-1]["fleet_per_host_bound_err"] = \
                 fleet["sweep"]["until_err"]

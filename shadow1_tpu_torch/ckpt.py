@@ -359,7 +359,9 @@ def run_chunked(engine, st=None, n_windows: int | None = None,
         held = [st]
         st = None
         with maybe_span(profiler, PH_RUN_CHUNK, windows=step, done=done):
-            held.append(engine.run(held.pop(), n_windows=step))
+            held.append(guard.run_guarded(engine, held, step)
+                        if guard is not None
+                        else engine.run(held.pop(), n_windows=step))
             if profiler is not None:
                 engine.synchronize()
         if guard is not None:
@@ -379,6 +381,8 @@ def run_chunked(engine, st=None, n_windows: int | None = None,
         # below always follows its snapshot; a signal landing inside
         # on_chunk is honored one boundary later.
         draining = drain is not None and drain.requested and done < total
+        # Sharded: every rank drains at the same boundary.
+        draining = engine.agree(draining)
         if on_chunk is not None:
             on_chunk(st, done)
         if draining:

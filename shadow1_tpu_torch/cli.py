@@ -57,8 +57,18 @@ the record stream, and a rejected sweep as one ``fleet_config`` record
 (``cpu_engine/``) on the host: the result line on stdout, its digest,
 work, flow and link rows on stderr. It is an explicit host engine, so
 ``--device`` other than ``cpu`` is refused beside it, as are the batched
-engine's chunked-run flags; nothing falls back to it. ``--engine sharded``
-is parsed and refused, naming its ROADMAP item.
+engine's chunked-run flags; nothing falls back to it.
+
+``--engine sharded`` (or ``engine.scheduler: sharded``) runs the sharded
+engine (``shard/engine.py``) over the ranks of a ``torch.distributed``
+world: the world ``torchrun`` describes (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``), or, launched alone, a world of one rank. The backend is
+NCCL on the card (one card per rank) and gloo under ``--device cpu``;
+``--dist-backend gloo`` puts several ranks on one card. Rank 0 alone
+writes the records, the snapshots (the gathered global state, which
+either package and either engine resumes) and the result line. Under
+``--ckpt`` each rank runs as the supervised child does (``torchrun
+--max-restarts`` is the supervisor): a rerun resumes from the lineage.
 
 The serve plane (``serve/``) runs through two subcommands, dispatched
 before this parser as the reference does::
@@ -90,8 +100,6 @@ from shadow1_tpu_torch.consts import (
 )
 
 MAX_RESPAWNS = 8
-
-_FLEET = "ROADMAP: Queue A item 6, shard and the tools"
 
 
 def _config_fingerprint(config_path: str) -> str:
@@ -392,7 +400,13 @@ def _parser() -> argparse.ArgumentParser:
                     default=None,
                     help="'tpu' is the port's batched engine (the default); "
                          "'cpu' is the numpy oracle on the host; 'sharded' "
-                         "is not ported")
+                         "splits the hosts over the ranks of a "
+                         "torch.distributed world (torchrun; launched "
+                         "alone, one rank)")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                    help="--engine sharded: the collectives' backend "
+                         "(default: nccl on the card, gloo on the CPU; "
+                         "gloo runs several ranks on one card)")
     ap.add_argument("--windows", type=int, default=None,
                     help="windows to run (default: to the config's "
                          "stop_time; under --resume, the windows left)")
@@ -499,12 +513,6 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_unported(ap, args) -> None:
-    if args.engine == "sharded":
-        ap.error(f"--engine sharded is not ported yet ({_FLEET}); "
-                 f"--engine tpu is the port's batched engine")
-
-
 def _refuse_for_oracle(ap, args) -> None:
     """The oracle runs eagerly on the host: no device but the CPU, and
     none of the batched engine's chunked-run flags."""
@@ -559,16 +567,17 @@ def _params(ap, args, exp, params, engine_kind: str = "tpu"):
     return params
 
 
-def _resolve_ckpt_lineage(args, log):
+def _resolve_ckpt_lineage(args, log, discard: bool = True):
     """Child side of --ckpt: the newest valid lineage generation (corrupt
-    newer ones deleted), else an explicit --resume. Returns (resolved,
-    lineage, resume_path)."""
+    newer ones deleted, unless ``discard`` is off: a sharded run's ranks
+    other than 0), else an explicit --resume. Returns (resolved, lineage,
+    resume_path)."""
     if not args.ckpt:
         return None, None, args.resume
     from shadow1_tpu_torch.lineage import Lineage
 
     lineage = Lineage(args.ckpt, keep=args.ckpt_keep)
-    r = lineage.resolve(discard_invalid=True)
+    r = lineage.resolve(discard_invalid=discard)
     resolved = r if (r is not None and r.path is not None) else None
     if r is not None and resolved is None:
         log.warning("discarding corrupt checkpoint", path=args.ckpt,
@@ -602,7 +611,6 @@ def main(argv=None) -> int:
         return submit_main(argv[1:])
     ap = _parser()
     args = ap.parse_args(argv)
-    _refuse_unported(ap, args)
 
     from shadow1_tpu_torch.config.experiment import (
         WatchlistError,
@@ -639,15 +647,13 @@ def main(argv=None) -> int:
     engine_kind = args.engine or scheduler
     if engine_kind == "cpu":
         _refuse_for_oracle(ap, args)
-    if engine_kind != "tpu":
-        if args.fleet:
-            return _fleet_config_exit(FleetConfigError(
-                f"--fleet batches the single-device engine; "
-                f"engine={engine_kind!r} is not composable with the "
-                f"experiment axis", kind="mode", knob="engine"))
-        if engine_kind != "cpu":
-            ap.error(f"engine.scheduler {engine_kind!r} is not ported yet "
-                     f"({_FLEET})")
+    if engine_kind != "tpu" and args.fleet:
+        return _fleet_config_exit(FleetConfigError(
+            f"--fleet batches the single-device engine; "
+            f"engine={engine_kind!r} is not composable with the "
+            f"experiment axis", kind="mode", knob="engine"))
+    if args.dist_backend and engine_kind != "sharded":
+        ap.error("--dist-backend needs --engine sharded")
     if args.faults == "off":
         # The healthy-world A/B strips every experiment's schedule (a
         # vary[] entry's too); legacy per-group stop_time churn stays.
@@ -673,7 +679,7 @@ def main(argv=None) -> int:
         ap.error("--ckpt-keep must be >= 1")
     if engine_kind == "cpu":
         return _oracle_main(args, exp, params)
-    if args.ckpt and not args.supervised_child:
+    if args.ckpt and not args.supervised_child and engine_kind != "sharded":
         # The parent never touches the card: all device work happens in
         # the supervised children.
         watchdog_s = (args.watchdog_s if args.watchdog_s is not None
@@ -681,18 +687,78 @@ def main(argv=None) -> int:
         return _supervise(argv, args.ckpt, args.config,
                           watchdog_s=watchdog_s)
 
+    from shadow1_tpu_torch.core.engine import resolve_device
+    from shadow1_tpu_torch.log import SimLogger
+
+    device = resolve_device(args.device)
+    world = None
+    if engine_kind == "sharded":
+        try:
+            world = _join_world(args, device)
+        except ValueError as e:  # a backend that cannot serve the world
+            ap.error(str(e))
+        device = world["device"]
+    root = world is None or world["rank"] == 0
+    log = SimLogger(level=args.log_level, rank=0 if root else 1)
+    try:
+        return _batched_main(args, exp, params, engine_kind, device, world,
+                             log, fleet_plan)
+    finally:
+        if world is not None:
+            _leave_world(world)
+
+
+def _join_world(args, device) -> dict:
+    """Join the sharded run's world (``shard/launch.init_from_env``):
+    NCCL on the card, one card per rank (``cuda:LOCAL_RANK``), gloo on
+    the CPU or where ``--dist-backend gloo`` asks for it. A rank other
+    than 0 prints nothing on stdout."""
+    from shadow1_tpu_torch.shard.launch import (
+        check_backend,
+        init_from_env,
+        rank_device,
+    )
+
+    backend = args.dist_backend or ("nccl" if device.type == "cuda"
+                                    else "gloo")
+    check_backend(backend, device, int(os.environ.get("WORLD_SIZE", "1")))
+    rank, n, local, tmp = init_from_env(backend)
+    dev = rank_device(backend, str(device), local)
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    return {"rank": rank, "world": n, "device": dev, "tmp": tmp}
+
+
+def _leave_world(world: dict) -> None:
+    import shutil
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if world["tmp"]:
+        shutil.rmtree(world["tmp"], ignore_errors=True)
+
+
+def _batched_main(args, exp, params, engine_kind, device, world, log,
+                  fleet_plan) -> int:
+    """The batched engines' run: solo, sharded (``world``) or a fleet."""
     import torch
 
     from shadow1_tpu_torch import mem
-    from shadow1_tpu_torch.core.engine import Engine, resolve_device
-    from shadow1_tpu_torch.log import SimLogger
+    from shadow1_tpu_torch.core.engine import Engine
+    from shadow1_tpu_torch.fleet.expand import FleetConfigError
     from shadow1_tpu_torch.obs import build_kernels
     from shadow1_tpu_torch.preempt import DrainHandler, PreemptedExit
     from shadow1_tpu_torch.txn import CapacityExceededError
 
-    log = SimLogger(level=args.log_level)
-    device = resolve_device(args.device)
     auto_caps = bool(args.auto_caps or params.auto_caps)
+    root = world is None or world["rank"] == 0
+    n_dev = world["world"] if world is not None else 1
+    if engine_kind == "sharded":
+        from shadow1_tpu_torch.shard.engine import ShardedEngine as Eng
+    else:
+        Eng = Engine
 
     # ---- pre-flight memory budget (mem.py): the estimate from the config
     # alone (a meta-device init, or a host one for a small state; nothing
@@ -703,11 +769,11 @@ def main(argv=None) -> int:
     budget, budget_src = mem.device_budget(device)
     fleet = (fleet_plan.exps, fleet_plan.max_rounds) if args.fleet else None
     try:
-        mem_est = mem.estimate(exp, params, fleet=fleet)
+        mem_est = mem.estimate(exp, params, fleet=fleet, n_dev=n_dev)
     except Exception as est_err:  # noqa: BLE001 — the estimate fails soft
         mem_est = None
         log.warning("memory estimate unavailable", error=repr(est_err))
-    if mem_est is not None:
+    if mem_est is not None and root:
         print(json.dumps(mem_est.record(budget, budget_src,
                                         engine=engine_kind)),
               file=sys.stderr, flush=True)
@@ -725,16 +791,18 @@ def main(argv=None) -> int:
                 exp, params, budget,
                 resumable=bool(args.ckpt or args.resume or args.save_state),
                 fleet=fleet, subbatch_resumable=bool(
-                    args.ckpt and not args.resume and not args.save_state))
+                    args.ckpt and not args.resume and not args.save_state),
+                n_dev=n_dev)
         except mem.MemoryBudgetError as e:
             return _memory_exit(e)
         sub_batch = next((a["lanes"] for a in actions
                           if a["action"] == "sub_batch"), None)
         mem_est = mem.estimate(exp, params, fleet=fleet and (
-            fleet[0][:sub_batch], fleet[1][:sub_batch]))
-        print(json.dumps(mem.downshift_record(actions, mem_est.peak_bytes,
-                                              budget)),
-              file=sys.stderr, flush=True)
+            fleet[0][:sub_batch], fleet[1][:sub_batch]), n_dev=n_dev)
+        if root:
+            print(json.dumps(mem.downshift_record(
+                actions, mem_est.peak_bytes, budget)),
+                file=sys.stderr, flush=True)
         for a in actions:
             log.warning("memory downshift", **a)
     if os.environ.get("SHADOW1_MEM_INJECT_OOM") == "raw":
@@ -765,7 +833,7 @@ def main(argv=None) -> int:
             # early validation does.
             return _fleet_config_exit(e)
     try:
-        eng = Engine(exp, params, device=device)
+        eng = Eng(exp, params, device=device)
     except Exception as e:
         # Construction allocates the ctx tables and the restart capture.
         if mem.is_oom(e):
@@ -776,7 +844,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     metrics0: dict[str, int] = {}
     st = None
-    resolved, ckpt_lineage, resume_path = _resolve_ckpt_lineage(args, log)
+    resolved, ckpt_lineage, resume_path = _resolve_ckpt_lineage(
+        args, log, discard=root)
     if resume_path:
         from shadow1_tpu_torch.ckpt import (
             CorruptCheckpointError,
@@ -785,8 +854,9 @@ def main(argv=None) -> int:
         )
 
         params0, eng0 = params, eng
+        # A sharded run loads the global state and takes its columns.
         try:
-            template = eng.init_state()
+            template = eng.init_global_state()
             if auto_caps or params.on_overflow == "retry" or pre_downshift_retry:
                 # A retry or auto-caps run checkpoints at the caps it had
                 # grown to, where a host may hold more events than the
@@ -795,9 +865,11 @@ def main(argv=None) -> int:
                 if snap and snap != (params.ev_cap, params.outbox_cap):
                     params = dataclasses.replace(
                         params, ev_cap=snap[0], outbox_cap=snap[1])
-                    eng = Engine(exp, params, device=device)
-                    template = eng.init_state()
+                    eng = Eng(exp, params, device=device)
+                    template = eng.init_global_state()
             st = load_state(template, resume_path)
+            template = None
+            st = eng.place_state(st)
         except CorruptCheckpointError as e:
             # A supervised child falls back to a fresh start; an explicit
             # --resume fails loudly.
@@ -810,7 +882,7 @@ def main(argv=None) -> int:
         else:
             metrics0 = Engine.metrics_dict(st)
             done = int(st.win_start) // exp.window
-            if resolved is not None:
+            if resolved is not None and root:
                 _emit_resume_record(args.ckpt, resolved, int(st.win_start),
                                     ckpt_lineage)
             if args.windows is None:
@@ -885,9 +957,11 @@ def main(argv=None) -> int:
     if args.save_state:
         from shadow1_tpu_torch.ckpt import save_state
 
-        save_state(st, args.save_state)
+        snap = eng.gather_state(st)
+        eng.on_root(lambda: save_state(snap, args.save_state))
+        snap = None
     peak_in_use = mem.device_peak_in_use(eng.device)
-    if peak_in_use is not None:
+    if peak_in_use is not None and root:
         # The allocator's measured high-water beside the pre-flight
         # estimate.
         print(json.dumps({"type": "mem", "event": "final",
@@ -901,16 +975,18 @@ def main(argv=None) -> int:
     if args.tracker:
         from shadow1_tpu_torch.log import tracker_records
 
-        with open(args.tracker, "w") as f:
-            for rec in tracker_records(eng, st):
-                f.write(json.dumps(rec) + "\n")
+        recs = tracker_records(eng, st)
+        if root:
+            with open(args.tracker, "w") as f:
+                for rec in recs:
+                    f.write(json.dumps(rec) + "\n")
     wall = time.perf_counter() - t0
     out = result_record(
         exp, params, metrics, metrics0, summary, n_windows, wall,
         resumed=bool(resume_path),
         device=(torch.cuda.get_device_name(eng.device)
                 if eng.device.type == "cuda" else "cpu"),
-        guard=guard, controller=controller)
+        guard=guard, controller=controller, engine=engine_kind)
     print(json.dumps(out))
     return EXIT_OK
 

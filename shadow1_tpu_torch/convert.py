@@ -8,7 +8,10 @@ names, leaf shapes and dtypes — so a state converts leaf by leaf:
   leaves are numpy arrays (``jax.tree.map(np.asarray, st)`` on the JAX
   side) and returns the port's ``SimState`` on ``device``;
 * ``state_to_numpy(st)`` returns the port's ``SimState`` with numpy leaves
-  of the same dtypes, to compare with or hand back to the reference.
+  of the same dtypes, to compare with or hand back to the reference;
+* ``sharded_from_numpy`` / ``sharded_to_numpy`` do the same for a rank of
+  the sharded engine (``shard/engine.py``): the global tree in, the rank's
+  columns placed; the rank's columns gathered, the global tree out.
 
 The tree is read by field name (NamedTuples) and key (the net model's
 TCP and app dicts), so this module needs nothing of the JAX package. A
@@ -91,6 +94,19 @@ def state_from_numpy(tree, device) -> SimState:
 def state_to_numpy(st: SimState) -> SimState:
     """The port's SimState → the same tree with numpy leaves."""
     return _convert(st, lambda t: t.detach().cpu().numpy())
+
+
+def sharded_from_numpy(engine, tree):
+    """A reference global SimState with numpy leaves → this rank's columns
+    of it, on the sharded engine's device (``ShardedEngine.place_state``;
+    the JAX package's ``np.asarray`` of a sharded state is such a tree)."""
+    return engine.place_state(state_from_numpy(tree, "cpu"))
+
+
+def sharded_to_numpy(engine, st) -> SimState:
+    """A rank's state → the global state with numpy leaves (a collective:
+    every rank calls it, ``ShardedEngine.gather_state``)."""
+    return state_to_numpy(engine.gather_state(st))
 
 
 def _walk(node, out: list) -> None:

@@ -134,6 +134,15 @@ def model_host_vectors(model) -> list:
     return []
 
 
+def model_vector_names(model) -> list[str]:
+    """Labels of ``model_host_vectors``' vectors, in the same order
+    (paritytrace's plane dumps)."""
+    f = getattr(model, "_fields", ())
+    if "hops" in f and "ctr" in f:
+        return ["hops", "ctr"]
+    return []
+
+
 def state_digests(st, ctx, dg_outbox) -> torch.Tensor:
     """The window's digest words, i64 [5] in SUBSYSTEMS order ([E, 5] in a
     fleet). ``dg_outbox`` was taken before the delivery; the rest digests

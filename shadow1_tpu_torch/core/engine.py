@@ -230,8 +230,7 @@ def resolve_device(device=None) -> torch.device:
 def check_supported(exp: CompiledExperiment, params: EngineParams) -> None:
     """Refuse a model or app the port does not know. Every engine knob of
     the solo engine runs since the recovery planes (``txn.py``, ``tune/``,
-    ``mem.py``); the sharded scheduler is refused by the CLI and
-    ``config/experiment.py``."""
+    ``mem.py``); the sharded scheduler runs ``shard/engine.py``."""
     from shadow1_tpu_torch.net import APPS
 
     if exp.model == "net" and exp.model_cfg.get("app") not in APPS:
@@ -567,8 +566,11 @@ def deliver_flat(evbuf: EventBuf, ctx: Ctx, fp: FlatPackets):
     return evbuf, lsum(ctx, mine) - n_over, n_over, n_down
 
 
-def deliver_window(st: SimState, ctx: Ctx) -> SimState:
-    """Window-end packet exchange: route, then scatter; clears the outbox."""
+def deliver_window(st: SimState, ctx: Ctx, exchange=None) -> SimState:
+    """Window-end packet exchange: route, (the all_to_all under sharding),
+    scatter; clears the outbox. ``exchange`` maps FlatPackets →
+    (FlatPackets, n_dropped, fill_high_water) across the ranks
+    (``shard/engine.py``); None on one device, where nothing more runs."""
     links = st.links
     if links is not None:
         fp, n_sent, n_lost, n_linkdown, links = route_outbox(
@@ -578,8 +580,13 @@ def deliver_window(st: SimState, ctx: Ctx) -> SimState:
     # Read before the window-end clear.
     ob_fill = lmax(ctx, st.outbox.cnt)
     ob_hosts = lsum(ctx, st.outbox.cnt > 0)
-    evbuf, n_deliv, n_over, n_down = deliver_flat(st.evbuf, ctx, fp)
     m = st.metrics
+    if exchange is not None:
+        with torch.profiler.record_function("phase:exchange"):
+            fp, n_x2x, x2x_hw = exchange(fp)
+        m = m._replace(x2x_overflow=m.x2x_overflow + n_x2x,
+                       x2x_max_fill=torch.maximum(m.x2x_max_fill, x2x_hw))
+    evbuf, n_deliv, n_over, n_down = deliver_flat(st.evbuf, ctx, fp)
     return st._replace(
         evbuf=evbuf,
         outbox=outbox_clear(st.outbox),
@@ -651,21 +658,34 @@ class WindowFrame(NamedTuple):
     win_end: torch.Tensor   # i64 scalar
     cap_hit: bool = False
     dg_ob: Any = None       # i64 outbox digest word (digest runs only)
+    l_entry: Any = None     # link accumulator at window entry (the sharded
+                            # reduction's delta baseline)
 
 
 def window_frame(st: SimState, ctx: Ctx) -> WindowFrame:
     return WindowFrame(st=st, m_entry=st.metrics,
-                       win_end=st.win_start + ctx.window)
+                       win_end=st.win_start + ctx.window, l_entry=st.links)
 
 
-def window_phases(ctx: Ctx, handlers: dict, make_handlers, pre_window=None):
+def window_phases(ctx: Ctx, handlers: dict, make_handlers, pre_window=None,
+                  exchange=None, telem_reduce=None, probe_reduce=None,
+                  link_reduce=None):
     """The ordered (name, frame → frame) stage list of one window.
     ``handlers`` are ``make_handlers(ctx)``, the model's handler builder.
     ``pre_window(st, ctx, win_end)`` is the model's hook before the rounds
     (the net model's batched NIC arrivals). With ``compact_cap`` set below
     the host count, the rounds run through ``core/compact.py
     compact_window_rounds``, which builds handlers over the gathered ctx
-    with ``make_handlers``."""
+    with ``make_handlers``.
+
+    The sharded engine (``shard/engine.py``) passes the cross-rank hooks:
+    ``exchange`` (the window's one all_to_all, ``deliver_window``),
+    ``telem_reduce(counters, gauges)`` (a ring row: counter deltas and
+    digest words summed, gauges maxed), ``probe_reduce(row)`` (the probe
+    row summed: a rank samples zeros for a probe it does not own) and
+    ``link_reduce(entry, cur)`` (the window's link deltas summed onto the
+    entry baseline, the high-water column maxed). With every hook None no
+    operation is added."""
     digest_on = bool(ctx.params.state_digest)
 
     def ph_prepare(fr: WindowFrame) -> WindowFrame:
@@ -734,7 +754,7 @@ def window_phases(ctx: Ctx, handlers: dict, make_handlers, pre_window=None):
             from shadow1_tpu_torch.core.digest import digest_outbox
 
             dg_ob = digest_outbox(st.outbox, ctx.hosts, ctx.n_exp)
-        return fr._replace(st=deliver_window(st, ctx), dg_ob=dg_ob)
+        return fr._replace(st=deliver_window(st, ctx, exchange), dg_ob=dg_ob)
 
     def ph_telem(fr: WindowFrame) -> WindowFrame:
         st = fr.st
@@ -762,7 +782,8 @@ def window_phases(ctx: Ctx, handlers: dict, make_handlers, pre_window=None):
 
                 digests = state_digests(st, ctx, fr.dg_ob)
             st = st._replace(telem=ring_record(st.telem, fr.m_entry,
-                                               st.metrics, ev_fill, digests))
+                                               st.metrics, ev_fill, digests,
+                                               telem_reduce=telem_reduce))
         if st.probes is not None:
             # The same post-delivery boundary state the digests hash;
             # ``fr.win_end`` anchors the NIC backlog columns and the
@@ -773,7 +794,11 @@ def window_phases(ctx: Ctx, handlers: dict, make_handlers, pre_window=None):
             )
 
             row = probe_sample(st, ctx, fr.win_end)
+            if probe_reduce is not None:
+                row = probe_reduce(row)
             st = st._replace(probes=probe_record(st.probes, fr.m_entry, row))
+        if st.links is not None and link_reduce is not None:
+            st = st._replace(links=link_reduce(fr.l_entry, st.links))
         return fr._replace(st=st)
 
     return [("prepare", ph_prepare), ("rounds", ph_rounds),
@@ -781,13 +806,16 @@ def window_phases(ctx: Ctx, handlers: dict, make_handlers, pre_window=None):
 
 
 def window_step(st: SimState, ctx: Ctx, handlers: dict, make_handlers,
-                pre_window=None) -> SimState:
+                pre_window=None, exchange=None, telem_reduce=None,
+                probe_reduce=None, link_reduce=None) -> SimState:
     """One conservative window: the four phases in order, each in its
-    ``record_function`` scope."""
+    ``record_function`` scope (the hooks: ``window_phases``)."""
     from shadow1_tpu_torch.telemetry.profiler import WINDOW_PHASES
 
     fr = window_frame(st, ctx)
-    for name, fn in window_phases(ctx, handlers, make_handlers, pre_window):
+    for name, fn in window_phases(ctx, handlers, make_handlers, pre_window,
+                                  exchange, telem_reduce, probe_reduce,
+                                  link_reduce):
         with torch.profiler.record_function(WINDOW_PHASES[name]):
             fr = fn(fr)
     return fr.st
@@ -888,11 +916,12 @@ class Engine:
                             np.asarray(self.exp.lat_vv).shape[0], dev, n_exp),
         )
 
-    def run(self, st: SimState | None = None,
-            n_windows: int | None = None) -> SimState:
+    def run(self, st: SimState | None = None, n_windows: int | None = None,
+            check_x2x: bool = True) -> SimState:
         """Run ``n_windows`` windows (default: to the experiment's end) from
         ``st`` (default: a fresh ``init_state``). On CUDA the kernels
-        update the given state's event-buffer and outbox planes in place."""
+        update the given state's event-buffer and outbox planes in place.
+        ``check_x2x`` is the sharded engine's and means nothing here."""
         if st is None:
             st = self.init_state()
         n = n_windows if n_windows is not None else self.n_windows
@@ -913,3 +942,30 @@ class Engine:
     def model_summary(self, st: SimState) -> dict[str, Any]:
         return {k: v.cpu().numpy()
                 for k, v in self._model.summary(st.model, self.ctx).items()}
+
+    # The sharded engine's API (``shard/engine.py``) for a world of one
+    # device: the recovery planes, observability and the CLI call it alike
+    # for every engine.
+    rank = 0
+
+    def init_global_state(self) -> SimState:
+        return self.init_state()
+
+    def place_state(self, st: SimState) -> SimState:
+        return st
+
+    def gather_state(self, st: SimState) -> SimState:
+        return st
+
+    def global_summary(self, st: SimState) -> dict[str, Any]:
+        return self.model_summary(st)
+
+    def agree(self, flag: bool) -> bool:
+        return bool(flag)
+
+    def on_root(self, write):
+        return write()
+
+    def grow_x2x(self) -> bool:
+        """No exchange bucket to grow: an overflow is never bucket-sized."""
+        return False

@@ -32,15 +32,17 @@ def _level_value(level: str) -> int:
 class SimLogger:
     """JSON-lines logger with level filtering and sim-time context."""
 
-    def __init__(self, stream=None, level: str = "message"):
-        self.stream = stream if stream is not None else sys.stderr
+    def __init__(self, stream=None, level: str = "message", rank: int = 0):
+        # A sharded run's ranks share one record stream: rank 0 writes it.
+        self.stream = (False if rank else
+                       stream if stream is not None else sys.stderr)
         self.threshold = _level_value(level)
         self.t0 = time.perf_counter()
         self.n_dropped = 0
 
     def log(self, level: str, msg: str, sim_ns: int | None = None,
             host: int | None = None, **fields) -> None:
-        if _level_value(level) < self.threshold:
+        if _level_value(level) < self.threshold or self.stream is False:
             self.n_dropped += 1
             return
         rec = {
@@ -77,17 +79,21 @@ def tracker_records(engine, st) -> list[dict]:
     Reads the per-host counter columns off the device once and emits one
     dict per host: NIC byte counters, queued events, cpu busy-time, plus every
     per-host column the model summary exposes. Counters are lifetime
-    absolutes; interval deltas are tools/heartbeat_report.py's job."""
+    absolutes; interval deltas are tools/heartbeat_report.py's job. A
+    sharded engine's state is gathered first (a collective: every rank
+    calls this)."""
     import numpy as np
 
     sim_ns = int(st.win_start)
+    st = engine.gather_state(st)
+    summary = engine.global_summary(st)
     cols: dict[str, np.ndarray] = {}
     # evbuf.kind is [ev_cap, H] (host-minor layout): reduce the slot axis.
     cols["pending_events"] = (st.evbuf.kind != 0).sum(dim=0).cpu().numpy()
     cols["cpu_busy_ns"] = st.cpu_busy.cpu().numpy()
     # Model summaries own their key namespace (net exports nic_tx_bytes /
     # nic_rx_bytes per host; apps export their per-host counters).
-    for k, v in engine.model_summary(st).items():
+    for k, v in summary.items():
         v = np.asarray(v)
         if v.ndim == 1 and v.shape[0] == engine.exp.n_hosts:
             cols[k] = v

@@ -1,5 +1,6 @@
 """Memory plane — pre-flight device-memory budgeting, the OOM taxonomy,
-downshift planning (port of ``mem.py``, solo engine).
+downshift planning (port of ``mem.py``: the solo engine, the fleet, and
+one rank of the sharded engine, ``n_dev``).
 
 * **pre-flight estimator** (:func:`estimate`): the engine state is built on
   ``torch.device("meta")`` through the real model-init path
@@ -38,7 +39,9 @@ own (eager PyTorch, not XLA's buffers):
   runner hands its state over (``ckpt.run_chunked``) so the chunk-start
   state is not a third copy;
 * ``rollback`` — one full state under ``on_overflow=retry``: the guard's
-  chunk-start clone (``txn.OverflowGuard.rollback_point``). During a
+  chunk-start clone (``txn.OverflowGuard.rollback_point``); on a sharded
+  rank with no guard and an auto-sized exchange bucket, the input clone
+  that ``ShardedEngine.run`` keeps for its retry. During a
   replay the tainted result is freed first, so the rollback copy and the
   replaying state are all there is. A fleet under
   ``on_lane_fail=quarantine`` holds the same clone (``fleet/run.py``
@@ -309,6 +312,7 @@ class MemEstimate:
     outbox_per_cap: int
     telem_per_w: int        # bytes per ring window
     n_exp: int = 1          # fleet lanes
+    n_dev: int = 1          # sharded ranks (the budget is per rank)
 
     @property
     def state_bytes(self) -> int:
@@ -330,7 +334,7 @@ class MemEstimate:
             "type": "mem",
             "event": "estimate",
             "n_exp": self.n_exp,
-            "n_dev": 1,
+            "n_dev": self.n_dev,
             "estimated_state": self.state_bytes,
             "estimated_resident": self.resident_bytes,
             "estimated_peak": self.peak_bytes,
@@ -393,54 +397,78 @@ class MemEstimate:
         return "\n".join(lines)
 
 
-def estimate(exp, params, fleet=None) -> MemEstimate:
-    """The pre-flight byte estimate of a single-device run: solo, or with
+def estimate(exp, params, fleet=None, n_dev: int = 1) -> MemEstimate:
+    """The pre-flight byte estimate of one rank's run: solo, or with
     ``fleet`` = (experiments, max_rounds) a fleet, whose lanes fold onto
-    the host axis, so every per-host term scales with E·H (the sharded
-    hosts are ROADMAP Queue A). The state side is exact (the meta-device
-    init); the const side is the ctx's tables; the peaks follow the
-    module's memory contract."""
+    the host axis, so every per-host term scales with E·H. ``n_dev`` > 1
+    prices one rank of the sharded engine (``shard/engine.py``), as the
+    reference does: the planes on the host axis (evbuf, outbox, model, the
+    CPU clock, the restart capture, the window-end transients) divide
+    across the ranks, the metrics, the telemetry planes and the ctx
+    tables do not, and the exchange's send and receive buffers are a
+    peak. The state side is exact (the meta-device init); the const side
+    is the ctx's tables; the peaks follow the module's memory contract."""
     st, ctx = abstract_state(exp, params, fleet)
+    d = max(int(n_dev), 1)
+
+    def sharded(n):  # a host-axis plane, divided across the ranks
+        return -(-int(n) // d)
+
     per = {f: tree_bytes(getattr(st, f))
            for f in ("evbuf", "outbox", "model", "metrics", "telem",
                      "probes", "links")}
     planes = {
-        "evbuf": per["evbuf"],
-        "outbox": per["outbox"],
-        "model": per["model"],
+        "evbuf": sharded(per["evbuf"]),
+        "outbox": sharded(per["outbox"]),
+        "model": sharded(per["model"]),
         "metrics": per["metrics"],
         "telem": per["telem"],
-        "scalars": tree_bytes((st.cpu_busy, st.win_start)),
+        "scalars": sharded(tree_bytes(st.cpu_busy))
+        + tree_bytes(st.win_start),
         "const": _ctx_bytes(ctx),
     }
     for f in ("probes", "links"):
         if per[f]:
             planes[f] = per[f]
     if ctx.has_restart:
-        planes["init_model"] = per["model"]
+        planes["init_model"] = sharded(per["model"])
     state = sum(v for k, v in planes.items()
                 if k not in ("const", "init_model"))
-    h = ctx.n_hosts
+    h = sharded(ctx.n_hosts)
     window_end = (params.outbox_cap * h * _ROUTE_BYTES_PER_SLOT
                   + params.ev_cap * h * _DELIVER_BYTES_PER_SLOT
-                  + per["evbuf"])
+                  + planes["evbuf"])
     rebase = params.ev_cap * h * _REBASE_BYTES_PER_SLOT
     leaves = _tensors(st.model, [])
-    biggest = max((t.numel() * t.element_size() for t in leaves), default=0)
+    biggest = sharded(max((t.numel() * t.element_size() for t in leaves),
+                          default=0))
+    # The sharded engine's own safety net (``ShardedEngine.run``) keeps a
+    # clone of its input while an auto-sized bucket may retry: no explicit
+    # ``x2x_cap``, an auto cap below the full one (D > 2), and no guard,
+    # which runs its chunks with ``check_x2x=False``.
+    full_cap = params.outbox_cap * h
+    x2x_clone = (d > 1 and not params.x2x_cap
+                 and params.on_overflow not in ("retry", "halt")
+                 and max(16, -(-2 * full_cap // d)) < full_cap)
     peaks = {
         "output": state,
-        "rollback": state if (params.on_overflow == "retry" or (
+        "rollback": state if (params.on_overflow == "retry" or x2x_clone or (
             fleet is not None and params.on_lane_fail == "quarantine"))
         else 0,
         "transient": max(window_end, rebase, _ROUND_LEAF_COPIES * biggest),
     }
+    if d > 1:
+        # The exchange: the [N, 6+NP] packet rows and the [D, K, 7+NP]
+        # send and receive buffers at the bucket's guaranteed-fit cap K
+        # (the rank's whole outbox), where an overflow's retry ends.
+        peaks["x2x"] = 4 * full_cap * ((6 + NP) + 2 * d * (7 + NP))
     return MemEstimate(
         planes=planes, peaks=peaks, params=params,
-        evbuf_per_cap=per["evbuf"] // max(params.ev_cap, 1),
-        outbox_per_cap=per["outbox"] // max(params.outbox_cap, 1),
+        evbuf_per_cap=planes["evbuf"] // max(params.ev_cap, 1),
+        outbox_per_cap=planes["outbox"] // max(params.outbox_cap, 1),
         telem_per_w=(per["telem"] // params.metrics_ring
                      if params.metrics_ring else 0),
-        n_exp=ctx.n_exp or 1)
+        n_exp=ctx.n_exp or 1, n_dev=d)
 
 
 def check_budget(est: MemEstimate, budget: int | None,
@@ -472,7 +500,7 @@ def max_lanes(exp, params, fleet, budget: int) -> int:
 
 
 def downshift(exp, params, budget: int, resumable: bool = False,
-              fleet=None, subbatch_resumable: bool = False):
+              fleet=None, subbatch_resumable: bool = False, n_dev: int = 1):
     """The graceful-degradation planner (CLI ``--on-oom downshift``).
 
     Applies the bit-exactness-preserving downshifts IN ORDER until the
@@ -496,16 +524,18 @@ def downshift(exp, params, budget: int, resumable: bool = False,
        ``--resume`` / ``--save-state`` path, which names one snapshot of
        every lane.
 
+    ``n_dev`` prices one rank of a sharded run (:func:`estimate`).
+
     Returns ``(params', actions)``; raises :class:`MemoryBudgetError` when
     the stages are exhausted."""
     budget = int(budget)
     actions: list[dict] = []
-    est = estimate(exp, params, fleet)
+    est = estimate(exp, params, fleet, n_dev)
     if est.peak_bytes <= budget:
         return params, actions
     if params.on_overflow == "retry":
         params = dataclasses.replace(params, on_overflow="halt")
-        halted = estimate(exp, params, fleet)
+        halted = estimate(exp, params, fleet, n_dev)
         # A quarantining fleet keeps its chunk-start clone under halt.
         actions.append({"action": "drop_rollback", "on_overflow": "halt",
                         "freed": int(est.peak_bytes - halted.peak_bytes)})
@@ -523,7 +553,7 @@ def downshift(exp, params, budget: int, resumable: bool = False,
                 break
             w_new = max(min_w, w_new - math.ceil(need / row))
             params = dataclasses.replace(params, metrics_ring=w_new)
-            est = estimate(exp, params, fleet)
+            est = estimate(exp, params, fleet, n_dev)
         if w_new < w0:
             actions.append({"action": "shrink_ring",
                             "metrics_ring": [w0, w_new],

@@ -275,6 +275,14 @@ def run_with_heartbeat(engine, st=None, n_windows=None, every_windows=None,
     total = n_windows if n_windows is not None else engine.n_windows
     if every_windows is None:
         every_windows = max(total // 10, 1)
+    # A sharded run (``shard/engine.py``): every rank runs the chunks and
+    # takes the same snapshot decisions; rank 0 alone writes the records,
+    # the snapshots (the gathered global state, through ``on_root``, which
+    # the other ranks wait for) and the sidecar. The solo engines' API is
+    # the same, as a world of one.
+    root = engine.rank == 0
+    if not root:
+        stream = False
     build_kernels(engine.device, profiler)
     if st is None:
         with maybe_span(profiler, PH_INIT):
@@ -312,17 +320,22 @@ def run_with_heartbeat(engine, st=None, n_windows=None, every_windows=None,
         now = time.perf_counter()
         draining = drain is not None and drain.requested
         saved = False
-        if done >= total or now - last_save > ckpt_every_s or draining:
+        due = done >= total or now - last_save > ckpt_every_s or draining
+        due = engine.agree(due)
+        if due:
             with maybe_span(profiler, PH_CHECKPOINT):
-                last_seq[0] = lineage.save(
-                    s, {"win_start": sim_ns, "done_windows": done})
+                snap = engine.gather_state(s)
+                last_seq[0] = engine.on_root(lambda: lineage.save(
+                    snap, {"win_start": sim_ns, "done_windows": done}))
+                snap = None
             last_save = now
             saved = True
         # The progress sidecar ticks at every chunk boundary; win_start is
         # the absolute sim clock, monotonic across respawned processes.
-        write_json_atomic(ckpt_path + ".progress",
-                          {"done_windows": done, "total": total,
-                           "win_start": sim_ns, "seq": last_seq[0]})
+        if root:
+            write_json_atomic(ckpt_path + ".progress",
+                              {"done_windows": done, "total": total,
+                               "win_start": sim_ns, "seq": last_seq[0]})
         crash_at = os.environ.get("SHADOW1_OBS_CRASH_AT_NS")
         if saved and crash_at is not None and sim_ns == int(crash_at):
             os._exit(41)

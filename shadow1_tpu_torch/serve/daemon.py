@@ -919,10 +919,9 @@ class ServeDaemon:
             bad(f"config rejected: {e}")
             return None
         if scheduler != "tpu":
-            bad(f"serve runs the batched engine (lane-packed fleet); "
+            bad(f"serve runs the batched tpu engine (lane-packed fleet); "
                 f"engine.scheduler={scheduler!r} is not servable — drop "
-                f"the override (the sharded engine is not ported: ROADMAP "
-                f"Queue A item 6)")
+                f"the override or run it through the solo CLI")
             return None
         params = lane_params(params)
         windows = job.get("windows")

@@ -61,17 +61,22 @@ def probe_init(n_windows: int, probes: tuple, device,
 
 class ProbeIndex(NamedTuple):
     """A watchlist's [K] index tensors on the device, built once per
-    engine (``Ctx.probe_index``). One device holds hosts 0..H-1."""
+    engine (``Ctx.probe_index``), over the block of hosts ``base`` ..
+    ``base + H - 1`` (0 .. H-1 on one device)."""
 
-    host: torch.Tensor      # i64, clamped into range
+    host: torch.Tensor      # i64 local column, clamped into range
     sock: torch.Tensor      # i64, −1 clamped to 0
     has_sock: torch.Tensor  # bool: a socket view, not the host view
-    owned: torch.Tensor     # bool: the host is one of this device's
+    owned: torch.Tensor     # bool: the host is one of this block's
 
 
-def probe_index(probes: tuple, n_hosts: int, device) -> ProbeIndex:
-    """The index tensors of ``probes`` ((host, sock) pairs)."""
-    loc = [gh for gh, _ in probes]
+def probe_index(probes: tuple, n_hosts: int, device,
+                base: int = 0) -> ProbeIndex:
+    """The index tensors of ``probes`` ((global host, sock) pairs) over a
+    block of ``n_hosts`` hosts from global host ``base`` (a sharded rank's
+    block): a probe of another block is not ``owned`` and samples zeros,
+    so the sum of the ranks' rows is the owner's row."""
+    loc = [gh - base for gh, _ in probes]
     return ProbeIndex(
         host=torch.tensor([min(max(x, 0), n_hosts - 1) for x in loc],
                           dtype=torch.long, device=device),

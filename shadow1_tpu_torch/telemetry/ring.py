@@ -44,21 +44,32 @@ def ring_init(n_windows: int, device, n_exp: int = 0) -> TelemetryRing | None:
 
 
 def ring_record(ring: TelemetryRing, m0, m1, ev_fill,
-                digests=None) -> TelemetryRing:
+                digests=None, telem_reduce=None) -> TelemetryRing:
     """The ring with this window's row written at slot ``m0.windows % W``.
     ``m0`` / ``m1`` are the Metrics at window entry and end; ``ev_fill`` the
     window-end event-slot fill; ``digests`` the i64 [5] state-digest words
     or None (zeros). In a fleet every one of them is per lane ([E],
     digests [E, 5]) and each lane's row goes to its own ring; the lanes
-    run their windows in step, so lane 0's count picks the slot."""
+    run their windows in step, so lane 0's count picks the slot.
+
+    ``telem_reduce(counters, gauges) -> (counters, gauges)`` makes a
+    sharded rank's row global (``shard/engine.py``): the counter deltas
+    and the digest words (per-rank partial sums of globally keyed hashes)
+    are summed over the ranks, the first four gauges maxed;
+    ``x2x_max_fill`` is already the same on every rank."""
     dev = ring.buf.device
     counters = [getattr(m1, f) - getattr(m0, f) for f in RING_COUNTERS + RING_WORK]
-    gauges = [ev_fill, m1.ev_max_fill, m1.ob_max_fill, m1.compact_max_fill,
-              m1.x2x_max_fill]
-    vals = torch.stack(counters + gauges, dim=-1)
+    gauges = [ev_fill, m1.ev_max_fill, m1.ob_max_fill, m1.compact_max_fill]
     if digests is None:
-        digests = torch.zeros(vals.shape[:-1] + (len(RING_DIGESTS),),
+        digests = torch.zeros(m1.windows.shape + (len(RING_DIGESTS),),
                               dtype=torch.int64, device=dev)
+    if telem_reduce is not None:
+        n_ctr = len(counters)
+        summed, maxed = telem_reduce(torch.cat([torch.stack(counters),
+                                                digests]), torch.stack(gauges))
+        counters, digests = list(summed[:n_ctr]), summed[n_ctr:]
+        gauges = list(maxed)
+    vals = torch.stack(counters + gauges + [m1.x2x_max_fill], dim=-1)
     row = torch.cat([vals, digests], dim=-1)
     slot = (m0.windows.reshape(-1)[:1] % ring.buf.shape[-2])
     return ring._replace(buf=ring.buf.index_copy(-2, slot, row.unsqueeze(-2)))

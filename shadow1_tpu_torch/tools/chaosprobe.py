@@ -62,8 +62,8 @@ already embodies them; a killed+relaunched trial must land bit-identical.
 
 Exit codes: 0 = all trials bit-identical, 3 = divergence, 1 = any other
 failure (the last stdout line is a JSON verdict either way; on a mismatch
-it names the first divergent (exp, window); the port's ``paritytrace``,
-which localizes it further, arrives with ROADMAP Queue A item 6d).
+it names the first divergent (exp, window) and the ``paritytrace``
+command that localizes it further).
 """
 
 from __future__ import annotations
@@ -104,11 +104,12 @@ def _child_pids(ppid: int) -> list[int]:
     return kids
 
 
-# The port's record stream (ring rows) is a launch's stdout; its logs and
-# the supervisor's resume/lineage records are its stderr.
-NO_PARITYTRACE = ("the port's paritytrace arrives with ROADMAP Queue A item "
-                  "6d; until then run the named window solo and compare its "
-                  "ring rows with the straight run's")
+def _paritytrace(config: str, sides: str, windows: int, chunk=None) -> str:
+    """The paritytrace command that bisects a divergence to its first
+    (window, subsystem)."""
+    cmd = (f"python -m shadow1_tpu_torch.tools.paritytrace {config} "
+           f"{sides} --windows {windows}")
+    return cmd + (f" --chunk {chunk}" if chunk else "")
 
 
 def _workdir(args, prefix: str) -> str:
@@ -581,7 +582,9 @@ def main(argv=None) -> int:
             print(json.dumps({
                 "ok": False, "error": "straight run diverges from the cpu "
                 "oracle (not a chaos failure — bisect it first)",
-                "first_window": bad, "paritytrace": NO_PARITYTRACE}))
+                "first_window": bad,
+                "paritytrace": _paritytrace(args.config, "tpu cpu",
+                                            args.windows)}))
             return EXIT_DIVERGED
         oracle_checked = True
         say(f"[chaosprobe] oracle cross-check ok ({len(orc)} windows)")
@@ -764,7 +767,8 @@ def main(argv=None) -> int:
     if not ok:
         bad = next(v for v in verdicts if not v["ok"])
         summary["first_failure"] = bad
-        summary["paritytrace"] = NO_PARITYTRACE
+        summary["paritytrace"] = _paritytrace(
+            args.config, "tpu tpu+resume", args.windows, args.chunk)
     print(json.dumps(summary))
     return 0 if ok else EXIT_DIVERGED
 

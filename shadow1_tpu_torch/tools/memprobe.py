@@ -278,9 +278,8 @@ def subbatch_run(path: str, sub: int | None, windows: int | None, say,
             verdict.update(
                 ok=False, diverged={"exp": e, "window": bad,
                                     "kind": "digest_stream"},
-                hint=f"run lane {e} solo and compare its ring rows window "
-                     f"by window; the port's paritytrace arrives with "
-                     f"ROADMAP Queue A item 6d")
+                hint=f"bisect lane {e} solo: python -m shadow1_tpu_torch."
+                     f"tools.paritytrace {path} tpu cpu")
             return verdict, full_streams
         fm = {k: full_metrics[e].get(k, 0) for k in counters}
         sm = {k: sub_metrics[e].get(k, 0) for k in counters}

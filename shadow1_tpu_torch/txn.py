@@ -37,8 +37,12 @@ overflow counters are ``[E]``, any lane's fresh overflow taints the chunk,
 and the caps stay fleet-uniform; ``fresh_by_lane`` names the lanes, which
 ``CapacityExceededError.lanes`` carries to the fleet runner.
 
-The sharded exchange bucket (``x2x_cap``) is not ported (ROADMAP Queue A,
-the shard) and refused.
+The sharded engine's exchange bucket (``x2x_cap``, ``shard/engine.py``)
+is not a state shape: a chunk whose ``x2x_overflow`` grew escalates the
+bucket through ``engine.grow_x2x()`` and replays, with no plane migration.
+A sharded chunk runs with ``check_x2x=False`` (:meth:`OverflowGuard.
+run_guarded`), so the engine's own safety net leaves the response to the
+guard.
 """
 
 from __future__ import annotations
@@ -206,6 +210,18 @@ class OverflowGuard:
         self._seen = self._counters(st)
 
     @staticmethod
+    def run_guarded(engine, held: list, n_windows: int):
+        """Run one chunk under the guard from the state popped off
+        ``held`` (its only reference): the sharded engine's eager exchange
+        safety net stands down (``check_x2x=False``), since the guard owns
+        the overflow response. ``ckpt.run_chunked`` and the replay both
+        run chunks so. The state goes straight into ``engine.run``, which
+        rebinds it window by window: no frame here keeps the chunk-start
+        state alive (a call through ``**kwargs`` would, in its argument
+        tuple)."""
+        return engine.run(held.pop(), n_windows=n_windows, check_x2x=False)
+
+    @staticmethod
     def _counters(st) -> dict:
         """Cumulative overflow counters as numpy arrays: 0-d on a solo
         state, [E] on a fleet's, so one guard serves both (the fleet's
@@ -276,7 +292,7 @@ class OverflowGuard:
             st = None  # the tainted chunk goes before the replay runs
             # The clone is the call's only reference: its leaves go as the
             # replay's windows replace them.
-            st = engine.run(self.rollback_point(st0), n_windows=step)
+            st = self.run_guarded(engine, [self.rollback_point(st0)], step)
             fresh = self._fresh(st)
         self._seen = self._counters(st)
         self.engine = engine
@@ -311,9 +327,16 @@ class OverflowGuard:
             if ctr not in fresh:
                 continue
             if knob == "x2x_cap":
-                raise NotImplementedError(
-                    "x2x_overflow: the sharded exchange bucket's retry is "
-                    "not ported yet (ROADMAP: Queue A, the shard)")
+                # The bucket's guaranteed-fit cap is the rank's whole
+                # outbox: a False means the overflow is not bucket-sized.
+                old = getattr(engine, "_x2x_cap", None)
+                if not engine.grow_x2x():
+                    raise self._error(engine, {ctr: fresh[ctr]}, w0, w1,
+                                      st_tainted,
+                                      detail=" (exchange bucket already at "
+                                             "its guaranteed-fit cap)")
+                rec["x2x_cap"] = [old, engine._x2x_cap]
+                continue
             cap = getattr(params, knob)
             new = next_step(cap)
             if new > self.max_cap:

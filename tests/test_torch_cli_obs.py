@@ -16,8 +16,8 @@ flows and the digest words on:
   after its window-4 snapshot (backoff 0): the respawned child resumes
   from the lineage and the run ends equal to the straight one;
 * ``--tracker``, ``--trace`` and ``--profile`` write their files;
-* the flags of the recovery planes run; ``--engine sharded`` is refused
-  with its ROADMAP item, ``--engine cpu --device cuda`` as a
+* the flags of the recovery planes run, and so does ``--engine sharded``
+  (a world of one rank); ``--engine cpu --device cuda`` is refused as a
   contradiction, as are the reference's ambiguous combinations.
 """
 
@@ -219,15 +219,16 @@ def test_refused_flags_name_their_item(flags, item, capsys):
     since the fleet slice: ``--fleet`` on this solo config (no ``sweep:``
     section) is the reference's structured ``fleet_config`` rejection
     (EXIT_CONFIG), and the lane policies without ``--fleet`` are refused
-    as they are there. The sharded engine (item 6) and the reference's
-    ambiguous combinations stay refused; the numpy oracle (``--engine
-    cpu``) runs on the host, so a CUDA ``--device`` beside it is refused
-    as a contradiction."""
+    as they are there. The sharded engine ("item 6") runs since the shard
+    slice: launched alone, a world of one rank, whose one window ends in
+    its result line. The reference's ambiguous combinations stay refused;
+    the numpy oracle (``--engine cpu``) runs on the host, so a CUDA
+    ``--device`` beside it is refused as a contradiction."""
     import torch
 
     from shadow1_tpu_torch import cli
 
-    if item == "item 5":
+    if item in ("item 5", "item 6"):
         n = torch.get_num_threads()
         torch.set_num_threads(1)
         try:

@@ -28,6 +28,11 @@ Runs each slice configuration below through the JAX package's ``Engine``
 * a snapshot (``ckpt_<name>.npz``, ``CKPT_CONFIGS``): the JAX package's
   ``ckpt.save_state`` of a YAML config's state at a window, with the
   telemetry ring and the digest words on;
+* the sharded engine (``shard<D>_<name>.json``, ``SHARD_CONFIGS``): a net
+  golden's experiment through the JAX package's ``ShardedEngine`` over D
+  CPU devices, recorded as a net golden is (``rounds`` and
+  ``round_cap_hits`` are the per-shard sums; every other field equals the
+  solo golden's);
 * the oracle's tools (``oracle_tools.json``): the JAX package's
   ``pcapdump`` (the SHA-256 and size of each ``.pcap``), ``activeprobe``,
   ``depthprobe`` and ``occprobe`` (their JSON rows, ``config`` left out)
@@ -44,7 +49,8 @@ travels as these files.
 
 Names: ``bench``, ``lossy`` (PHOLD), ``filexfer16k``, ``rung1``,
 ``tgen50k``, ``rung2``, ``tor10k``, ``dgram4k``, ``bitcoin5k``, ``churn8``,
-``fidelity16k`` (net), ``fidelity16k_obs`` (the planes; ~8 minutes),
+``fidelity16k`` (net), ``shard2_filexfer16k`` (the sharded engine over 2
+devices), ``fidelity16k_obs`` (the planes; ~8 minutes),
 ``ckpt_churn8_w75`` (the snapshot; seconds), ``fleet_sweep_phold`` (the
 fleet; seconds) and ``oracle_tools``. ``filexfer16k``
 (16,384 hosts) takes about 35 minutes on 8 CPU cores; each golden records
@@ -409,7 +415,14 @@ def array_sha256(a) -> str:
     return hashlib.sha256(np.asarray(a, "<i8").tobytes()).hexdigest()
 
 
-def run_net_reference(spec: dict) -> tuple[dict, float]:
+# name -> (NET_CONFIGS entry, device count): the JAX ShardedEngine over
+# that many CPU devices (the script asks XLA for them before JAX loads).
+SHARD_CONFIGS = {
+    "shard2_filexfer16k": ("filexfer16k", 2),
+}
+
+
+def run_net_reference(spec: dict, n_dev: int = 0) -> tuple[dict, float]:
     import dataclasses
     import resource
 
@@ -455,7 +468,14 @@ def run_net_reference(spec: dict) -> tuple[dict, float]:
     rec["experiment_sha256"] = hashlib.sha256(json.dumps(
         ct.experiment_arrays(exp), sort_keys=True).encode()).hexdigest()
     params = dataclasses.replace(params, metrics_ring=windows, state_digest=1)
-    eng = Engine(exp, params)
+    if n_dev:
+        from shadow1_tpu.shard.engine import ShardedEngine
+
+        assert len(jax.devices()) >= n_dev, jax.devices()
+        eng = ShardedEngine(exp, params, devices=jax.devices()[:n_dev])
+        rec["n_dev"] = n_dev
+    else:
+        eng = Engine(exp, params)
     t0 = time.perf_counter()
     st = eng.run(n_windows=windows)
     summ = {k: np.asarray(v) for k, v in eng.model_summary(st).items()}
@@ -476,7 +496,8 @@ def run_net_reference(spec: dict) -> tuple[dict, float]:
         digest_fields=["dg_evbuf", "dg_outbox", "dg_tcp", "dg_nic", "dg_rng"],
         digests=[[r[f] for f in ("dg_evbuf", "dg_outbox", "dg_tcp", "dg_nic",
                                  "dg_rng")] for r in rows],
-        reference="shadow1_tpu Engine on the CPU",
+        reference=(f"shadow1_tpu ShardedEngine over {n_dev} CPU devices"
+                   if n_dev else "shadow1_tpu Engine on the CPU"),
         reference_seconds=round(seconds, 1),
         reference_max_rss_mb=resource.getrusage(
             resource.RUSAGE_SELF).ru_maxrss // 1024,
@@ -532,7 +553,14 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, str(ROOT))
     names = argv or (list(CONFIGS) + list(NET_CONFIGS) + list(OBS_CONFIGS)
                      + list(CKPT_CONFIGS) + list(FLEET_CONFIGS)
-                     + ["oracle_tools"])
+                     + list(SHARD_CONFIGS) + ["oracle_tools"])
+    n_dev = max((SHARD_CONFIGS[n][1] for n in names if n in SHARD_CONFIGS),
+                default=0)
+    if n_dev:
+        # Before JAX loads: the CPU platform with n_dev devices.
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "")
+            + f" --xla_force_host_platform_device_count={n_dev}")
     GOLDEN.mkdir(parents=True, exist_ok=True)
     for name in names:
         if name == "oracle_tools":
@@ -562,6 +590,14 @@ def main(argv: list[str]) -> int:
             seconds = write_ckpt_reference(CKPT_CONFIGS[name], path)
             print(f"{path.relative_to(ROOT)}: {path.stat().st_size} bytes in "
                   f"{seconds:.1f} s", file=sys.stderr)
+            continue
+        if name in SHARD_CONFIGS:
+            net, d = SHARD_CONFIGS[name]
+            rec, seconds = run_net_reference(NET_CONFIGS[net], n_dev=d)
+            path = GOLDEN / f"{name}.json"
+            path.write_text(json.dumps(rec, sort_keys=True) + "\n")
+            print(f"{path.relative_to(ROOT)}: {rec['metrics']['events']} "
+                  f"events in {seconds:.1f} s", file=sys.stderr)
             continue
         if name in NET_CONFIGS:
             rec, seconds = run_net_reference(NET_CONFIGS[name])
