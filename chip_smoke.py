@@ -299,6 +299,31 @@ fails:
    ``cuda`` entry and the verdict printed — a timing verdict, ``failed``
    included, does not fail the phase.
 
+21. the performance-attribution plane (``tools/{opcensus,phaseprobe,
+   roundprobe,popprof}.py``; run last, but for steps (a) and (b)), four
+   steps, each step's wall time printed: (a) run in this process while the
+   golden runs' processes work (it counts, and times nothing):
+   ``opcensus`` on smoke and rung1 (its JSON mirror) on CUDA, twice: the two runs equal key by key (ops, reads,
+   launches, the counted window), a pop one launch of its kernel;
+   ``--inject 60`` adds 60 ops after every round of ``rounds`` and
+   nothing elsewhere, and the gate's failures name ``rounds`` alone; the
+   verdict against the committed ``cuda`` entry is printed (a drift does
+   not fail the phase); the CPU census, run in phase 18's host process,
+   has the card's reads and window (its own verdict printed); (b) run
+   right after the ladder-cap kernel checks, while the profiler's records
+   are whole: ``opcensus``'s launch census (``--fusion``) of rung1, each
+   window phase in a ``torch.profiler`` capture of its own, whose
+   launches of the three kernels equal the phase's ``popk.LAUNCHES``
+   delta (a phase is captured again, up to 3 times, when short); (c)
+   ``phaseprobe`` on smoke (16 windows after 8) and rung1 (2 windows
+   after 8), the staged run's metrics equal to the straight run's and
+   coverage at least 0.9, and one ``--device-trace`` of smoke holding
+   the four phase spans and the three kernels; (d) after (c), nothing
+   beside it: ``roundprobe``'s probes at their defaults (H
+   1,000, C 256, 5,000 iterations; ``phold_win`` 200 windows) and
+   ``popprof``'s grid (C 256 and 64), each kernel loop's final carry bit
+   equal to the same loop through the plain versions.
+
 The golden runs of phases 7, 9 and 11 time nothing against a bound: they
 run as four processes side by side (``GoldenWorkers``, ``GOLDEN_GROUPS``),
 after phase 16 and before phase 8, and their checks follow in this
@@ -3782,6 +3807,7 @@ def oracle_host_child(out_path: str) -> None:
         res["step_s"] = {}
         res["tools"] = oracle_host_tools(paths, res["step_s"])
         res["cpu"] = host_cpu()
+        res["census_cpu"] = attr_census_cpu()
     except BaseException:  # noqa: BLE001 — reported to the parent
         res = {"error": traceback.format_exc()}
     Path(out_path).write_text(json.dumps(res))
@@ -4549,6 +4575,274 @@ def phase_perf(dev, card: str) -> dict:
     step("benchgate (joined)", t0)
     return dict(probes=a, benchgate=b, step_s=step_s)
 
+# -- phase 21: the performance-attribution plane ----------------------------
+
+ATTR_DIR = ROOT / "build" / "s21"
+ATTR_RUNG1 = "shadow1_tpu_torch/tools/benchgate_configs/rung1_filexfer.json"
+# Step (a)'s self-test: ops added after every round of the rounds phase.
+ATTR_INJECT = 60
+# Step (c): phaseprobe's windows, warm-up and reps per config. rung1 runs
+# ~33 rounds a window at a net round's 12-20 ms: 2 windows, not the
+# default 16, keep the step inside the phase's budget.
+PHASEPROBE_RUNS = {"smoke": dict(n_windows=16, warmup=8, reps=3),
+                   ATTR_RUNG1: dict(n_windows=2, warmup=8, reps=3)}
+PHASEPROBE_MIN_COVERAGE = 0.9
+# The traced straight chunk of step (c): smoke windows 8-11.
+PHASE_TRACE_WINDOWS = 4
+
+
+def attr_census_cpu() -> dict:
+    """Step (a)'s CPU census, in phase 18's host process: ``opcensus
+    --device cpu`` on the default configs, gated against the committed
+    ``cpu`` entry (rc and verdict returned, never raised)."""
+    from shadow1_tpu_torch.tools import opcensus
+
+    t0 = time.perf_counter()
+    rc, lines = _tool_main(opcensus, ["--device", "cpu"])
+    return {"rc": rc, "line": json.loads(lines[-1]),
+            "wall_s": time.perf_counter() - t0}
+
+
+def attr_fusion(dev) -> dict:
+    """Step (b), run early (CUPTI drops records late in a process):
+    ``opcensus``'s launch census (``--fusion``, ``count_fusions``) of
+    rung1's window ``opcensus.WARMUP``: the kernels each window phase
+    launched, read from ``torch.profiler`` captures, must equal the
+    ``popk.LAUNCHES`` deltas of each phase for the three kernels (a phase
+    is captured again, up to 3 times, when its capture falls short)."""
+    from shadow1_tpu_torch.tools import opcensus
+    from shadow1_tpu_torch.tools.phaseprobe import build_engine
+
+    t0 = time.perf_counter()
+    eng, label = build_engine(ATTR_RUNG1, device=dev)
+    st = eng.run(eng.init_state(), n_windows=opcensus.WARMUP)
+    eng.synchronize()
+    warm_s = time.perf_counter() - t0
+    f = opcensus.count_fusions(eng, st)
+    require(f["complete"], f"opcensus --fusion {label}: the captures' "
+            f"kernels {f['phases']} differ from popk.LAUNCHES "
+            f"{f['launches']} (captures {f['attempts']})")
+    rounds = f["launches"]["rounds"]
+    require(all(rounds[k] > 0 for k in ("pop", "push", "obox")),
+            f"opcensus --fusion {label}: kernels not launched in the rounds "
+            f"phase: {rounds}")
+    return dict(label=label, fusions=f, warm_s=warm_s,
+                wall_s=time.perf_counter() - t0)
+
+
+def attr_census(dev, fusion: dict) -> dict:
+    """Step (a), run while the golden runs' processes work (its counts do
+    not depend on the card's load): the CUDA census of the default
+    configs, twice (equal key by key; rung1's launches per phase equal to
+    step (b)'s); ``--inject`` trips the gate on ``rounds`` alone; the
+    verdict against the committed ``cuda`` entry, printed, not fatal."""
+    from shadow1_tpu_torch.tools import opcensus as oc
+
+    def census(**kw):
+        return dict(oc.run_census(cfg, device=dev, **kw)
+                    for cfg in oc.DEFAULT_CONFIGS)
+
+    t0 = time.perf_counter()
+    a, b = census(), census()
+    keys = ("ops", "reads", "launches", "window")
+    for label in a:
+        for k in keys:
+            require(a[label][k] == b[label][k], f"opcensus {label}: {k} "
+                    f"differs between two runs: {a[label][k]} vs "
+                    f"{b[label][k]}")
+        require(a[label]["launches"]["pop"] == {"pop": 1, "push": 0,
+                                                "obox": 0},
+                f"opcensus {label}: pop launched "
+                f"{a[label]['launches']['pop']}")
+    lab = oc.config_label(fusion["label"])
+    want = {ph: n for ph, n in a[lab]["launches"].items()
+            if ph in fusion["fusions"]["launches"]}
+    require(fusion["fusions"]["launches"] == want,
+            f"opcensus {lab}: the launch census's launches "
+            f"{fusion['fusions']['launches']} differ from the census's {want}")
+    hot = census(inject=ATTR_INJECT)
+    fails = {label: oc.gate_config(hot[label], a[label], oc.TOLERANCE)
+             for label in a}
+    require(any(fails.values()) and all(
+        "'rounds'" in f for fs in fails.values() for f in fs),
+        f"opcensus --inject {ATTR_INJECT}: the gate's failures {fails}")
+    for label in a:
+        want = a[label]["ops"]["rounds"] + ATTR_INJECT * a[label]["window"][
+            "rounds"]
+        require(hot[label]["ops"]["rounds"] == want
+                and {k: v for k, v in hot[label]["ops"].items()
+                     if k != "rounds"}
+                == {k: v for k, v in a[label]["ops"].items() if k != "rounds"}
+                and hot[label]["reads"] == a[label]["reads"],
+                f"opcensus --inject {ATTR_INJECT} {label}: {hot[label]['ops']}"
+                f" against {a[label]['ops']}")
+    committed = json.loads(Path(oc.BASELINE).read_text())
+    verdicts = {}
+    for label, c in a.items():
+        entry = committed["configs"].get(label, {}).get("cuda")
+        verdicts[label] = ("no_baseline_for_backend" if entry is None else
+                           oc.gate_config(c, entry, committed["tolerance"])
+                           or "ok")
+    return dict(census=a, inject_fails=fails, verdicts=verdicts,
+                wall_s=time.perf_counter() - t0)
+
+
+def attr_census_against_cpu(a: dict, cpu: dict) -> None:
+    """Step (a)'s last check: the host's CPU census (phase 18's process)
+    has the card's reads and window."""
+    for label, c in cpu["line"]["census"].items():
+        require(c["reads"] == a["census"][label]["reads"]
+                and c["window"] == a["census"][label]["window"],
+                f"opcensus {label}: the CPU census's reads {c['reads']} or "
+                f"window {c['window']} differ from the card's "
+                f"{a['census'][label]['reads']} "
+                f"{a['census'][label]['window']}")
+
+
+def attr_phaseprobe(dev) -> dict:
+    """Step (c): phaseprobe's attribution of smoke and rung1 (the staged
+    run's metrics equal the straight run's: ``attribution`` asserts it),
+    coverage at least ``PHASEPROBE_MIN_COVERAGE``; then one traced
+    straight chunk of smoke (``--device-trace``): the four phase spans and
+    the three kernels in its Chrome trace (taken again, up to 3 times,
+    when CUPTI hands back no record of a kernel)."""
+    from shadow1_tpu_torch.telemetry.profiler import TRACE_FILE, WINDOW_PHASES
+    from shadow1_tpu_torch.tools import phaseprobe
+
+    t0 = time.perf_counter()
+    atts = {}
+    for cfg, kw in PHASEPROBE_RUNS.items():
+        eng, label = phaseprobe.build_engine(cfg, device=dev)
+        att = phaseprobe.attribution(eng, **kw)
+        require(att["coverage"] >= PHASEPROBE_MIN_COVERAGE,
+                f"phaseprobe {label}: coverage {att['coverage']} below "
+                f"{PHASEPROBE_MIN_COVERAGE}: {att}")
+        atts[label] = {**att, "warmup": kw["warmup"]}
+    eng, _ = phaseprobe.build_engine("smoke", device=dev)
+    log_dir = ATTR_DIR / "trace"
+    seen = []
+    for _ in range(3):
+        phaseprobe.device_trace_run(eng, str(log_dir), PHASE_TRACE_WINDOWS,
+                                    PHASEPROBE_RUNS["smoke"]["warmup"])
+        trace = json.loads((log_dir / TRACE_FILE).read_text())
+        names = {e.get("name") for e in trace["traceEvents"]}
+        lacking = [n for n in WINDOW_PHASES.values() if n not in names]
+        require(not lacking, f"phaseprobe device trace lacks spans "
+                f"{lacking}")
+        got = trace_kernels(trace)
+        seen.append(got)
+        if all(got.get(k, 0) > 0 for k in ("pop", "push", "obox")):
+            break
+    else:
+        raise AssertionError(f"phaseprobe device trace saw kernels {seen}")
+    return dict(att=atts, trace_kernels=got, trace_attempts=len(seen),
+                wall_s=time.perf_counter() - t0)
+
+
+def attr_probes(dev) -> dict:
+    """Step (d): roundprobe's probes and popprof's grid at their defaults;
+    each kernel probe's final carry bit equal to the same loop through the
+    plain versions."""
+    from shadow1_tpu_torch.tools import popprof
+    from shadow1_tpu_torch.tools import roundprobe as rp
+
+    t0 = time.perf_counter()
+    rows = {}
+    for name in rp.PROBES:
+        if name == "phold_win":
+            rows[name] = rp.phold_win(device=dev)
+            continue
+        us, carry = rp.run_probe(name, device=dev)
+        rows[name] = {"us_per_iter": us}
+        if name in rp.KERNEL_PROBES:
+            plain_us, ref = rp.run_probe(name, device=dev, plain=True)
+            rows[name].update(plain_us_per_iter=plain_us,
+                              bit_equal=rp.carries_equal(carry, ref))
+            require(rows[name]["bit_equal"], f"roundprobe {name}: the "
+                    f"kernel loop's carry differs from the plain loop's")
+    pp = popprof.grid(device=dev)
+    for r in pp:
+        require(r["bit_equal"], f"popprof {r['probe']}: the kernel loop's "
+                f"buffer differs from the plain loop's")
+    return dict(roundprobe=rows, popprof=pp, wall_s=time.perf_counter() - t0)
+
+
+def log_attr(fusion: dict, a: dict, cpu: dict, c: dict, d: dict,
+             card: str) -> None:
+    f = fusion["fusions"]
+    log(f"opcensus --fusion {fusion['label']} (window 8) on {card}: device "
+        f"records per phase " + json.dumps(f["phases"])
+        + f", the three kernels equal to popk.LAUNCHES "
+        f"{json.dumps(f['launches'])} (captures {json.dumps(f['attempts'])})"
+        f"; {fusion['wall_s']:.1f} s (warm-up {fusion['warm_s']:.1f} s, "
+        f"phases " + json.dumps({k: round(v, 1)
+                                 for k, v in f["seconds"].items()})
+        + ")")
+    for label, cen in a["census"].items():
+        log(f"opcensus {label} on {card} (window {cen['window']}): ops "
+            + json.dumps(cen["ops"]) + "; reads " + json.dumps(cen["reads"])
+            + "; kernel launches " + json.dumps(
+                {p: n for p, n in cen["launches"].items() if any(n.values())})
+            + f"; equal in two runs; verdict against the committed cuda "
+            f"entry: {a['verdicts'][label]}")
+    log(f"opcensus on the host's CPU (phase 18's process, "
+        f"{cpu['wall_s']:.1f} s): gate {cpu['line']['gate']} (rc "
+        f"{cpu['rc']}) against the committed cpu entry"
+        + (f", fails {cpu['line'].get('fails')}" if cpu["rc"] else "")
+        + "; reads and windows equal to the card's; ops "
+        + json.dumps({k: v["ops"]["rounds"]
+                      for k, v in cpu["line"]["census"].items()})
+        + " in rounds")
+    log(f"opcensus --inject {ATTR_INJECT}: fails "
+        f"{json.dumps(a['inject_fails'])}"
+        f"; {a['wall_s']:.1f} s for step (a), beside the golden runs")
+    for label, att in c["att"].items():
+        log(f"phaseprobe {label} on {card}: {att['windows']} windows after "
+            f"{att['warmup']}, {att['rounds_per_window']} rounds/window, "
+            f"{att['events']} "
+            f"events, {att['ms_per_round']} ms/round straight; phases "
+            + json.dumps({n: p["ms_per_round"]
+                          for n, p in att["phases"].items()})
+            + " ms/round; sub-phases " + json.dumps(
+                {n: p["ms_per_round"] for n, p in att["subphases"].items()})
+            + f"; coverage {att['coverage']}; staged equal to straight")
+    log(f"phaseprobe --device-trace smoke ({PHASE_TRACE_WINDOWS} windows): "
+        f"four phase spans, kernels {c['trace_kernels']} (trace "
+        f"{c['trace_attempts']}); {c['wall_s']:.1f} s for step (c)")
+    rp = d["roundprobe"]
+    log(f"roundprobe (H 1,000, C 256, 5,000 iterations; phold_win 200 "
+        f"windows) on {card}: " + json.dumps(
+            {n: {k: (round(v, 1) if isinstance(v, float) else v)
+                 for k, v in r.items() if k != "probe"}
+             for n, r in rp.items()}) + "; every kernel probe bit equal to "
+        "its plain loop")
+    log(f"popprof (H 1,000, 5,000 iterations) on {card}: "
+        + json.dumps(d["popprof"]) + f"; {d['wall_s']:.1f} s for step (d)")
+
+
+def phase_attr(dev, card: str, fusion: dict, a: dict, host: dict) -> dict:
+    """Phase 21: step (a)'s CPU comparison, then steps (c) and (d), one
+    after the other, each step's wall printed (step (b) ran early:
+    ``attr_fusion``; step (a)'s CUDA census beside the golden runs:
+    ``attr_census``)."""
+    step_s = {}
+
+    def step(name, t0):
+        step_s[name] = time.perf_counter() - t0
+        log(f"  attribution step {name}: {step_s[name]:.1f} s wall")
+
+    cpu = host["census_cpu"]
+    attr_census_against_cpu(a, cpu)
+    t0 = time.perf_counter()
+    c = attr_phaseprobe(dev)
+    step("(c) phaseprobe", t0)
+    t0 = time.perf_counter()
+    d = attr_probes(dev)
+    step("(d) roundprobe and popprof", t0)
+    log_attr(fusion, a, cpu, c, d, card)
+    return dict(census=a, phaseprobe=c, probes=d, step_s=step_s)
+
+
 class PathCapture:
     """Function-level hooks around the names through which the engine and
     the PHOLD handler call the kernels' wrappers (``engine.pop_until``,
@@ -4937,6 +5231,11 @@ def main() -> int:
             report_kernel(name, r, f"ladder cap C {c}")
     phase_done("kernels at ladder caps", t0)
 
+    # Phase 21's step (b) runs here too: its trace must hold every launch.
+    t0 = time.perf_counter()
+    attr_fusion_run = attr_fusion(dev)
+    phase_done("opcensus --fusion (phase 21 step (b))", t0)
+
     # Phase 15, the fleet, runs here too: its in-path kernel timings need
     # the profiler's traces whole.
     t0 = time.perf_counter()
@@ -4954,6 +5253,9 @@ def main() -> int:
     t0 = time.perf_counter()
     golden_procs = GoldenWorkers()
     atexit.register(golden_procs.kill)
+    # Phase 21's step (a) meanwhile: the census counts what is dispatched,
+    # which the load of the card and the host does not change.
+    attr_a = attr_census(dev, attr_fusion_run)
     golden = golden_procs.join()
     phase_done("golden runs of phases 7, 9 and 11, side by side", t0)
 
@@ -5082,7 +5384,7 @@ def main() -> int:
     phase_done("operator tools", t0)
 
     t0 = time.perf_counter()
-    phase_oracle(dev, card, {
+    oracle = phase_oracle(dev, card, {
         "bench": bench, "filexfer16k": net, "tgen50k": apps["tgen50k"],
         "tor10k": apps["tor10k"], "bitcoin5k": fid["bitcoin5k"],
         "rung1": rung1}, native_builds, oracle_host)
@@ -5095,6 +5397,10 @@ def main() -> int:
     t0 = time.perf_counter()
     perf = phase_perf(dev, card)
     phase_done("perfprobe and benchgate", t0)
+
+    t0 = time.perf_counter()
+    attr = phase_attr(dev, card, attr_fusion_run, attr_a, oracle["host"])
+    phase_done("performance attribution", t0)
 
     kernels = []
     for name, r in checks.items():
@@ -5184,6 +5490,14 @@ def main() -> int:
             "serve_path_active": sp["path_active"],
             "perfprobe_launches": {
                 k: p["launches"][name] for k, p in perf["probes"].items()},
+            "opcensus_window_launches": {
+                label: sum(c["launches"][ph][name] for ph in
+                           ("prepare", "rounds", "deliver", "telem"))
+                for label, c in attr["census"]["census"].items()},
+            "roundprobe_us": attr["probes"]["roundprobe"][name][
+                "us_per_iter"],
+            "roundprobe_plain_us": attr["probes"]["roundprobe"][name][
+                "plain_us_per_iter"],
             "shard_launches": shard["one"]["launches"][name],
             "shard_launches_per_round": shard["one"]["launches"][name]
             / shard["one"]["rounds"],

@@ -33,7 +33,9 @@ virtual CPU launches the push kernel through ``push_back`` every round
 and defers events through it. The overflow guard's rollback point is a
 copy on the card too, and a PHOLD retried there equals the straight run
 at the final cap. The profiler's raw device events count what
-``key_averages()`` counts (``chip_smoke.py`` counts the raw events).
+``key_averages()`` counts (``chip_smoke.py`` counts the raw events). Each
+tool of the attribution plane (opcensus, phaseprobe, roundprobe, popprof)
+runs once on the card.
 """
 
 import dataclasses
@@ -754,3 +756,39 @@ def test_raw_events_count_as_key_averages(dev):
               f"{int(st.metrics.rounds) - r0}, raw events {raw} "
               f"({t_raw:.2f} s), key_averages {ka} ({t_ka:.2f} s)")
         assert raw == ka and raw > 0
+
+
+def test_attribution_tools_on_card(dev):
+    """Each tool of the attribution plane once on the card: the census
+    counts each kernel launch as one op (the pop: one launch, nothing
+    else dispatched) and is deterministic, its reads and counted window
+    equal to the CPU census's; the launch census's trace holds every
+    launch of the three kernels; phaseprobe's staged run equals the
+    straight run (``attribution`` asserts it); roundprobe's kernel probes
+    and popprof's grid are bit equal to their plain loops; with no device
+    named, roundprobe's entry points run on the card."""
+    from shadow1_tpu_torch.tools import opcensus, phaseprobe, popprof
+    from shadow1_tpu_torch.tools import roundprobe as rp
+
+    eng, _ = phaseprobe.build_engine("smoke", hosts=256, device=dev)
+    a = opcensus.census(eng, warmup=3, fusion=True)
+    b = opcensus.census(eng, warmup=3)
+    for k in ("ops", "reads", "launches", "window"):
+        assert a[k] == b[k], k
+    assert a["launches"]["pop"] == {"pop": 1, "push": 0, "obox": 0}
+    assert a["fusions"]["complete"], a["fusions"]
+    assert all(a["launches"]["rounds"][k] > 0 for k in opcensus.KERNELS)
+    cpu, _ = phaseprobe.build_engine("smoke", hosts=256, device="cpu")
+    c = opcensus.census(cpu, warmup=3)
+    assert c["reads"] == a["reads"] and c["window"] == a["window"]
+    att = phaseprobe.attribution(eng, n_windows=4, warmup=3, reps=2)
+    assert att["events"] > 0 and att["coverage"] > 0
+    for name in rp.KERNEL_PROBES:
+        _, got = rp.run_probe(name, 64, 16, 50, dev)
+        _, want = rp.run_probe(name, 64, 16, 50, dev, plain=True)
+        assert rp.carries_equal(got, want), name
+    assert all(r["bit_equal"] for r in popprof.grid(64, 16, 50, dev))
+    # With no device named, the entry points run on the card.
+    assert rp.seeded_buf(8, 4, 2, np.random.default_rng(0)).kind.is_cuda
+    assert rp.run_probe("pop", 8, 4, 3)[1].kind.is_cuda
+    assert rp.phold_win(16, 8, 3)["windows"] == 3
