@@ -1,0 +1,3 @@
+"""The benchmark of ``shadow1_tpu_torch`` on one NVIDIA H100
+(``python3 portbench/run.py --workload <name> --seed <n> --seconds <s>
+--trace <0|1>``)."""
