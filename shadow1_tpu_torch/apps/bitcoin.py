@@ -40,6 +40,7 @@ from shadow1_tpu_torch.core.engine import push_local_event
 from shadow1_tpu_torch.core.lanes import lsum
 from shadow1_tpu_torch.core.popk import push_local
 from shadow1_tpu_torch.tcp import tcp as T
+from shadow1_tpu_torch.telemetry.profiler import read
 
 OP_CONNECT_ONE = 1   # p1 = neighbour slot j
 OP_TX_CREATE = 2     # p1 = txid
@@ -142,7 +143,8 @@ def on_wakeup(st, ctx, ev, mask):
     h, dev = ctx.n_hosts, ctx.device
     conn = mask & (op == OP_CONNECT_ONE)
     create = mask & (op == OP_TX_CREATE)
-    any_conn, any_create = torch.stack([conn.any(), create.any()]).tolist()
+    any_conn, any_create = read("btc_wakeup", torch.Tensor.tolist,
+                                torch.stack([conn.any(), create.any()]))
 
     # OP_CONNECT_ONE: dial neighbour slot j = p1 on socket 1 + j.
     if any_conn:
@@ -194,7 +196,7 @@ def on_notify(st, ctx, nf: T.Notif, now, mask):
     # reads and writes only row j, so the reference's loop over the K
     # slots is one [K, H] pass.
     acc = mask & ((f & N_ACCEPTED) != 0)
-    if bool(acc.any()):
+    if read("btc_accept", bool, acc.any()):
         app = dict(st.model.app)
         peer = get_col(st.model.tcp["peer_host"], torch.where(acc, sock, 0))
         m = (acc[None, :] & (app["peers"] == peer[None, :])

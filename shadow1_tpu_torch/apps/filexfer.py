@@ -33,6 +33,7 @@ from shadow1_tpu_torch.consts import (
 from shadow1_tpu_torch.core.lanes import lsum
 from shadow1_tpu_torch.core.popk import push_local
 from shadow1_tpu_torch.tcp import tcp as T
+from shadow1_tpu_torch.telemetry.profiler import read
 
 FLOW_DONE = 1
 OP_START = 1
@@ -125,12 +126,12 @@ def on_notify(st, ctx, nf: T.Notif, now, mask):
 
     # Server: peer finished → close our side.
     peer_fin = mask & is_server & ((f & N_PEER_FIN) != 0)
-    if bool(peer_fin.any()):
+    if read("fx_fin", bool, peer_fin.any()):
         st = T.tcp_close(st, ctx, peer_fin, nf.sock, now)
 
     # Client: connection fully closed → next flow or done.
     closed = mask & is_client & ((f & N_CLOSED) != 0)
-    if bool(closed.any()):
+    if read("fx_closed", bool, closed.any()):
         app = dict(st.model.app)
         app["flows_left"] = app["flows_left"] - closed.to(torch.int32)
         again = closed & (app["flows_left"] > 0)

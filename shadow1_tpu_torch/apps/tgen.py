@@ -42,6 +42,7 @@ from shadow1_tpu_torch.core.engine import push_local_event
 from shadow1_tpu_torch.core.lanes import lsum
 from shadow1_tpu_torch.core.popk import push_local
 from shadow1_tpu_torch.tcp import tcp as T
+from shadow1_tpu_torch.telemetry.profiler import read
 
 STREAM_DONE = 1
 OP_START = 1
@@ -161,7 +162,8 @@ def on_notify(st, ctx, nf: T.Notif, now, mask):
     # notification, so one device read serves the two.
     peer_fin = srv & ((f & N_PEER_FIN) != 0)
     closed = mask & is_client_sock & ((f & N_CLOSED) != 0)
-    any_fin, any_closed = torch.stack([peer_fin.any(), closed.any()]).tolist()
+    any_fin, any_closed = read("tgen_notify", torch.Tensor.tolist,
+                               torch.stack([peer_fin.any(), closed.any()]))
     if any_fin:
         st = T.tcp_close(st, ctx, peer_fin, nf.sock, now)
     if any_closed:

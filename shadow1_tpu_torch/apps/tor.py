@@ -54,6 +54,7 @@ from shadow1_tpu_torch.core.engine import push_local_event
 from shadow1_tpu_torch.core.lanes import lsum
 from shadow1_tpu_torch.core.popk import push_local
 from shadow1_tpu_torch.tcp import tcp as T
+from shadow1_tpu_torch.telemetry.profiler import read
 
 CELL = 512
 
@@ -197,9 +198,10 @@ def _set_app(st, app):
     return st._replace(model=st.model._replace(app=app))
 
 
-def _any(*masks) -> list:
+def _any(site: str, *masks) -> list:
     """``mask.any()`` of each mask, in one device→host read."""
-    return torch.stack([m.any() for m in masks]).tolist()
+    return read(site, torch.Tensor.tolist,
+                torch.stack([m.any() for m in masks]))
 
 
 # -- draws -----------------------------------------------------------------
@@ -396,7 +398,8 @@ def on_wakeup(st, ctx, ev, mask):
     drain = mask & (op == OP_DRAIN)
     think = mask & (op == OP_THINK)
     # The four rare blocks' tests read only the popped events: one read.
-    any_start, any_dial, any_drain, any_think = _any(start, dial, drain, think)
+    any_start, any_dial, any_drain, any_think = _any(
+        "tor_wakeup", start, dial, drain, think)
 
     # OP_START: the client dials a dirauth on sock 2.
     if any_start:
@@ -500,7 +503,8 @@ def on_notify(st, ctx, nf: T.Notif, now, mask):
     app = st.model.app
     dir_up, got_dir, guard_up = dir_up_of(app), got_dir_of(app), guard_up_of(app)
     creatd, ext2, ext3 = build_of(app)
-    ran = _any(dir_up, got_dir, guard_up, creatd | ext2 | ext3, dreq | d_fin)
+    ran = _any("tor_notify", dir_up, got_dir, guard_up, creatd | ext2 | ext3,
+               dreq | d_fin)
     any_dirauth = ran.pop()
     changed = False
 
@@ -515,7 +519,7 @@ def on_notify(st, ctx, nf: T.Notif, now, mask):
     # Client: consensus received → close dir conn, dial the drawn guard.
     if changed:
         got_dir = got_dir_of(st.model.app)
-        ran[1] = bool(got_dir.any())
+        ran[1] = read("tor_dir", bool, got_dir.any())
     if ran[1]:
         napp = dict(st.model.app)
         guard = _pick(ctx, _draw_bits(ctx, napp, got_dir), "guard")
@@ -531,7 +535,7 @@ def on_notify(st, ctx, nf: T.Notif, now, mask):
     # Client: guard conn up → first circuit.
     if changed:
         guard_up = guard_up_of(st.model.app)
-        ran[2] = bool(guard_up.any())
+        ran[2] = read("tor_guard", bool, guard_up.any())
     if ran[2]:
         st = _client_begin_circuit(st, ctx, guard_up, now)
         changed = True
@@ -541,7 +545,7 @@ def on_notify(st, ctx, nf: T.Notif, now, mask):
     cl_msg = mask & is_client & msg & (sock == 1) & (circ == app["cl_circ"])
     if changed:
         creatd, ext2, ext3 = build_of(app)
-        ran[3] = bool((creatd | ext2 | ext3).any())
+        ran[3] = read("tor_build", bool, (creatd | ext2 | ext3).any())
     if ran[3]:
         napp = dict(app)
         napp["cl_hop"] = torch.where(creatd | ext2, app["cl_hop"] + 1,

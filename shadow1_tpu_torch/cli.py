@@ -435,12 +435,15 @@ def _parser() -> argparse.ArgumentParser:
                     help="write final per-host tracker records (JSON lines)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="torch.profiler trace of the run (CPU ops, CUDA "
-                         "kernels, the window phases as record_function "
-                         "spans) as DIR/trace.json, and the phase spans as "
-                         "DIR/phases.trace.json")
+                         "kernels, the window phases, round steps and "
+                         "device reads as record_function spans) as "
+                         "DIR/trace.json, and the same spans on the same "
+                         "clock as DIR/phases.trace.json")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="Chrome trace-event JSON of the host-side phases "
-                         "(compile/init/run-chunk/drain/checkpoint)")
+                         "(compile/init/run-chunk/drain/checkpoint), with "
+                         "the round and read spans' totals as counters at "
+                         "each chunk's end")
     ap.add_argument("--metrics-ring", type=int, default=None, metavar="W",
                     help="keep a W-window on-device telemetry ring (overrides "
                          "engine.metrics_ring)")
@@ -817,7 +820,9 @@ def _batched_main(args, exp, params, engine_kind, device, world, log,
     if args.trace or args.profile:
         from shadow1_tpu_torch.telemetry import PhaseProfiler
 
-        phases = PhaseProfiler()
+        # --profile keeps an event per round and read span; --trace alone
+        # keeps their totals, written as counters at each chunk's end.
+        phases = PhaseProfiler(round_events=bool(args.profile))
     # Before the engine: its construction may launch the kernels.
     build_kernels(device, phases)
     if args.fleet:
@@ -911,9 +916,11 @@ def _batched_main(args, exp, params, engine_kind, device, world, log,
         prof = device_trace(args.profile, phases)
     else:
         prof = contextlib.nullcontext()
+    from shadow1_tpu_torch.telemetry.profiler import active
+
     ring_w = params.metrics_ring
     try:
-        with prof:
+        with prof, active(phases):
             if os.environ.get("SHADOW1_MEM_INJECT_OOM") == "run":
                 raise torch.cuda.OutOfMemoryError(
                     "CUDA out of memory. Tried to allocate 2.00 GiB "

@@ -32,6 +32,7 @@ import torch
 
 from shadow1_tpu_torch.consts import K_NONE
 from shadow1_tpu_torch.core.events import I32_FREE
+from shadow1_tpu_torch.telemetry.profiler import read
 
 # Ctx fields indexed by LOCAL host lane (everything else — vertex tables,
 # host_vertex (global-id-indexed), scalars, static flags — stays as is).
@@ -136,7 +137,7 @@ def compact_window_rounds(st, ctx, handlers, make_handlers, run_rounds,
     ``make_handlers(ctx)`` rebuilds the handlers over the gathered ctx."""
     h = ctx.n_hosts
     active = active_mask(st.evbuf, win_end)
-    if int(active.sum()) > cap:
+    if read("compact", int, active.sum()) > cap:
         WINDOWS["full"] += 1
         return run_rounds(st, ctx, handlers, win_end)
     WINDOWS["compact"] += 1

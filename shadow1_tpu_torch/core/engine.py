@@ -16,7 +16,10 @@ PyTorch, the windows and rounds are Python loops, and every ``lax.cond`` /
 ``while_loop`` test of the reference is one flag read back from the device:
 per round the continue test (``any_eligible``) and one read of which
 handler kinds popped, plus the model's own (``tcp/tcp.py``, ``apps/*``);
-with ``compact_cap`` one more per window (``core/compact.py``).
+with ``compact_cap`` one more per window (``core/compact.py``). Each read
+goes through ``telemetry.profiler.read`` under a site name, and each step
+of a round is a ``round_span``: both time themselves only when a tracer
+is installed (``telemetry.profiler.active``).
 
 The fidelity gates run where the reference runs them: host churn (the
 fault plane's down intervals) and the virtual CPU between pop and
@@ -56,6 +59,7 @@ from shadow1_tpu_torch.config.compiled import NO_STOP, CompiledExperiment
 from shadow1_tpu_torch.consts import (
     K_NONE,
     KIND_METRIC_FIELDS,
+    KIND_NAMES,
     R_JITTER,
     R_LOSS,
     SEC,
@@ -78,6 +82,16 @@ from shadow1_tpu_torch.core.outbox import (
 from shadow1_tpu_torch.core import popk
 from shadow1_tpu_torch.core.lanes import lany, lmax, lsum
 from shadow1_tpu_torch.core.popk import pop_until
+from shadow1_tpu_torch.telemetry.profiler import (
+    ROUND_HANDLER,
+    RS_CONTINUE,
+    RS_DISPATCH,
+    RS_POP,
+    WINDOW_PHASES,
+    phase_span,
+    read,
+    round_span,
+)
 
 
 class Metrics(NamedTuple):
@@ -390,6 +404,10 @@ class FlatPackets(NamedTuple):
     keep: torch.Tensor     # bool [N]
 
 
+# The round span of each handler kind's pass.
+_HANDLER_SPANS = {k: ROUND_HANDLER + n for k, n in KIND_NAMES.items()}
+
+
 @functools.lru_cache(maxsize=None)
 def _kind_column(kinds: tuple, device: torch.device) -> torch.Tensor:
     """The handler kinds as an i32 [K, 1] column on ``device``, copied once."""
@@ -419,10 +437,26 @@ def run_round(st: SimState, ctx: Ctx, handlers: dict, win_end, until=None,
     per column when some lane sits at its own ``max_rounds`` cap; a pass
     runs when some lane popped its kind and counts ``fires_*`` per lane.
     A lane that pops nothing is left as it was: every pass is masked by
-    the popped events and reduces per lane."""
-    evbuf, ev = pop_until(st.evbuf, win_end if until is None else until,
-                          extract=ctx.params.pop_extract)
-    st = st._replace(evbuf=evbuf)
+    the popped events and reduces per lane.
+
+    Under an active tracer (``telemetry.profiler.active``) the pop, the
+    dispatch (``_dispatch``) and each handler pass are round spans."""
+    with round_span(RS_POP):
+        evbuf, ev = pop_until(st.evbuf, win_end if until is None else until,
+                              extract=ctx.params.pop_extract)
+    with round_span(RS_DISPATCH):
+        st, ev, passes = _dispatch(st._replace(evbuf=evbuf), ctx, handlers,
+                                   ev, win_end, active)
+    for kind, fn in passes:
+        with round_span(_HANDLER_SPANS[kind]):
+            st = fn(st, ev)
+    return st
+
+
+def _dispatch(st: SimState, ctx: Ctx, handlers: dict, ev, win_end, active):
+    """A round's work between the pop and the handler passes: the gates,
+    the event, pop and fires counters and the read of which kinds popped.
+    Returns (st, ev, the (kind, handler) passes to run, in kind order)."""
     m = st.metrics
     if ctx.has_stop:
         from shadow1_tpu_torch.fault.plane import hosts_down_at
@@ -453,25 +487,24 @@ def run_round(st: SimState, ctx: Ctx, handlers: dict, win_end, until=None,
     ))
     items = sorted(handlers.items())
     if len(items) == 1:
-        return items[0][1](st, ev)
+        return st, ev, items
     kinds = _kind_column(tuple(k for k, _ in items), ev.kind.device)
     hit = (ev.kind[None, :] == kinds) & ev.mask[None, :]
     if not ctx.n_exp:
-        popped = hit.any(dim=1).tolist()
+        popped = read("dispatch", torch.Tensor.tolist, hit.any(dim=1))
         lane_hit = [int(x) for x in popped]
     else:
         lane_hit = lany(ctx, hit)                      # [K, E]
-        popped = lane_hit.any(dim=1).tolist()
+        popped = read("dispatch", torch.Tensor.tolist, lane_hit.any(dim=1))
         lane_hit = lane_hit.to(torch.int64)
-    for i, ((kind, fn), present) in enumerate(zip(items, popped)):
+    m = st.metrics
+    fires = {}
+    for i, (kind, _) in enumerate(items):
         if kind in KIND_METRIC_FIELDS:
-            fires = KIND_METRIC_FIELDS[kind][1]
-            m2 = st.metrics
-            st = st._replace(metrics=m2._replace(
-                **{fires: getattr(m2, fires) + lane_hit[i]}))
-        if present:
-            st = fn(st, ev)
-    return st
+            f = KIND_METRIC_FIELDS[kind][1]
+            fires[f] = getattr(m, f) + lane_hit[i]
+    st = st._replace(metrics=m._replace(**fires))
+    return st, ev, [it for it, present in zip(items, popped) if present]
 
 
 def route_outbox(ctx: Ctx, ob: Outbox, links=None, win_start=None):
@@ -609,11 +642,15 @@ def run_rounds(st: SimState, ctx: Ctx, handlers: dict, win_end):
     Returns (st, cap_hit); in a fleet ``cap_hit`` is an i64 ``[E]``."""
     if ctx.n_exp:
         return _run_rounds_lanes(st, ctx, handlers, win_end)
-    r = 0
-    while r < ctx.params.max_rounds and any_eligible(st.evbuf):
+    r, cap = 0, ctx.params.max_rounds
+    while True:
+        with round_span(RS_CONTINUE):
+            go = r < cap and any_eligible(st.evbuf)
+        if not go:
+            break
         st = run_round(st, ctx, handlers, win_end)
         r += 1
-    return st, r >= ctx.params.max_rounds and any_eligible(st.evbuf)
+    return st, r >= cap and any_eligible(st.evbuf)
 
 
 def _run_rounds_lanes(st: SimState, ctx: Ctx, handlers: dict, win_end):
@@ -630,20 +667,21 @@ def _run_rounds_lanes(st: SimState, ctx: Ctx, handlers: dict, win_end):
     dev = st.evbuf.n_elig.device
     until = never = active = None
     while True:
-        elig_t = lany(ctx, st.evbuf.n_elig > 0)
-        elig = elig_t.tolist()
-        act = [el and d < c for el, d, c in zip(elig, done, caps)]
-        if not any(act):
-            break
-        if act == elig:
-            until, active = None, elig_t.to(torch.int64)
-        else:
-            act_t = torch.tensor(act, device=dev)
-            active = act_t.to(torch.int64)
-            if never is None:
-                never = st.evbuf.epoch + I32_PASTDUE
-            until = torch.where(act_t.repeat_interleave(ctx.n_hosts // n),
-                                win_end, never)
+        with round_span(RS_CONTINUE):
+            elig_t = lany(ctx, st.evbuf.n_elig > 0)
+            elig = read("lanes", torch.Tensor.tolist, elig_t)
+            act = [el and d < c for el, d, c in zip(elig, done, caps)]
+            if not any(act):
+                break
+            if act == elig:
+                until, active = None, elig_t.to(torch.int64)
+            else:
+                act_t = torch.tensor(act, device=dev)
+                active = act_t.to(torch.int64)
+                if never is None:
+                    never = st.evbuf.epoch + I32_PASTDUE
+                until = torch.where(act_t.repeat_interleave(ctx.n_hosts // n),
+                                    win_end, never)
         st = run_round(st, ctx, handlers, win_end, until=until, active=active)
         done = [d + a for d, a in zip(done, act)]
     cap_hit = [int(el and d >= c) for el, d, c in zip(elig, done, caps)]
@@ -809,14 +847,13 @@ def window_step(st: SimState, ctx: Ctx, handlers: dict, make_handlers,
                 pre_window=None, exchange=None, telem_reduce=None,
                 probe_reduce=None, link_reduce=None) -> SimState:
     """One conservative window: the four phases in order, each in its
-    ``record_function`` scope (the hooks: ``window_phases``)."""
-    from shadow1_tpu_torch.telemetry.profiler import WINDOW_PHASES
-
+    ``record_function`` scope, a span of the tracer when one is active
+    (the hooks: ``window_phases``)."""
     fr = window_frame(st, ctx)
     for name, fn in window_phases(ctx, handlers, make_handlers, pre_window,
                                   exchange, telem_reduce, probe_reduce,
                                   link_reduce):
-        with torch.profiler.record_function(WINDOW_PHASES[name]):
+        with phase_span(WINDOW_PHASES[name]):
             fr = fn(fr)
     return fr.st
 

@@ -28,6 +28,7 @@ import torch
 
 from shadow1_tpu_torch.consts import K_NONE, NP
 from shadow1_tpu_torch.core.dense import extract_col, first_true
+from shadow1_tpu_torch.telemetry.profiler import read
 
 I64_MAX = (1 << 63) - 1
 I32_MAX = (1 << 31) - 1
@@ -215,7 +216,7 @@ def any_eligible(buf: EventBuf) -> bool:
     """True if any host still has an eligible event (reads the [H]
     counters kept against the bound pinned by the last ``rebase``). One
     device-to-host sync."""
-    return bool((buf.n_elig > 0).any())
+    return read("continue", bool, (buf.n_elig > 0).any())
 
 
 def evbuf_fill(buf: EventBuf) -> torch.Tensor:

@@ -82,6 +82,7 @@ from shadow1_tpu_torch.core.outbox import outbox_space
 from shadow1_tpu_torch.core.popk import outbox_append
 from shadow1_tpu_torch.net.nic import ctx_aqm, tx_stamp
 from shadow1_tpu_torch.telemetry.links import link_nic_drops
+from shadow1_tpu_torch.telemetry.profiler import read
 
 # Fields of the TCP state dict, all [S, H]. ``snd_max`` is the highest
 # sequence ever sent: cumulative-ACK acceptance tests against it, not the
@@ -277,7 +278,7 @@ def tcp_flush(st, ctx, mask, sock, now):
 
     state = g("st")
     sendable = mask & _state_in(state, TCP_SENDABLE_STATES)
-    if not bool(sendable.any()):
+    if not read("tcp_send", bool, sendable.any()):
         return st
     snd_una = g("snd_una")
     nxt0 = g("snd_nxt")
@@ -317,7 +318,7 @@ def tcp_flush(st, ctx, mask, sock, now):
         pending = (nxt - end) < 0
         flight = nxt - snd_una
         can = sendable & pending & (flight < limit) & (space > 0)
-        if not bool(can.any()):
+        if not read("tcp_burst", bool, can.any()):
             break
         seg_syn = can & (nxt == 0)
         seg_fin = can & ~seg_syn & (nxt == app_end) & (fin_p == 1)
@@ -527,7 +528,7 @@ def tcp_rx(st, ctx, mask, p, now):
     # ---- passive open: a SYN to a LISTEN socket spawns a child.
     r0 = Sock(st.model.tcp, ds, mask)
     syn_to_listen = mask & is_syn & ~is_ack & (r0.g("st") == TCP_LISTEN)
-    if bool(syn_to_listen.any()):
+    if read("tcp_listen", bool, syn_to_listen.any()):
         tcp = st.model.tcp
         dup = ((tcp["peer_host"] == src[None, :])
                & (tcp["peer_sock"] == ss[None, :])
@@ -638,7 +639,7 @@ def tcp_rx(st, ctx, mask, p, now):
     nf = _notify(nf, in_order & (mend != 0), ds, N_MSG, meta=mmeta)
     # FIN: in order once the preceding data is consumed.
     closed_by_fin = torch.zeros_like(v)
-    if bool((v & is_fin).any()):
+    if read("tcp_fin", bool, (v & is_fin).any()):
         fin_here = (v & is_fin & ((seq + length) == r.g("rcv_nxt"))
                     & _state_in(state2, (TCP_ESTABLISHED, TCP_FIN_WAIT_1,
                                          TCP_FIN_WAIT_2)))

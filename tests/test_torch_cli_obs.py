@@ -15,7 +15,8 @@ flows and the digest words on:
 * ``--ckpt`` survives a child killed by ``SHADOW1_OBS_CRASH_AT_NS`` right
   after its window-4 snapshot (backoff 0): the respawned child resumes
   from the lineage and the run ends equal to the straight one;
-* ``--tracker``, ``--trace`` and ``--profile`` write their files;
+* ``--tracker``, ``--trace`` and ``--profile`` write their files, and
+  ``--profile``'s two traces hold the round and read spans on one clock;
 * the flags of the recovery planes run, and so does ``--engine sharded``
   (a world of one rank); ``--engine cpu --device cuda`` is refused as a
   contradiction, as are the reference's ambiguous combinations.
@@ -197,6 +198,23 @@ def test_profile_writes_device_trace(tmp_path, capsys):
     assert {"phase:prepare", "phase:rounds", "phase:deliver",
             "phase:telem", "run-chunk"} <= names
     assert (tmp_path / "phases.trace.json").exists()
+    # --profile installs the tracer: both files hold the round spans and
+    # the reads, on one clock.
+    assert {"round:pop", "round:dispatch", "round:continue",
+            "read:continue", "read:dispatch"} <= names
+    host = json.loads((tmp_path / "phases.trace.json").read_text())
+    dev = json.loads((tmp_path / "trace.json").read_text())
+    assert host["baseTimeNanoseconds"] == dev["baseTimeNanoseconds"]
+    spans = {e["name"] for e in host["traceEvents"] if e["ph"] == "X"}
+    assert {"round:pop", "read:continue", "phase:rounds"} <= spans
+    pops = [e for e in host["traceEvents"] if e["name"] == "round:pop"
+            and e["ph"] == "X"]
+    recs = [e for e in dev["traceEvents"] if e.get("name") == "round:pop"
+            and e.get("ph") == "X"]
+    assert len(pops) == len(recs) > 0
+    for m, t in zip(pops, recs):
+        assert m["ts"] - 50 <= t["ts"] <= t["ts"] + t["dur"] <= (
+            m["ts"] + m["dur"] + 50)
 
 
 @pytest.mark.parametrize("flags,item", [

@@ -11,16 +11,20 @@ JAX package's, on the CPU.
 * ``to_prometheus`` / ``normalize`` / ``ExpositionServer`` give the
   reference's text for the same metrics; ``tracker_records`` equal the
   reference's for the same state.
-* ``PhaseProfiler``'s Chrome trace round-trips through JSON, and a
-  ``device_trace`` of a window holds the four window phases' spans.
+* ``PhaseProfiler``'s Chrome trace round-trips through JSON on
+  ``torch.profiler``'s clock, and a ``device_trace`` of a window holds the
+  four window phases' spans and, under the active tracer, the round and
+  read spans.
 * ``SimLogger`` checks its level; the recovery planes' hooks run.
 """
 
 import io
 import json
+import time
 import urllib.request
 
 import pytest
+import torch
 
 from shadow1_tpu import log as log_j
 from shadow1_tpu import obs as obs_j
@@ -33,10 +37,16 @@ from shadow1_tpu_torch.consts import EngineParams as EngineParamsT
 from shadow1_tpu_torch.core.engine import Engine as EngineT
 from shadow1_tpu_torch.telemetry import registry as reg_t
 from shadow1_tpu_torch.telemetry.profiler import (
+    RS_CONTINUE,
+    RS_DISPATCH,
+    RS_POP,
     TRACE_FILE,
     WINDOW_PHASES,
     PhaseProfiler,
+    active,
     device_trace,
+    read,
+    round_span,
 )
 from tests.test_torch_fault import _phold_churn_exp
 from tests.test_torch_fidelity import jax_experiment
@@ -166,19 +176,51 @@ def test_phase_profiler_trace_round_trip(tmp_path):
     assert [e["name"] for e in xs] == ["drain", "run-chunk"]
     assert xs[1]["args"] == {"windows": 3} and xs[1]["dur"] >= xs[0]["dur"]
     assert prof.span_names() == ["drain", "run-chunk"]
+    # The clock: µs past torch.profiler's Chrome trace base, Unix epoch.
+    assert trace["baseTimeNanoseconds"] == prof.base_ns
+    assert prof.base_ns % (7889238 * 10**9) == 0
+    t_ns = round(xs[1]["ts"] * 1e3) + prof.base_ns
+    assert abs(t_ns - time.time_ns()) < 60 * 10**9
+    # The round loop's spans and reads, kept per event under round_events,
+    # and their totals as counters at each run-chunk's end.
+    tracer = PhaseProfiler(round_events=True)
+    with active(tracer):
+        with tracer.span("run-chunk"):
+            with round_span(RS_POP):
+                assert read("continue", bool, torch.ones(()))
+    tracer.write(str(path))
+    trace = json.loads(path.read_text())
+    assert trace == json.loads(json.dumps(tracer.chrome_trace()))
+    assert tracer.span_names() == ["read:continue", "round:pop", "run-chunk"]
+    cs = {e["name"]: e["args"]["n"] for e in trace["traceEvents"]
+          if e["ph"] == "C"}
+    assert cs == {"read:continue": 1, "round:pop": 1}
+    assert tracer.reads() == {"continue": tracer.total("read:continue")}
 
 
 def test_device_trace_holds_window_phases(tmp_path):
     eng = EngineT(_phold_churn_exp(), EngineParamsT(**PARAMS), device="cpu")
     st = eng.init_state()
     prof = PhaseProfiler()
-    with device_trace(str(tmp_path), prof):
-        ckpt.run_chunked(eng, st, n_windows=2, profiler=prof)
+    with device_trace(str(tmp_path), prof), active(prof):
+        st = ckpt.run_chunked(eng, st, n_windows=2, profiler=prof)
     trace = json.loads((tmp_path / TRACE_FILE).read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
-    for want in (*WINDOW_PHASES.values(), "run-chunk", "device-trace"):
+    for want in (*WINDOW_PHASES.values(), "run-chunk", "device-trace",
+                 RS_POP, RS_DISPATCH, RS_CONTINUE, "round:h:phold",
+                 "read:continue"):
         assert want in names, want
     assert prof.span_names() == ["run-chunk", "device-trace"]
+    # One clock: the profiler's run-chunk record lies inside the
+    # PhaseProfiler's, in both traces' µs from one base.
+    assert trace["baseTimeNanoseconds"] == prof.base_ns
+    (mine,) = [e for e in prof.chrome_trace()["traceEvents"]
+               if e["name"] == "run-chunk" and e["ph"] == "X"]
+    (theirs,) = [e for e in trace["traceEvents"]
+                 if e.get("name") == "run-chunk" and e.get("ph") == "X"]
+    assert mine["ts"] - 50 <= theirs["ts"] <= theirs["ts"] + theirs["dur"] <= (
+        mine["ts"] + mine["dur"] + 50)
+    assert prof.total(RS_POP)[0] == int(st.metrics.rounds) > 0
 
 
 def test_sim_logger_levels():

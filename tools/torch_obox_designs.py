@@ -20,8 +20,9 @@ measures:
 * in path: on the arguments the bench PHOLD hands ``outbox_append`` at the
   rounds ``chip_smoke.py`` keeps, bit-equal to the plain version, with the
   L2 cache evicted before each launch;
-* in situ: ``tools/torch_phold_profile.py`` over the bench run — the obox
-  kernel's device time per launch, device ops per round, idle share.
+* in situ: the bench PHOLD (65,536 hosts, 10 windows after a warm one)
+  under ``torch.profiler`` with CUDA activity — the obox kernel's device
+  time per launch, device ops per round, idle share (``in_situ``).
 
 Prints one JSON line with the byte and sector counts of the same data and
 the card's name and power limit.
@@ -122,6 +123,47 @@ def variant_source(src: str, design: str) -> str:
     return src[:a] + VARIANTS[design][0].lstrip("\n") + src[b:]
 
 
+def in_situ(hosts: int = 65536, windows: int = 10) -> dict:
+    """The bench PHOLD on the card under a CUDA-only ``torch.profiler``
+    capture, from a warm state: the obox kernel's device µs per launch,
+    device kernels per round, the device's idle share and events/s."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from shadow1_tpu_torch.config.compiled import single_vertex_experiment
+    from shadow1_tpu_torch.consts import MS, EngineParams
+    from shadow1_tpu_torch.core.engine import Engine
+
+    exp = single_vertex_experiment(
+        n_hosts=hosts, seed=1234, end_time=(2 * windows + 1) * MS,
+        latency_ns=MS, model="phold",
+        model_cfg={"mean_delay_ns": 2.0 * MS, "init_events": 16})
+    eng = Engine(exp, EngineParams(ev_cap=48, outbox_cap=24, max_rounds=128),
+                 device="cuda")
+    st = eng.run(n_windows=1)
+    torch.cuda.synchronize()
+    m0 = Engine.metrics_dict(st)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = eng.run(st, n_windows=windows)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    m1 = Engine.metrics_dict(st)
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if str(e.device_type()).endswith("CUDA")
+           and not e.name().startswith("phase:")]
+    busy = sum(e.end_ns() - e.start_ns() for e in dev) / 1e9
+    obox = [(e.end_ns() - e.start_ns()) / 1e3 for e in dev
+            if "obox_kernel" in e.name()]
+    return {"kernel_us": sum(obox) / max(len(obox), 1),
+            "device_kernels_per_round": len(dev) / (m1["rounds"]
+                                                   - m0["rounds"]),
+            "device_idle_share": 1 - busy / wall,
+            "events_per_s": (m1["events"] - m0["events"]) / wall}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--order",
@@ -135,11 +177,9 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    sys.path.insert(0, str(ROOT / "tools"))
     import numpy as np
 
     import chip_smoke as cs
-    import torch_phold_profile
     from shadow1_tpu_torch.core import _build
 
     if set(order) - {"kept", *VARIANTS}:
@@ -184,14 +224,14 @@ def main() -> int:
             _build.library = lambda lib=libs[design]: lib
             r = cs.check_obox(np.random.default_rng(20261016), dev)
             path = cs.check_path("obox", cases, dev, flush)
-            situ = torch_phold_profile.profile(65536, 10)
+            situ = in_situ()
             rec["runs"].append({
                 "design": design, "random_us": r["ms"] * 1e3,
                 "wrapper_us": r["wrapper_ms"] * 1e3,
                 "path_us": path["path_ms"] * 1e3,
                 "path_case_us": [x * 1e3 for x in path["path_case_ms"]],
                 "path_wrapper_us": path["path_wrapper_ms"] * 1e3,
-                "in_situ_us": situ["kernel_us"]["obox"],
+                "in_situ_us": situ["kernel_us"],
                 "device_kernels_per_round": situ["device_kernels_per_round"],
                 "device_idle_share": situ["device_idle_share"],
                 "events_per_s": situ["events_per_s"]})
