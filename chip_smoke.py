@@ -33,7 +33,9 @@ fails:
 5. in the path: one more bench run, with function-level hooks installed
    here (nothing in the package), keeps clones of the exact arguments the
    engine hands each kernel's wrapper at three rounds in the middle of a
-   window. On each, the kernel must equal its plain version bit for bit;
+   window (the handler pass, a CUDA graph's replay, is run eagerly on
+   clones of its inputs for those rounds, and the replay must equal it
+   bit for bit). On each, the kernel must equal its plain version bit for bit;
    its device time (cold L2), the byte bound for that data, the
    wrapper's stream time and the plain version's are measured;
 6. kernels at the net shape: phase 3 again at the net model's shape (C =
@@ -4849,21 +4851,31 @@ class PathCapture:
     ``phold.push_local``, ``phold.outbox_append``). They keep clones of
     the arguments of rounds ``PATH_ROUNDS`` of window ``PATH_WINDOW`` —
     taken before the call, since the kernels update planes in place — and
-    otherwise pass every call through unchanged."""
+    otherwise pass every call through unchanged.
+
+    The PHOLD pass runs as a replay of a CUDA graph (``core/graph.py``),
+    which runs no Python, so a hook around ``graph.run_pass`` runs the
+    pass of each kept round eagerly on clones of its state and popped
+    events first: the push and obox hooks keep that pass's arguments,
+    which are the main path's, and the replay's state must equal the
+    eager pass's bit for bit (``replays`` counts the comparisons)."""
 
     def __init__(self):
         self.cases = {"pop": [], "push": [], "obox": []}
         self._until, self._window, self._round, self._on = None, -1, -1, False
         self._saved = []
+        self.replays = 0
 
     def _keep(self, name, args):
         self.cases[name].append(tuple(
             clone(a) if isinstance(a, tuple) else a.clone() for a in args))
 
     def __enter__(self):
-        from shadow1_tpu_torch.core import engine, phold
+        from shadow1_tpu_torch.core import engine, graph, phold
+        from shadow1_tpu_torch.tools.phaseprobe import clone_tree
 
         pop, push, obox = engine.pop_until, phold.push_local, phold.outbox_append
+        run_pass = graph.run_pass
 
         def pop_hook(buf, until, extract="sum"):
             if until is not self._until:  # win_end: one tensor per window
@@ -4885,10 +4897,27 @@ class PathCapture:
                 self._keep("obox", (ob, mask, dst, kind, depart, p))
             return obox(ob, mask, dst, kind, depart, p)
 
+        def pass_hook(kind, fn, st, ev):
+            if not self._on:
+                return run_pass(kind, fn, st, ev)
+            want = fn(clone_tree(st), clone_tree(ev))
+            self._on = False
+            try:
+                got = run_pass(kind, fn, st, ev)
+            finally:
+                self._on = True
+            bit_equal(f"the PHOLD pass replayed (window {PATH_WINDOW}, "
+                      f"round {self._round})",
+                      tuple(graph._leaves(want, [])),
+                      tuple(graph._leaves(got, [])))
+            self.replays += 1
+            return got
+
         self._saved = [(engine, "pop_until", pop), (phold, "push_local", push),
-                       (phold, "outbox_append", obox)]
+                       (phold, "outbox_append", obox),
+                       (graph, "run_pass", run_pass)]
         engine.pop_until, phold.push_local = pop_hook, push_hook
-        phold.outbox_append = obox_hook
+        phold.outbox_append, graph.run_pass = obox_hook, pass_hook
         return self
 
     def __exit__(self, *exc):
@@ -5196,6 +5225,12 @@ def main() -> int:
     t0 = time.perf_counter()
     with PathCapture() as cap:
         run_golden("bench", dev)
+    require(cap.replays == len(PATH_ROUNDS),
+            f"PHOLD path: {cap.replays} kept rounds ran the pass as a graph's "
+            f"replay, expected {len(PATH_ROUNDS)}")
+    log(f"PHOLD path (window {PATH_WINDOW}, rounds {PATH_ROUNDS}): the "
+        f"handler pass replayed as a CUDA graph, bit-equal to the eager pass "
+        f"on clones of its inputs in each kept round")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     for name, r in checks.items():
         r.update(check_path(name, cap.cases[name], dev, flush))

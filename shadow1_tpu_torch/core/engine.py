@@ -79,7 +79,7 @@ from shadow1_tpu_torch.core.outbox import (
     outbox_clear,
     outbox_init,
 )
-from shadow1_tpu_torch.core import popk
+from shadow1_tpu_torch.core import graph, popk
 from shadow1_tpu_torch.core.lanes import lany, lmax, lsum
 from shadow1_tpu_torch.core.popk import pop_until
 from shadow1_tpu_torch.telemetry.profiler import (
@@ -439,6 +439,10 @@ def run_round(st: SimState, ctx: Ctx, handlers: dict, win_end, until=None,
     A lane that pops nothing is left as it was: every pass is masked by
     the popped events and reduces per lane.
 
+    A pass its model marked ``capturable`` runs as a replay of a CUDA
+    graph (``core/graph.py``) when its tensors are on a card; the round
+    loop that calls this drops the graphs at its end (``graph.release``).
+
     Under an active tracer (``telemetry.profiler.active``) the pop, the
     dispatch (``_dispatch``) and each handler pass are round spans."""
     with round_span(RS_POP):
@@ -449,7 +453,8 @@ def run_round(st: SimState, ctx: Ctx, handlers: dict, win_end, until=None,
                                    ev, win_end, active)
     for kind, fn in passes:
         with round_span(_HANDLER_SPANS[kind]):
-            st = fn(st, ev)
+            st = (graph.run_pass(kind, fn, st, ev)
+                  if getattr(fn, "capturable", False) else fn(st, ev))
     return st
 
 
@@ -640,17 +645,21 @@ def deliver_window(st: SimState, ctx: Ctx, exchange=None) -> SimState:
 def run_rounds(st: SimState, ctx: Ctx, handlers: dict, win_end):
     """The inner round loop to quiescence or the ``max_rounds`` cap.
     Returns (st, cap_hit); in a fleet ``cap_hit`` is an i64 ``[E]``."""
-    if ctx.n_exp:
-        return _run_rounds_lanes(st, ctx, handlers, win_end)
-    r, cap = 0, ctx.params.max_rounds
-    while True:
-        with round_span(RS_CONTINUE):
-            go = r < cap and any_eligible(st.evbuf)
-        if not go:
-            break
-        st = run_round(st, ctx, handlers, win_end)
-        r += 1
-    return st, r >= cap and any_eligible(st.evbuf)
+    try:
+        if ctx.n_exp:
+            return _run_rounds_lanes(st, ctx, handlers, win_end)
+        r, cap = 0, ctx.params.max_rounds
+        while True:
+            with round_span(RS_CONTINUE):
+                go = r < cap and any_eligible(st.evbuf)
+            if not go:
+                break
+            st = run_round(st, ctx, handlers, win_end)
+            r += 1
+        return st, r >= cap and any_eligible(st.evbuf)
+    finally:
+        # No graph replays into the state the loop hands on.
+        graph.release()
 
 
 def _run_rounds_lanes(st: SimState, ctx: Ctx, handlers: dict, win_end):

@@ -20,6 +20,7 @@ import torch
 from shadow1_tpu_torch import rng
 from shadow1_tpu_torch.consts import K_PHOLD, NP, R_PHOLD_DELAY, R_PHOLD_DST
 from shadow1_tpu_torch.core.events import EventBuf, Popped
+from shadow1_tpu_torch.core.graph import capturable
 from shadow1_tpu_torch.core.lanes import lsum
 from shadow1_tpu_torch.core.popk import outbox_append, push_local
 
@@ -57,6 +58,8 @@ def make_handlers(ctx):
     zero_p = torch.zeros((NP, h), dtype=torch.int32, device=dev)
     k = torch.full((h,), K_PHOLD, dtype=torch.int32, device=dev)
 
+    # No read back to the host and fixed shapes: a graph can replay it.
+    @capturable
     def on_phold(st, ev: Popped):
         m = ev.mask & (ev.kind == K_PHOLD)
         model: PholdState = st.model

@@ -76,6 +76,9 @@ from shadow1_tpu_torch.core.outbox import Outbox, outbox_append_plain
 LAUNCHES = {"pop": 0, "push": 0, "obox": 0}
 # The push kernel's launches by public entry; they sum to LAUNCHES["push"].
 PUSH_ENTRIES = {"push_local": 0, "push_back": 0}
+# Callables handed each launch's arguments (``core/graph.py`` learns from
+# them which tensors a handler pass reads); empty otherwise.
+WATCH: list = []
 
 _I32, _I64 = torch.int32, torch.int64
 
@@ -106,6 +109,8 @@ def _arg(x, dtype, shape, device) -> torch.Tensor:
 def _launch(name: str, fn, *args) -> None:
     """Call a kernel's C entry point (tensors pass as device pointers, None
     as NULL) and count the launch; raise if CUDA refused it."""
+    for watch in WATCH:
+        watch(args)
     err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
                for a in args))
     if err != 0:

@@ -18,12 +18,13 @@ Inside the window phases the tracer is off unless one is installed
 (``with active(prof): ...``). The window phases are then its spans
 (``phase_span``), the engine's round loop opens a span at each step of a
 round (``round_span``: ``round:pop``, ``round:dispatch``,
-``round:h:<kind>`` per handler pass, ``round:continue``), and every
-synchronising device read of the window path goes through ``read``, a
-``read:<site>`` span. Each adds to the tracer's per-name totals (count,
-ns) and opens a ``torch.profiler`` scope under its name. With no tracer
-installed a round span costs a global read and a shared null context,
-``read`` the read itself: no scope, no allocation.
+``round:h:<kind>`` per handler pass, within it ``round:graph:replay`` and
+``round:graph:capture`` where the pass is a graph, ``round:continue``),
+and every synchronising device read of the window path goes through
+``read``, a ``read:<site>`` span. Each adds to the tracer's per-name
+totals (count, ns) and opens a ``torch.profiler`` scope under its name.
+With no tracer installed a round span costs a global read and a shared
+null context, ``read`` the read itself: no scope, no allocation.
 
 One clock: spans are stamped in Unix-epoch ns (``perf_counter_ns`` plus
 an offset to ``time_ns`` taken as the best of several samples), the clock
@@ -62,6 +63,11 @@ RS_POP = "round:pop"
 RS_DISPATCH = "round:dispatch"
 RS_CONTINUE = "round:continue"
 ROUND_HANDLER = "round:h:"
+# A handler pass replayed as a CUDA graph (``core/graph.py``): each replay
+# with its staging copies, inside the pass's ``round:h:<kind>`` span, and
+# each capture.
+RS_GRAPH_REPLAY = "round:graph:replay"
+RS_GRAPH_CAPTURE = "round:graph:capture"
 ROUND_PREFIX = "round:"
 # A synchronising device read: READ_PREFIX + its site.
 READ_PREFIX = "read:"

@@ -27,7 +27,10 @@ benchmark moves.
   dispatcher never sees, so each launch (``popk.LAUNCHES``) counts as one
   op. Beside it, the **reads**: device→host reads (``bool(tensor)``,
   ``.item()``, ``.tolist()``, ``int``/``float``/``index`` of a tensor).
-  The result is ``{"ops": {...}, "reads": {...}}`` per config; the run is
+  On the card a pass marked ``capturable`` runs as a CUDA graph inside
+  ``rounds`` and ``round`` (``core/graph.py``): a capture's ops count
+  once, a replay only its staging copies; ``h_<kind>`` counts the eager
+  pass. The result is ``{"ops": {...}, "reads": {...}}`` per config; the run is
   deterministic, so two runs give equal counts.
 * **source table** (``--sources``) — ops grouped by the deepest frame
   inside ``shadow1_tpu_torch`` (``file.function``; kernel launches as
@@ -214,7 +217,7 @@ def census(eng, warmup: int = WARMUP, sources: bool = False,
     phase (``count_fusions``)."""
     from shadow1_tpu_torch.consts import KIND_NAMES
     from shadow1_tpu_torch.convert import clone_state
-    from shadow1_tpu_torch.core import popk
+    from shadow1_tpu_torch.core import graph, popk
     from shadow1_tpu_torch.core.engine import run_round, window_frame
     from shadow1_tpu_torch.tools.phaseprobe import clone_tree, engine_phases
 
@@ -258,6 +261,8 @@ def census(eng, warmup: int = WARMUP, sources: bool = False,
         keep(f"h_{KIND_NAMES.get(kind, kind)}", c)
     _, c = count_call(run_round, clone_tree(st_r), ctx, handlers, win_end,
                       sources=sources)
+    # The round loop drops its graphs at its end; a round run alone, here.
+    graph.release()
     keep("round", c)
     out: dict = {"ops": ops, "reads": reads, "launches": launches,
                  "window": window}

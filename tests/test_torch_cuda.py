@@ -32,7 +32,10 @@ Bitcoin flood, and a two-tile run with every fidelity gate on, whose
 virtual CPU launches the push kernel through ``push_back`` every round
 and defers events through it. The overflow guard's rollback point is a
 copy on the card too, and a PHOLD retried there equals the straight run
-at the final cap. The profiler's raw device events count what
+at the final cap. PHOLD's handler pass replayed as a CUDA graph equals
+the eager pass, solo and as a two-lane fleet at 4,096 and 4,097 LPs, and
+launches as many kernels; so do a compacted PHOLD and the sharded engine
+in a world of one NCCL rank. The profiler's raw device events count what
 ``key_averages()`` counts (``chip_smoke.py`` counts the raw events). Each
 tool of the attribution plane (opcensus, phaseprobe, roundprobe, popprof)
 runs once on the card.
@@ -379,6 +382,129 @@ def test_engine_cuda_matches_cpu(dev):
     m_gpu = Engine.metrics_dict(gpu.run())
     assert all(n > 0 for n in popk.LAUNCHES.values()), popk.LAUNCHES
     assert m_gpu == Engine.metrics_dict(cpu.run())
+
+
+def _phold_graph_run(dev, hosts: int, lanes: int):
+    """PHOLD over 6 windows on the card, solo or as a fleet: its final
+    state's leaves on the host, the kernel launches and the tracer's span
+    totals of windows 1-5 (window 0 learns the pass's plan)."""
+    from shadow1_tpu_torch.core import graph
+    from shadow1_tpu_torch.fleet.engine import FleetEngine
+    from shadow1_tpu_torch.telemetry.profiler import PhaseProfiler, active
+
+    exps = [single_vertex_experiment(
+        n_hosts=hosts, seed=40 + e, end_time=6 * MS, latency_ns=1 * MS,
+        model="phold", model_cfg={"mean_delay_ns": 2.0 * MS,
+                                  "init_events": 16})
+        for e in range(lanes)]
+    params = EngineParams(ev_cap=48, outbox_cap=24, metrics_ring=6,
+                          state_digest=1)
+    eng = (Engine(exps[0], params, device=dev) if lanes == 1
+           else FleetEngine(exps, params, None, device=dev))
+    for k in popk.LAUNCHES:
+        popk.LAUNCHES[k] = 0
+    st = eng.run(n_windows=1)
+    tracer = PhaseProfiler()
+    with active(tracer):
+        st = eng.run(st, n_windows=5)
+    torch.cuda.synchronize()
+    return ([x.cpu() for x in graph._leaves(st, [])], dict(popk.LAUNCHES),
+            tracer.totals)
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("hosts", [4096, 4097])
+def test_phold_graph_replay_equals_eager(dev, hosts, lanes, monkeypatch):
+    """The PHOLD pass replayed as a CUDA graph equals the eager pass bit
+    for bit (metrics, ring rows with their digest words, event buffers,
+    outboxes, counters), launches as many kernels, and replays once in
+    every handler span."""
+    from shadow1_tpu_torch.core import phold
+
+    got, launches, spans = _phold_graph_run(dev, hosts, lanes)
+    monkeypatch.setattr(phold, "capturable", lambda fn: fn)
+    want, launches_eager, spans_eager = _phold_graph_run(dev, hosts, lanes)
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        assert torch.equal(a, b), i
+    assert launches == launches_eager and launches["push"] > 0
+    assert spans["round:graph:replay"][0] == spans["round:h:phold"][0] > 0
+    assert 1 <= spans["round:graph:capture"][0] <= 5
+    assert "round:graph:replay" not in spans_eager
+
+
+def _phold_graph_engine_run(dev, make) -> tuple:
+    """Six windows of the engine ``make()`` builds, on the card: its final
+    state's leaves on the host and the kernel launches."""
+    from shadow1_tpu_torch.core import graph
+
+    for k in popk.LAUNCHES:
+        popk.LAUNCHES[k] = 0
+    eng = make()
+    st = eng.run(n_windows=6)
+    torch.cuda.synchronize()
+    return [x.cpu() for x in graph._leaves(st, [])], dict(popk.LAUNCHES)
+
+
+def _assert_graph_equals_eager(got, want) -> None:
+    assert len(got[0]) == len(want[0])
+    for i, (a, b) in enumerate(zip(got[0], want[0])):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        assert torch.equal(a, b), i
+    assert got[1] == want[1] and got[1]["push"] > 0
+
+
+def _phold_sparse(hosts: int):
+    return single_vertex_experiment(
+        n_hosts=hosts, seed=45, end_time=6 * MS, latency_ns=1 * MS,
+        model="phold", model_cfg={"mean_delay_ns": 6.0 * MS,
+                                  "init_events": 1})
+
+
+def test_phold_graph_compacted_equals_eager(dev, monkeypatch):
+    """Under active-host compaction each compacted window builds the
+    handler anew over its bucket, which learns and captures its own
+    graph: the run equals the eager one bit for bit."""
+    from shadow1_tpu_torch.core import compact, phold
+
+    exp = _phold_sparse(4096)
+    params = EngineParams(ev_cap=48, outbox_cap=24, metrics_ring=6,
+                          state_digest=1, compact_cap=2560)
+    for k in compact.WINDOWS:
+        monkeypatch.setitem(compact.WINDOWS, k, 0)
+    got = _phold_graph_engine_run(
+        dev, lambda: Engine(exp, params, device=dev))
+    assert compact.WINDOWS["compact"] > 0, dict(compact.WINDOWS)
+    monkeypatch.setattr(phold, "capturable", lambda fn: fn)
+    want = _phold_graph_engine_run(
+        dev, lambda: Engine(exp, params, device=dev))
+    _assert_graph_equals_eager(got, want)
+
+
+def test_phold_graph_sharded_equals_eager(dev, monkeypatch, tmp_path):
+    """The sharded engine in a world of one NCCL rank replays the PHOLD
+    pass over its block of host columns: equal to its eager run."""
+    import torch.distributed as dist
+
+    from shadow1_tpu_torch.core import phold
+    from shadow1_tpu_torch.shard import engine as shard
+    from shadow1_tpu_torch.shard.launch import init_world
+
+    exp = _phold_sparse(4097)
+    params = EngineParams(ev_cap=48, outbox_cap=24, metrics_ring=6,
+                          state_digest=1)
+    init_world("nccl", 0, 1, str(tmp_path / "store"))
+    try:
+        got = _phold_graph_engine_run(
+            dev, lambda: shard.ShardedEngine(exp, params, device=dev))
+        monkeypatch.setattr(phold, "capturable", lambda fn: fn)
+        want = _phold_graph_engine_run(
+            dev, lambda: shard.ShardedEngine(exp, params, device=dev))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    _assert_graph_equals_eager(got, want)
 
 
 @pytest.mark.parametrize("h,c", NET_SHAPES)
