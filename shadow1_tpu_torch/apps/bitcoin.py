@@ -22,11 +22,22 @@ skipping an all-false block is exact.
 model_cfg:
   peers      i32 [H, K] neighbour ids (symmetric: n in peers[h] ⇔ h in
              peers[n])
-  tx_origin  i64 [T] origin host per transaction
+  tx_origin  i64 [T] origin host per transaction; in a fleet [E, T], one
+             row per lane (``LANE_CFG``)
   tx_time    i64 [T] creation time per transaction
   tx_size    int, payload bytes of a transaction (default 400)
   inv_size   int, bytes of INV/GETDATA messages (default 36)
   connect_time  int ns, when the conn mesh is dialed (default 0)
+
+The origins are drawn from the seed, so the lanes of a seed sweep differ
+in ``tx_origin`` alone: it is the app's one entry in ``LANE_CFG``, the
+``model_cfg`` keys a fleet lets differ between lanes
+(``fleet/expand.check_uniform``) and binds per lane. ``init`` seeds each
+column's transactions at its own lane's origins (``ctx.lane``).
+
+Under an active tracer the app's work is three round spans inside its
+handler passes: ``round:btc:wakeup`` (``on_wakeup``), ``round:btc:notify``
+(``on_notify``) and ``round:btc:push`` around each masked push it makes.
 """
 
 from __future__ import annotations
@@ -40,7 +51,13 @@ from shadow1_tpu_torch.core.engine import push_local_event
 from shadow1_tpu_torch.core.lanes import lsum
 from shadow1_tpu_torch.core.popk import push_local
 from shadow1_tpu_torch.tcp import tcp as T
-from shadow1_tpu_torch.telemetry.profiler import read
+from shadow1_tpu_torch.telemetry.profiler import (
+    RS_BTC_NOTIFY,
+    RS_BTC_PUSH,
+    RS_BTC_WAKEUP,
+    read,
+    round_span,
+)
 
 OP_CONNECT_ONE = 1   # p1 = neighbour slot j
 OP_TX_CREATE = 2     # p1 = txid
@@ -53,6 +70,10 @@ CMD_TX = 3
 TXID_BITS = 20
 TXID_MASK = (1 << TXID_BITS) - 1
 
+# The model_cfg keys whose values may differ between the lanes of a fleet
+# (each lane's are bound as one row of an [E, ...] array).
+LANE_CFG = ("tx_origin",)
+
 
 def _meta(cmd, txid):
     return (cmd << TXID_BITS) | txid
@@ -63,9 +84,13 @@ def init(ctx, evbuf, tcpd):
     h, dev = ctx.n_hosts, ctx.device
     peers = torch.as_tensor(np.asarray(cfg["peers"]).T.copy(),
                             device=dev).to(torch.int32)        # [K, H]
-    tx_origin = np.asarray(cfg["tx_origin"], np.int64)
     tx_time = np.asarray(cfg["tx_time"], np.int64)
-    n_tx = len(tx_origin)
+    # [T] origins, or a fleet's [E, T]: then each column takes its lane's.
+    origin = torch.as_tensor(np.asarray(cfg["tx_origin"], np.int64),
+                             device=dev)
+    if origin.dim() == 2:
+        origin = origin[ctx.lane].T.contiguous()              # [T, E·H]
+    n_tx = len(tx_time)
     assert n_tx <= TXID_MASK
     k_max = peers.shape[0]
     app = {
@@ -101,7 +126,7 @@ def init(ctx, evbuf, tcpd):
     # Seed tx-creation wakeups, one masked push per transaction.
     for t in range(n_tx):
         evbuf, n_over = seed(
-            evbuf, n_over, ctx.hosts == int(tx_origin[t]),
+            evbuf, n_over, ctx.hosts == origin[t],
             torch.full((h,), int(tx_time[t]), dtype=torch.int64, device=dev),
             OP_TX_CREATE, t)
     return app, evbuf, n_over, tcpd
@@ -113,8 +138,9 @@ def _set_app(st, app):
 
 def _push_msg(st, ctx, mask, sock, meta, nbytes, now):
     """Queue a protocol message send (admission-checked in OP_TX_MSG)."""
-    return push_local_event(st, ctx, mask, now, K_APP, p0=OP_TX_MSG, p1=sock,
-                            p2=meta, p3=nbytes)
+    with round_span(RS_BTC_PUSH):
+        return push_local_event(st, ctx, mask, now, K_APP, p0=OP_TX_MSG,
+                                p1=sock, p2=meta, p3=nbytes)
 
 
 def _announce(st, ctx, mask, txid, skip_sock, now):
@@ -139,6 +165,16 @@ def _mark_seen(app, mask, txid, now):
 
 
 def on_wakeup(st, ctx, ev, mask):
+    with round_span(RS_BTC_WAKEUP):
+        return _wakeup(st, ctx, ev, mask)
+
+
+def on_notify(st, ctx, nf: T.Notif, now, mask):
+    with round_span(RS_BTC_NOTIFY):
+        return _notify(st, ctx, nf, now, mask)
+
+
+def _wakeup(st, ctx, ev, mask):
     op = ev.p[0]
     h, dev = ctx.n_hosts, ctx.device
     conn = mask & (op == OP_CONNECT_ONE)
@@ -182,11 +218,11 @@ def on_wakeup(st, ctx, ev, mask):
     app = dict(st.model.app)
     app["msg_retries"] = app["msg_retries"] + retry.to(torch.int64)
     t_retry = (ev.time // ctx.window + 1) * ctx.window
-    return push_local_event(_set_app(st, app), ctx, retry, t_retry, K_APP,
-                            p0=OP_TX_MSG, p1=sock, p2=meta, p3=nbytes)
+    return _push_msg(_set_app(st, app), ctx, retry, sock, meta, nbytes,
+                     t_retry)
 
 
-def on_notify(st, ctx, nf: T.Notif, now, mask):
+def _notify(st, ctx, nf: T.Notif, now, mask):
     f = nf.flags
     sock = nf.sock
     tx_size = int(ctx.model_cfg.get("tx_size", 400))

@@ -12,8 +12,9 @@ whole fleet. The ctx separates width from population as compaction does
 times are what the models see), and holds the per-lane constants: each
 column's RNG key, the ``[E, V, V]`` loss thresholds, the fault tables
 (host intervals folded onto the host axis, link and ramp tables ``[E,
-L]``, every lane padded with inert entries) and, when they differ, the
-lanes' ``max_rounds``.
+L]``, every lane padded with inert entries), the ``model_cfg`` entries
+the app binds per lane (``[E, ...]``: Bitcoin's seed-drawn ``tx_origin``,
+``fleet_model_cfg``) and, when they differ, the lanes' ``max_rounds``.
 
 **Per-experiment determinism contract** (docs/SEMANTICS.md "Fleet
 contract"): lane e's digest words, metrics, model summaries and state
@@ -57,7 +58,11 @@ from shadow1_tpu_torch.core.engine import (
     resolve_device,
 )
 from shadow1_tpu_torch.core.events import evbuf_init
-from shadow1_tpu_torch.fleet.expand import FleetConfigError, check_uniform
+from shadow1_tpu_torch.fleet.expand import (
+    FleetConfigError,
+    check_uniform,
+    lane_cfg_keys,
+)
 
 # Ctx fields that hold one value per host column: tiled E times.
 _TILED = ("hosts", "host_vertex", "bw_up", "bw_dn", "cpu_cost", "tx_qlen_ns",
@@ -101,13 +106,20 @@ def _stack_tables(tabs):
     return tuple(np.stack([c[i] for c in cols]) for i in range(len(ref)))
 
 
-def fleet_model_cfg(cfg: dict, n_hosts: int, n_exp: int) -> dict:
-    """The model config a fleet's init reads: every array whose first axis
-    is the host axis (the apps' per-host config, read only at init)
-    tiled E times along it; scalars and other arrays as they are."""
+def fleet_model_cfg(exps: list) -> dict:
+    """The model config a fleet's init reads: the entries the app binds
+    per lane (``fleet.expand.lane_cfg_keys``) as ``[E, ...]`` stacks of
+    the lanes' values; every other array whose first axis is the host axis
+    (the apps' per-host config, read only at init) tiled E times along it;
+    scalars and other arrays as lane 0 has them."""
+    cfg, n_hosts, n_exp = exps[0].model_cfg, exps[0].n_hosts, len(exps)
+    lane_keys = lane_cfg_keys(exps[0])
     out = {}
     for k, v in cfg.items():
-        if isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == n_hosts:
+        if k in lane_keys:
+            v = np.stack([np.asarray(e.model_cfg[k]) for e in exps])
+        elif (isinstance(v, np.ndarray) and v.ndim >= 1
+              and v.shape[0] == n_hosts):
             v = np.concatenate([v] * n_exp, axis=0)
         out[k] = v
     return out
@@ -256,7 +268,7 @@ class FleetEngine(Engine):
                 app_tables = app.tables(self.exp.model_cfg, dev)
         return dataclasses.replace(
             base, **repl,
-            model_cfg=fleet_model_cfg(self.exp.model_cfg, h, e_n),
+            model_cfg=fleet_model_cfg(exps),
             app_tables=app_tables,
             n_hosts=e_n * h, n_total=h, n_exp=e_n,
             lane=torch.arange(e_n, device=dev).repeat_interleave(h),
@@ -303,10 +315,15 @@ class FleetEngine(Engine):
                ) -> "FleetEngine":
         """Swap a NEW experiment set of the same shape class into this
         engine: the fleet-variable knobs (seed, loss, fault schedules,
-        legacy stop_time, per-lane max_rounds) may differ, everything else
-        must equal the bound set's. Raises ``FleetConfigError`` as the
-        reference does when the new set would change the program's
-        structure (lane count, fault gates, table shapes)."""
+        legacy stop_time, per-lane max_rounds) may differ, and so may the
+        app's per-lane ``model_cfg`` entries of every lane but lane 0;
+        everything else must equal the bound set's. Lane 0 is held to the
+        bound lane 0 whole outside the fleet-variable set, its per-lane
+        entries included, as the serve cache's key holds them
+        (``serve/cache.shape_class_key``); the others' are bound anew.
+        Raises ``FleetConfigError`` as the reference does when the new set
+        would change the program's structure (lane count, fault gates,
+        table shapes)."""
         if len(exps) != self.n_exp:
             raise FleetConfigError(
                 f"rebind: lane count {len(exps)} != compiled {self.n_exp} "

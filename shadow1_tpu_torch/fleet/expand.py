@@ -1,7 +1,8 @@
 """Sweep expansion — the ``sweep:`` YAML section → per-experiment tables.
 
 A copy of the JAX package's ``fleet/expand.py`` (which imports no JAX; the
-port keeps its own copy, as it imports nothing of that package). Fleet
+port keeps its own copy, as it imports nothing of that package), widened
+by the apps' per-lane ``model_cfg`` entries (``lane_cfg_keys``). Fleet
 mode (``fleet/``) answers a whole parameter sweep as ONE device program:
 E experiment variants share the window loop (``fleet/engine.py``). This
 module is the config half: it expands a base experiment document plus a
@@ -12,8 +13,10 @@ and validates the *fleet contract* (docs/SEMANTICS.md §"Fleet contract"):
   streams), path loss probabilities (``network.single_vertex.loss`` /
   anything that changes only ``loss_vv``), the whole ``faults:`` section
   (host churn / link outages / loss ramps — tables pad to a common shape
-  with inert entries), the legacy per-group ``stop_time`` churn, and
-  ``engine.max_rounds`` (a traced scalar in the round loop);
+  with inert entries), the legacy per-group ``stop_time`` churn,
+  ``engine.max_rounds`` (a traced scalar in the round loop), and the
+  ``model_cfg`` entries the app declares per lane (its ``LANE_CFG``:
+  Bitcoin's seed-drawn ``tx_origin``), at equal shape and dtype;
 * **must be shape-uniform** — host count, topology latencies (the
   conservative window derives from them), ``stop_time`` horizon
   (``general.stop_time``), every capacity knob and every other
@@ -213,13 +216,43 @@ _VARIABLE_PARAMS = ("max_rounds",)
 
 # CompiledExperiment fields allowed to differ (the fleet-variable set);
 # everything else must compare equal. ``stop_time`` is legacy churn and
-# compiles into the same per-experiment fault tables as ``faults``.
+# compiles into the same per-experiment fault tables as ``faults``. Within
+# ``model_cfg``, which is otherwise pinned, the keys the app names in its
+# ``LANE_CFG`` (``lane_cfg_keys``) may differ too, at equal shape and
+# dtype: the fleet binds them per lane as ``[E, ...]`` arrays
+# (``fleet/engine.fleet_model_cfg``).
 _VARIABLE_EXP = ("seed", "loss_vv", "faults", "stop_time", "dns")
 
 # Fields whose divergence means a different SHAPE CLASS (the error must say
 # so: these change tensor shapes or the conservative window, not just
 # values).
 _SHAPE_EXP = ("n_hosts", "lat_vv", "jitter_vv", "host_vertex", "end_time")
+
+
+def lane_cfg_keys(exp) -> tuple[str, ...]:
+    """The ``model_cfg`` keys whose values may differ between the lanes of
+    a fleet of ``exp``: its app's ``LANE_CFG`` (none for other models)."""
+    app = exp.model_cfg.get("app") if exp.model == "net" else None
+    if app is None:
+        return ()
+    from shadow1_tpu_torch.net import _app_module
+
+    return tuple(getattr(_app_module(app), "LANE_CFG", ()))
+
+
+def _model_cfg_uniform(a: dict, b: dict, lane_keys) -> bool:
+    """Whether two experiments' ``model_cfg`` may share a fleet: equal but
+    in ``lane_keys``, whose values need only equal shape and dtype."""
+    if set(a) != set(b):
+        return False
+    for k in a:
+        if k in lane_keys:
+            x, y = np.asarray(a[k]), np.asarray(b[k])
+            if x.shape != y.shape or x.dtype != y.dtype:
+                return False
+        elif not _np_equal(a[k], b[k]):
+            return False
+    return True
 
 
 def _np_equal(a, b) -> bool:
@@ -239,6 +272,7 @@ def check_uniform(exps: list, params_list: list[EngineParams],
     Returns (uniform EngineParams, per-experiment max_rounds list); raises
     FleetConfigError naming the first offending knob."""
     base = exps[0]
+    lane_keys = lane_cfg_keys(base)
     if schedulers and len(set(schedulers)) > 1:
         raise FleetConfigError(
             f"sweep varies engine.scheduler ({sorted(set(schedulers))}) — "
@@ -255,6 +289,9 @@ def check_uniform(exps: list, params_list: list[EngineParams],
                     kind="shape", knob=f)
         for f in (fld.name for fld in dataclasses.fields(type(base))):
             if f in _VARIABLE_EXP or f in _SHAPE_EXP:
+                continue
+            if f == "model_cfg" and _model_cfg_uniform(
+                    base.model_cfg, exp.model_cfg, lane_keys):
                 continue
             if not _np_equal(getattr(base, f), getattr(exp, f)):
                 raise FleetConfigError(

@@ -7,8 +7,11 @@ everything that fixes an engine's structure:
 * the **shape class** of the experiment — every ``CompiledExperiment``
   field outside the fleet-variable set (host count, topology latency /
   jitter / bandwidth tables, model + model_cfg, fidelity knobs, horizon):
-  exactly the fields ``fleet.expand.check_uniform`` pins, because they
-  pick tensor shapes or become the ctx's device tables;
+  the fields ``fleet.expand.check_uniform`` pins, because they pick
+  tensor shapes or become the ctx's device tables, with ``model_cfg``
+  whole: an app's per-lane entries (Bitcoin's seed-drawn ``tx_origin``)
+  are in the key, so tenants whose lane 0 differs there build engines of
+  their own, and a hit rebinds the other lanes' entries;
 * the **EngineParams** (caps, ring width, policies) — a frozen dataclass,
   hashable as-is;
 * the **lane count** E (the state folds E lanes onto the host axis);

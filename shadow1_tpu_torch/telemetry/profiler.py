@@ -19,7 +19,8 @@ Inside the window phases the tracer is off unless one is installed
 (``phase_span``), the engine's round loop opens a span at each step of a
 round (``round_span``: ``round:pop``, ``round:dispatch``,
 ``round:h:<kind>`` per handler pass, within it ``round:graph:replay`` and
-``round:graph:capture`` where the pass is a graph, ``round:continue``),
+``round:graph:capture`` where the pass is a graph, ``round:continue``;
+the Bitcoin app adds ``round:btc:*`` inside its passes),
 and every synchronising device read of the window path goes through
 ``read``, a ``read:<site>`` span. Each adds to the tracer's per-name
 totals (count, ns) and opens a ``torch.profiler`` scope under its name.
@@ -68,6 +69,12 @@ ROUND_HANDLER = "round:h:"
 # each capture.
 RS_GRAPH_REPLAY = "round:graph:replay"
 RS_GRAPH_CAPTURE = "round:graph:capture"
+# The Bitcoin app's spans (``apps/bitcoin.py``), inside its handler passes:
+# ``on_wakeup``'s and ``on_notify``'s bodies, and each masked push the app
+# makes (one push launch on a card).
+RS_BTC_WAKEUP = "round:btc:wakeup"
+RS_BTC_NOTIFY = "round:btc:notify"
+RS_BTC_PUSH = "round:btc:push"
 ROUND_PREFIX = "round:"
 # A synchronising device read: READ_PREFIX + its site.
 READ_PREFIX = "read:"

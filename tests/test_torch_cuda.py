@@ -28,17 +28,18 @@ later batch and ties across batches; push into nearly full 512-slot
 buffers; the outbox at P = 64. A filexfer engine run on CUDA equals the
 same run on the CPU, its per-window digest words included, and so do
 small tgen, Tor and dgram runs with active-host compaction on, a small
-Bitcoin flood, and a two-tile run with every fidelity gate on, whose
-virtual CPU launches the push kernel through ``push_back`` every round
-and defers events through it. The overflow guard's rollback point is a
-copy on the card too, and a PHOLD retried there equals the straight run
-at the final cap. PHOLD's handler pass replayed as a CUDA graph equals
-the eager pass, solo and as a two-lane fleet at 4,096 and 4,097 LPs, and
-launches as many kernels; so do a compacted PHOLD and the sharded engine
-in a world of one NCCL rank. The profiler's raw device events count what
-``key_averages()`` counts (``chip_smoke.py`` counts the raw events). Each
-tool of the attribution plane (opcensus, phaseprobe, roundprobe, popprof)
-runs once on the card.
+Bitcoin flood, a two-lane Bitcoin fleet (each lane its seed's solo run,
+each of the app's push spans one push launch), and a two-tile run with
+every fidelity gate on, whose virtual CPU launches the push kernel
+through ``push_back`` every round and defers events through it. The
+overflow guard's rollback point is a copy on the card too, and a PHOLD
+retried there equals the straight run at the final cap. PHOLD's handler
+pass replayed as a CUDA graph equals the eager pass, solo and as a
+two-lane fleet at 4,096 and 4,097 LPs, and launches as many kernels; so
+do a compacted PHOLD and the sharded engine in a world of one NCCL rank.
+The profiler's raw device events count what ``key_averages()`` counts
+(``chip_smoke.py`` counts the raw events). Each tool of the attribution
+plane (opcensus, phaseprobe, roundprobe, popprof) runs once on the card.
 """
 
 import dataclasses
@@ -666,6 +667,66 @@ def test_bitcoin_cuda_matches_cpu(dev):
         ev_cap=96, sockets_per_host=16, msgq_cap=16, max_rounds=1024,
         metrics_ring=40, state_digest=1))
     assert m["events"] > 0
+
+
+def test_bitcoin_fleet_lanes_equal_solo_runs_on_cuda(dev):
+    """Two seeds of a 256-host copy of ``portbench/configs/bitcoin5k.json``
+    (their transactions at other origins) as one fleet on the card, to
+    window 48: each lane's metrics, ring rows and summary equal the solo
+    run of its seed on the card, and under the tracer each
+    ``round:btc:push`` span holds exactly one push launch."""
+    import contextlib
+    import json
+    from pathlib import Path
+
+    from shadow1_tpu_torch.apps import bitcoin
+    from shadow1_tpu_torch.config.experiment import build_experiment
+    from shadow1_tpu_torch.fleet.engine import FleetEngine
+    from shadow1_tpu_torch.fleet.expand import expand_sweep_docs
+    from shadow1_tpu_torch.telemetry import profiler as P
+    from shadow1_tpu_torch.telemetry.ring import drain_ring
+
+    path = Path(__file__).resolve().parents[1] / "portbench/configs"
+    doc = json.loads((path / "bitcoin5k.json").read_text())["experiment"]
+    doc["hosts"][0]["count"] = 256
+    doc["engine"]["state_digest"] = 1
+    doc["sweep"] = {"count": 2, "base_seed": 2**31 + 9}
+    built = [build_experiment(d) for d in expand_sweep_docs(doc)]
+    fleet = FleetEngine([b[0] for b in built], built[0][1], device=dev)
+    st = fleet.run(fleet.init_state(), 44)
+    deltas = []
+    real = bitcoin.round_span
+
+    @contextlib.contextmanager
+    def counted(name):
+        n0 = popk.LAUNCHES["push"]
+        with real(name):
+            yield
+        if name == P.RS_BTC_PUSH:
+            deltas.append(popk.LAUNCHES["push"] - n0)
+
+    tracer = P.PhaseProfiler()
+    bitcoin.round_span = counted
+    try:
+        with P.active(tracer):
+            st = fleet.run(st, 4)
+    finally:
+        bitcoin.round_span = real
+    assert len(deltas) == tracer.total(P.RS_BTC_PUSH)[0] > 0
+    assert set(deltas) == {1}
+    per = fleet.metrics_per_exp(st)
+    rows = fleet.drain_rings(st)
+    for e, (exp, params, _) in enumerate(built):
+        solo = Engine(exp, params, device=dev)
+        so = solo.run(solo.init_state(), 48)
+        assert Engine.metrics_dict(so) == per[e]
+        assert drain_ring(so, solo.window) == [
+            {k: v for k, v in r.items() if k != "exp"} for r in rows
+            if r["exp"] == e and r["type"] == "ring"]
+        want, got = solo.model_summary(so), fleet.model_summary(st, e)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert per[0]["events"] > 0 and per[0]["ev_overflow"] == 0
 
 
 def test_push_back_in_path_cuda_matches_cpu(dev):

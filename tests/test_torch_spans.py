@@ -8,7 +8,8 @@ the CPU.
   ``tools/opcensus.count_call`` at the same time, reads as many times as
   the census counts, and every read site the pass reaches is in the
   tracer (a 2-lane Tor fleet of 22 hosts a lane in window 8 of its
-  bootstrap; PHOLD at 256 LPs, compacted, windows 4-6);
+  bootstrap; PHOLD at 256 LPs, compacted, windows 4-6; a 2-lane Bitcoin
+  fleet of 160 hosts a lane in windows 44-45 of its flood);
 * span counts: one ``round:pop`` per iteration of the round loop (the
   solo ``Metrics.rounds`` delta; the fleet's rounds as
   ``portbench/harness.pass_rounds`` counts them), every ``round:*`` span
@@ -16,8 +17,15 @@ the CPU.
   phase span;
 * off is off: with no tracer a ``torch.profiler`` capture holds no
   ``round:`` or ``read:`` name, and the counters and ring rows of the
-  pass are those of the traced pass.
+  pass are those of the traced pass;
+* the Bitcoin app's spans: one ``round:btc:wakeup`` inside each
+  ``round:h:app`` pass, one ``round:btc:notify`` inside each
+  ``round:h:deliver`` pass, every ``round:btc:push`` inside one of them,
+  and each push span holding exactly one push launch (``popk.LAUNCHES``;
+  on the CPU the plain push counts itself as the card's kernel would).
 """
+
+import contextlib
 
 import copy
 import json
@@ -40,6 +48,8 @@ CASES = {
                    "tcp_burst", "tcp_fin", "tor_notify", "tor_dir",
                    "tor_guard", "tor_build", "tor_wakeup"}),
     "phold": (4, 3, {"continue", "compact"}),
+    "bitcoin": (44, 2, {"btc_wakeup", "btc_accept", "dispatch", "lanes",
+                        "tcp_send"}),
 }
 
 
@@ -52,14 +62,15 @@ def _one_thread():
 
 
 def _engine(name):
-    if name == "tor":
+    if name in ("tor", "bitcoin"):
         from shadow1_tpu_torch.fleet.engine import FleetEngine
         from shadow1_tpu_torch.fleet.expand import expand_sweep_docs
 
-        doc = json.loads((ROOT / "portbench/configs/tor10k.json")
-                         .read_text())["experiment"]
+        doc = json.loads((ROOT / f"portbench/configs/"
+                          f"{'tor10k' if name == 'tor' else 'bitcoin5k'}"
+                          f".json").read_text())["experiment"]
         for g in doc["hosts"]:
-            g["count"] = TOR_HOSTS[g["name"]]
+            g["count"] = TOR_HOSTS.get(g["name"], 160)
         doc["sweep"] = {"count": 2, "base_seed": 2**31 + 5}
         built = [build_experiment(d) for d in expand_sweep_docs(doc)]
         return FleetEngine([b[0] for b in built], built[0][1], device="cpu")
@@ -208,3 +219,66 @@ def test_cli_trace_keeps_round_totals_as_chunk_counters(tmp_path, capsys):
     assert len(pops) == 2 and 0 < pops[0] <= pops[1]
     assert {"read:continue", "round:continue", P.PH_ROUNDS} <= {
         e["name"] for e in counters}
+
+
+@pytest.fixture(scope="module")
+def btc():
+    """A traced pass of the Bitcoin case, the push launches counted inside
+    each ``round:btc:push`` span."""
+    from shadow1_tpu_torch.apps import bitcoin
+    from shadow1_tpu_torch.core import popk
+
+    start, span, _ = CASES["bitcoin"]
+    eng = _engine("bitcoin")
+    st0 = eng.run(eng.init_state(), start)
+    real_push, real_span = popk.push_local, bitcoin.round_span
+    deltas = []
+
+    def push(buf, *a, **k):
+        out = real_push(buf, *a, **k)
+        if not buf.kind.is_cuda:
+            popk.LAUNCHES["push"] += 1
+        return out
+
+    @contextlib.contextmanager
+    def counted(name):
+        n0 = popk.LAUNCHES["push"]
+        with real_span(name):
+            yield
+        if name == P.RS_BTC_PUSH:
+            deltas.append(popk.LAUNCHES["push"] - n0)
+
+    tracer = P.PhaseProfiler(round_events=True)
+    popk.push_local, bitcoin.round_span = push, counted
+    try:
+        with P.active(tracer):
+            eng.run(clone_tree(st0), span)
+    finally:
+        popk.push_local, bitcoin.round_span = real_push, real_span
+    evs = [e for e in tracer.chrome_trace()["traceEvents"] if e["ph"] == "X"]
+    return {"tracer": tracer, "deltas": deltas, "evs": evs}
+
+
+def _inside(inner, outers) -> bool:
+    return any(o["ts"] <= inner["ts"] and inner["ts"] + inner["dur"]
+               <= o["ts"] + o["dur"] for o in outers)
+
+
+def test_bitcoin_spans_nest_in_their_handler_passes(btc):
+    by = {}
+    for e in btc["evs"]:
+        by.setdefault(e["name"], []).append(e)
+    app, deliver = by[P.ROUND_HANDLER + "app"], by[P.ROUND_HANDLER + "deliver"]
+    wake, notify = by[P.RS_BTC_WAKEUP], by[P.RS_BTC_NOTIFY]
+    assert len(wake) == len(app) > 0 and len(notify) == len(deliver) > 0
+    assert all(_inside(e, app) for e in wake)
+    assert all(_inside(e, deliver) for e in notify)
+    assert all(_inside(e, wake + notify) for e in by[P.RS_BTC_PUSH])
+
+
+def test_bitcoin_push_spans_count_push_launches(btc):
+    pushes = btc["tracer"].total(P.RS_BTC_PUSH)[0]
+    assert len(btc["deltas"]) == pushes > 0
+    assert set(btc["deltas"]) == {1}
+    # A delivered message makes a reply push and K = 8 announcements.
+    assert pushes >= 9 * btc["tracer"].total(P.RS_BTC_NOTIFY)[0]
