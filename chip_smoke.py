@@ -326,6 +326,17 @@ fails:
    ``popprof``'s grid (C 256 and 64), each kernel loop's final carry bit
    equal to the same loop through the plain versions.
 
+22. TCP's receive path (run right after phase 10's Tor path): ``tor10k``
+   (to window ``TOR_PATH_WINDOW`` + 2, compacted) and ``bitcoin5k`` (to
+   window 47, full width) with hooks around ``tcp.rx_ack`` and
+   ``tcp.rx_data`` (``RX_RUNS``): each run must launch the rx_ack and
+   rx_data kernels once per call of ``tcp_rx``; on the busiest, a
+   middling and the sparsest deliver pass of the kept window each kernel
+   must equal its plain block bit for bit on clones of the pass's
+   arguments (every TCP plane, Notif row and mask), and is timed with a
+   cold L2 against its byte bound (``rx_ack_bytes``, ``rx_data_bytes``),
+   beside the wrapper's and the plain block's time.
+
 The golden runs of phases 7, 9 and 11 time nothing against a bound: they
 run as four processes side by side (``GoldenWorkers``, ``GOLDEN_GROUPS``),
 after phase 16 and before phase 8, and their checks follow in this
@@ -1251,6 +1262,23 @@ class GoldenWorkers:
         return res
 
 
+def keep_ranked(kept: dict, rec: dict) -> None:
+    """Keep ``rec`` (a round's record, ranked by ``rec["n"]``) in ``kept``
+    if it is the busiest so far, the sparsest of rank above 0, or the
+    closest to half the busiest."""
+    n = rec["n"]
+    if n == 0:
+        return
+    if "busy" not in kept or n > kept["busy"]["n"]:
+        kept["busy"] = rec
+        return
+    half = kept["busy"]["n"] / 2
+    if "middling" not in kept or abs(n - half) < abs(kept["middling"]["n"] - half):
+        kept["middling"] = rec
+    if "sparse" not in kept or n < kept["sparse"]["n"]:
+        kept["sparse"] = rec
+
+
 class NetPathCapture:
     """Hooks around the net path's call sites of the kernels' wrappers:
     ``engine.pop_until``, ``popk.push_local`` (``engine.push_local_event``
@@ -1283,17 +1311,7 @@ class NetPathCapture:
             return
         if self.rank != "pop":
             rec["n"] = rec.get(self.rank, (0,))[0]
-        if rec["n"] == 0:
-            return
-        n, kept = rec["n"], self.kept
-        if "busy" not in kept or n > kept["busy"]["n"]:
-            kept["busy"] = rec
-            return
-        half = kept["busy"]["n"] / 2
-        if "middling" not in kept or abs(n - half) < abs(kept["middling"]["n"] - half):
-            kept["middling"] = rec
-        if "sparse" not in kept or n < kept["sparse"]["n"]:
-            kept["sparse"] = rec
+        keep_ranked(self.kept, rec)
 
     def cases(self, name: str) -> list:
         recs = {id(r): r for r in self.kept.values()}.values()
@@ -1365,6 +1383,217 @@ class NetPathCapture:
         self._end_round()
         for mod, name, fn in self._saved:
             setattr(mod, name, fn)
+
+
+# -- phase 22: TCP's receive path ---------------------------------------------
+
+# The runs whose deliver passes phase 22 keeps, and the window of each:
+# tor10k's Tor path window (its compacted bucket, S 128, Q 64) and
+# bitcoin5k's window 45 of 60 (full width, S 32, Q 64: transactions are
+# created from window 40 on, and their floods fill the next ones, every
+# message behind a boundary).
+RX_RUNS = (("tor10k", TOR_PATH_WINDOW), ("bitcoin5k", 45))
+
+
+def rx_flat(tcp: dict, nf, masks) -> tuple:
+    """The TCP planes (sorted by name), the Notif rows and the masks, as
+    one tuple of tensors."""
+    return tuple(tcp[k] for k in sorted(tcp)) + tuple(nf) + tuple(masks)
+
+
+def rx_clone(tcp: dict) -> dict:
+    return {k: v.clone() for k, v in tcp.items()}
+
+
+class RxCapture:
+    """Hooks around ``tcp.rx_ack`` and ``tcp.rx_data`` (``tcp_rx`` looks
+    both up in its module at each call) and ``engine.window_frame`` (the
+    window count). In window ``window`` the arguments of each deliver
+    pass's two calls are cloned before the calls; the pass that masks the
+    most hosts, the one that masks the fewest and the one closest to half
+    the most are kept. ``calls`` counts the calls of each over the run."""
+
+    def __init__(self, window: int):
+        self.window = window
+        self.kept = {}
+        self.calls = {"rx_ack": 0, "rx_data": 0}
+        self._cur, self._window, self._saved = None, -1, []
+
+    def cases(self) -> list:
+        recs = {id(r): r for r in self.kept.values()}.values()
+        return sorted(recs, key=lambda r: -r["n"])
+
+    def __enter__(self):
+        from shadow1_tpu_torch.core import engine
+        from shadow1_tpu_torch.tcp import tcp
+
+        ack, data, frame = tcp.rx_ack, tcp.rx_data, engine.window_frame
+
+        def frame_hook(st, ctx):
+            self._window += 1
+            return frame(st, ctx)
+
+        def ack_hook(t, pr, mask, p, sg, stl, now):
+            self.calls["rx_ack"] += 1
+            if self._window == self.window:
+                self._cur = {"n": int(mask.sum()), "ack": (
+                    rx_clone(t), pr, mask.clone(), p.clone(), stl.clone(),
+                    now.clone())}
+            return ack(t, pr, mask, p, sg, stl, now)
+
+        def data_hook(t, mask, p, sg, nf, a):
+            self.calls["rx_data"] += 1
+            if self._cur is not None:
+                self._cur["data"] = (rx_clone(t), mask.clone(), p.clone(),
+                                     clone(nf), clone(a))
+                keep_ranked(self.kept, self._cur)
+                self._cur = None
+            return data(t, mask, p, sg, nf, a)
+
+        self._saved = [(tcp, "rx_ack", ack), (tcp, "rx_data", data),
+                       (engine, "window_frame", frame)]
+        tcp.rx_ack, tcp.rx_data = ack_hook, data_hook
+        engine.window_frame = frame_hook
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def rx_ack_bytes(tcp: dict, mask, stl, p, after: dict, ack) -> int:
+    """rx_ack's byte bound: each word it must move, once. Read mask and
+    to_listener (1 B each a host); for each host with a segment (mask and
+    not to_listener) its five segment words and now (28 B) and its
+    socket's 13 i32 fields, ts_act and 4 i64 fields (85 B); for each host
+    whose ACK is new and whose socket is in range, its Q boundary flags
+    and the end of each valid one. Write the six Notif rows and five masks
+    (29 B a host) and each plane word that changed."""
+    import torch
+
+    q, s, h = tcp["mq_valid"].shape
+    ds = (p[1] >> 8) & 0xFF
+    retire = ack.flush & ~ack.frx & (ds < s)  # new_ack, socket in range
+    col = torch.clamp(ds, max=s - 1).long().view(1, 1, h).expand(q, 1, h)
+    valid = tcp["mq_valid"].gather(1, col).squeeze(1) & retire
+    bytes_ = ((2 + 29) * h + (28 + 85) * int((mask & ~stl).sum())
+              + q * int(retire.sum()) + 4 * int(valid.sum()))
+    for k in tcp:
+        bytes_ += tcp[k].element_size() * int((tcp[k] != after[k]).sum())
+    return bytes_
+
+
+def rx_data_bytes(tcp: dict, nf, ack, after: dict, nf_after) -> int:
+    """rx_data's byte bound: read v (1 B a host); for each host whose
+    segment matched a connection (v) its five segment words, st and
+    rcv_nxt, est_ss and closed_by_ack, and the four Notif rows it may
+    update (46 B). Write the two masks (2 B a host), each plane word and
+    each Notif word that changed."""
+    h = ack.v.shape[0]
+    bytes_ = 3 * h + 46 * int(ack.v.sum())
+    for k in tcp:
+        bytes_ += tcp[k].element_size() * int((tcp[k] != after[k]).sum())
+    for a, b in zip(nf, nf_after):
+        bytes_ += 4 * int((a != b).sum())
+    return bytes_
+
+
+def check_rx(name: str, cap: RxCapture, dev, flush) -> dict:
+    """On each kept deliver pass: rx_ack and rx_data against their plain
+    blocks on clones of the pass's arguments (bit equal over every plane,
+    Notif row and mask); each kernel's device time per launch with the L2
+    evicted before each launch, its byte bound, the wrapper's stream time
+    per call and the plain block's."""
+    from shadow1_tpu_torch.core import popk
+    from shadow1_tpu_torch.tcp import tcp as T
+
+    cases = cap.cases()
+    require(1 <= len(cases) <= 3, f"{name}: kept {len(cases)} deliver passes")
+    out = {k: dict(ms=[], wrapper_ms=[], plain_ms=[], bytes=[], active=[])
+           for k in ("rx_ack", "rx_data")}
+    err = 0
+    for i, rec in enumerate(cases):
+        tcp, pr, mask, p, stl, now = rec["ack"]
+        sg = T._segment(p)
+        want = T.rx_ack_plain(rx_clone(tcp), pr, mask, sg, stl, now)
+        work = rx_clone(tcp)
+        nf, ack = popk.tcp_rx_ack(work, pr, mask, stl, p, now)
+        err = max(err, bit_equal(f"rx_ack[{name} case {i}]",
+                                 rx_flat(*want), rx_flat(work, nf, ack)))
+        r = out["rx_ack"]
+        r["active"].append(rec["n"])
+        r["bytes"].append(rx_ack_bytes(tcp, mask, stl, p, want[0], want[2]))
+        planes = [work[k] for k in popk.RX_PLANES]
+        saved = [tcp[k] for k in popk.RX_PLANES]
+        call = (lambda w=work: popk.tcp_rx_ack(w, pr, mask, stl, p, now))
+        r["ms"].append(device_ms(call, restore(planes, saved, flush),
+                                 kernel="rx_ack_kernel", reps=60, inner=1))
+        r["wrapper_ms"].append(time_ms(call, restore(planes, saved)))
+        r["plain_ms"].append(time_ms(
+            lambda: T.rx_ack_plain(rx_clone(tcp), pr, mask, sg, stl, now),
+            lambda: None, reps=5, inner=2))
+
+        tcp, mask, p, nf, ack = rec["data"]
+        sg = T._segment(p)
+        want = T.rx_data_plain(rx_clone(tcp), mask, sg, clone(nf), ack)
+        work, nf_k = rx_clone(tcp), clone(nf)
+        got = popk.tcp_rx_data(work, p, nf_k, ack.v, ack.est_ss,
+                               ack.closed_by_ack)
+        err = max(err, bit_equal(
+            f"rx_data[{name} case {i}]",
+            rx_flat(want[0], want[1], want[2:]), rx_flat(work, nf_k, got)))
+        r = out["rx_data"]
+        r["active"].append(int(ack.v.sum()))
+        r["bytes"].append(rx_data_bytes(tcp, nf, ack, want[0], want[1]))
+        planes = [work[k] for k in popk.RX_PLANES] + list(nf_k)
+        saved = [tcp[k] for k in popk.RX_PLANES] + list(nf)
+        call = (lambda w=work, n=nf_k: popk.tcp_rx_data(
+            w, p, n, ack.v, ack.est_ss, ack.closed_by_ack))
+        r["ms"].append(device_ms(call, restore(planes, saved, flush),
+                                 kernel="rx_data_kernel", reps=60, inner=1))
+        r["wrapper_ms"].append(time_ms(call, restore(planes, saved)))
+        r["plain_ms"].append(time_ms(
+            lambda: T.rx_data_plain(rx_clone(tcp), mask, sg, clone(nf), ack),
+            lambda: None, reps=5, inner=2))
+    for k, r in out.items():
+        r["err"] = err
+        r["bound_ms"] = [b / HBM_BYTES_PER_S * 1e3 for b in r["bytes"]]
+    return out
+
+
+def phase_tcp_rx(dev) -> dict:
+    """Phase 22: TCP's receive path. Each run of ``RX_RUNS`` (its golden,
+    to two windows past the kept one, digest words held) launches rx_ack
+    and rx_data once per call of ``tcp_rx``; on the kept deliver passes
+    each kernel equals its plain block and is timed against its byte
+    bound (``check_rx``)."""
+    import torch
+
+    from shadow1_tpu_torch.core import popk
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    res = {}
+    for name, window in RX_RUNS:
+        before = dict(popk.LAUNCHES)
+        with RxCapture(window) as cap:
+            run_net_golden(name, dev, stop_after=window + 2)
+        launched = {k: popk.LAUNCHES[k] - before[k]
+                    for k in ("rx_ack", "rx_data")}
+        require(launched == cap.calls and cap.calls["rx_ack"] > 0,
+                f"{name}: rx launches {launched} for {cap.calls} calls")
+        r = res[name] = check_rx(name, cap, dev, flush)
+        for k, v in r.items():
+            log(f"kernel {k} in the {name} path (window {window}, hosts "
+                f"{v['active']}): bit-equal to plain; device "
+                f"{[round(x * 1e3, 2) for x in v['ms']]} us/launch with a "
+                f"cold L2; byte bound "
+                f"{[round(x * 1e3, 3) for x in v['bound_ms']]} us "
+                f"({v['bytes']} B); wrapper call "
+                f"{[round(x * 1e3, 1) for x in v['wrapper_ms']]} us; plain "
+                f"{[round(x * 1e3, 1) for x in v['plain_ms']]} us/call; "
+                f"launches {launched[k]} = calls of tcp_rx")
+        del cap
+    return res
 
 
 # -- phase 13: checkpoint and observability ---------------------------------
@@ -2310,7 +2539,7 @@ def fleet_sweep(dev) -> dict:
         sync(dev)
     wall = time.perf_counter() - t0
     launches = dict(popk.LAUNCHES)
-    require(all(n > 0 for n in launches.values()),
+    require(all(launches[k] > 0 for k in popk.CORE),
             f"fleet_sweep_phold: kernels not launched: {launches}")
     check_fleet_lanes(eng, st, what="fleet_sweep_phold")
     per = eng.metrics_per_exp(st)
@@ -3182,7 +3411,7 @@ def tools_faultprobe(dev, paths) -> dict:
             and all(r["ok"] for r in probes.values()),
             f"faultprobe: {lines}")
     need = {"pop": ("pop", "push"), "phold": ("pop", "push", "obox"),
-            "tor": ("pop", "push", "obox")}
+            "tor": ("pop", "push", "obox", "rx_ack", "rx_data")}
     for probe, kernels in need.items():
         got = probes[probe]["launches"]
         require(all(got[k] > 0 for k in kernels),
@@ -3240,7 +3469,7 @@ def tools_memprobe_runs(dev, paths, mp) -> dict:
         paths["sweep17"], SUBBATCH_LANES, None, lambda msg: None, dev)
     sub_s = time.perf_counter() - t0
     launches = dict(popk.LAUNCHES)
-    require(all(n > 0 for n in launches.values()),
+    require(all(launches[k] > 0 for k in popk.CORE),
             f"memprobe --subbatch: kernels not launched: {launches}")
     require(verdict["ok"] and verdict["experiments"] == 17
             and verdict["ckpt_cycled"], f"memprobe --subbatch: {verdict}")
@@ -4625,7 +4854,7 @@ def attr_fusion(dev) -> dict:
             f"kernels {f['phases']} differ from popk.LAUNCHES "
             f"{f['launches']} (captures {f['attempts']})")
     rounds = f["launches"]["rounds"]
-    require(all(rounds[k] > 0 for k in ("pop", "push", "obox")),
+    require(all(rounds[k] > 0 for k in opcensus.KERNELS),
             f"opcensus --fusion {label}: kernels not launched in the rounds "
             f"phase: {rounds}")
     return dict(label=label, fusions=f, warm_s=warm_s,
@@ -4691,14 +4920,17 @@ def attr_census(dev, fusion: dict) -> dict:
 
 def attr_census_against_cpu(a: dict, cpu: dict) -> None:
     """Step (a)'s last check: the host's CPU census (phase 18's process)
-    has the card's reads and window."""
+    has the card's window, and the card's reads plus one for each rx_data
+    launch (the plain version reads whether any host holds a FIN; the
+    kernel runs the FIN block under its mask)."""
     for label, c in cpu["line"]["census"].items():
-        require(c["reads"] == a["census"][label]["reads"]
-                and c["window"] == a["census"][label]["window"],
+        card = a["census"][label]
+        want = {ph: n + card["launches"].get(ph, {}).get("rx_data", 0)
+                for ph, n in card["reads"].items()}
+        require(c["reads"] == want and c["window"] == card["window"],
                 f"opcensus {label}: the CPU census's reads {c['reads']} or "
-                f"window {c['window']} differ from the card's "
-                f"{a['census'][label]['reads']} "
-                f"{a['census'][label]['window']}")
+                f"window {c['window']} differ from the card's reads plus "
+                f"its rx_data launches {want}, window {card['window']}")
 
 
 def attr_phaseprobe(dev) -> dict:
@@ -5162,7 +5394,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from shadow1_tpu_torch.core import _build
+    from shadow1_tpu_torch.core import _build, popk
 
     t_start = time.perf_counter()
     # Phase 18's comparators build with g++ beside nvcc.
@@ -5216,9 +5448,11 @@ def main() -> int:
         f"{lossy['wall_s']:.3f} s = {lossy['events'] / lossy['wall_s']:.0f} "
         f"events/s; equal to the JAX golden")
     launches = bench["launches"]
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in popk.CORE if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the slice path: {missing}")
+    require(launches["rx_ack"] == launches["rx_data"] == 0,
+            f"PHOLD launched TCP's kernels: {launches}")
     log(f"launches on the bench run: {launches} over {bench['rounds']} rounds")
     phase_done("PHOLD slice", t0)
 
@@ -5358,6 +5592,10 @@ def main() -> int:
         report_path(name, r, f"Tor path (window {TOR_PATH_WINDOW})")
     del tcap, flush
     phase_done("Tor path", t0)
+
+    t0 = time.perf_counter()
+    rx = phase_tcp_rx(dev)
+    phase_done("TCP receive path", t0)
 
     t0 = time.perf_counter()
     fid = {}
@@ -5571,6 +5809,17 @@ def main() -> int:
                 "push_back_path_case_us": [x * 1e3 for x in back["path_case_ms"]],
                 "push_back_path_active": back["path_active"],
             })
+    for name in ("rx_ack", "rx_data"):
+        runs = {run: r[name] for run, r in rx.items()}
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": None, "bound_by": "bytes", "library_ms": None,
+            "max_abs_err": max(r["err"] for r in runs.values()),
+            "bit_equal": all(r["err"] == 0 for r in runs.values()),
+            **{f"{run}_path_{k}": r[k] for run, r in runs.items()
+               for k in ("ms", "bound_ms", "wrapper_ms", "plain_ms",
+                         "bytes", "active")},
+        })
     log(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f"; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -134,8 +134,8 @@ def flatten_like_jax(st) -> list:
 
 def clone_state(st):
     """A device copy of every leaf (``Tensor.clone``): a state the kernels
-    may update in place (on CUDA they write the event-buffer and outbox
-    planes of the state they are given) is kept by cloning it."""
+    may update in place (on CUDA they write the event-buffer, outbox and
+    TCP planes of the state they are given) is kept by cloning it."""
     return unflatten_like_jax(st, [x.clone() for x in flatten_like_jax(st)])
 
 

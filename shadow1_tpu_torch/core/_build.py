@@ -30,13 +30,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures of csrc/popk.cu's entry points: every pointer and the stream
 # are c_void_p (ctypes would pass a bare Python int as a 32-bit int).
 _SIGNATURES = {
     "popk_pop": [_P] * 14 + [_I, _I, _I, _P],
     "popk_push": [_P] * 18 + [_I, _I, _I, _P],
     "popk_obox": [_P] * 16 + [_I] * 5 + [_P],
+    "popk_rx_ack": [_P] * 12 + [_I] * 6 + [_L, _L, _P],
+    "popk_rx_data": [_P] * 10 + [_I, _I, _P],
     "popk_np": [],
+    "popk_tcp_planes": [],
 }
 
 
@@ -83,6 +87,11 @@ def load(path: Path) -> ctypes.CDLL:
     if lib.popk_np() != NP:
         raise RuntimeError(f"{path} was built for NP={lib.popk_np()} "
                            f"payload words, consts.NP is {NP}")
+    from shadow1_tpu_torch.core.popk import RX_PLANES
+
+    if lib.popk_tcp_planes() != len(RX_PLANES):
+        raise RuntimeError(f"{path} takes {lib.popk_tcp_planes()} TCP planes"
+                           f", popk.RX_PLANES names {len(RX_PLANES)}")
     return lib
 
 

@@ -966,7 +966,8 @@ class Engine:
             check_x2x: bool = True) -> SimState:
         """Run ``n_windows`` windows (default: to the experiment's end) from
         ``st`` (default: a fresh ``init_state``). On CUDA the kernels
-        update the given state's event-buffer and outbox planes in place.
+        update the given state's event-buffer, outbox and TCP planes in
+        place.
         ``check_x2x`` is the sharded engine's and means nothing here."""
         if st is None:
             st = self.init_state()

@@ -15,6 +15,13 @@ kernel         replaces (shadow1_tpu/core/popk.py)     plain version
                ``outbox_append_fused``
 =============  ======================================  =====================
 
+Two more kernels replace no TPU kernel: ``rx_ack`` and ``rx_data`` run
+the two per-socket blocks of TCP's receive path (``tcp_rx_ack``,
+``tcp_rx_data`` below; their plain versions are ``tcp.rx_ack_plain`` and
+``tcp.rx_data_plain``, and ``tcp.rx_ack`` / ``tcp.rx_data`` dispatch). They
+update the TCP planes of ``RX_PLANES`` in place, and ``rx_data`` the
+Notif rows that ``rx_ack`` made.
+
 ``pop_until``, ``push_local``, ``push_back`` and ``outbox_append`` below
 are what the engine and the models call. They dispatch on the device of
 the buffer they are given: a CUDA tensor goes to the kernel (which raises
@@ -60,6 +67,8 @@ put back the events it defers past the window's end.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from shadow1_tpu_torch.consts import NP
@@ -73,7 +82,10 @@ from shadow1_tpu_torch.core.events import (
 from shadow1_tpu_torch.core.outbox import Outbox, outbox_append_plain
 
 # Kernel launches on CUDA tensors, by kernel name; set to 0 to start a count.
-LAUNCHES = {"pop": 0, "push": 0, "obox": 0}
+LAUNCHES = {"pop": 0, "push": 0, "obox": 0, "rx_ack": 0, "rx_data": 0}
+# The event core's kernels, which every model's round launches; the rx
+# kernels run only where TCP receives (the net model's deliver pass).
+CORE = ("pop", "push", "obox")
 # The push kernel's launches by public entry; they sum to LAUNCHES["push"].
 PUSH_ENTRIES = {"push_local": 0, "push_back": 0}
 # Callables handed each launch's arguments (``core/graph.py`` learns from
@@ -257,3 +269,90 @@ def outbox_append(ob: Outbox, mask, dst, kind, depart, p) -> tuple[Outbox, torch
             ob.p, ok, cnt, pkt_ctr, cap, h, dst_step, kind_step, depart_step,
             _stream(dev))
     return ob._replace(cnt=cnt, pkt_ctr=pkt_ctr), ok
+
+
+# -- TCP's receive path ----------------------------------------------------
+
+# The TCP planes the rx kernels read and write, in the order of
+# ``csrc/popk.cu``'s ``TcpPlanes``: [S, H] each, bool for ``ts_act``, and
+# the [Q, S, H] message-boundary FIFO last.
+RX_PLANES = (
+    "st", "peer_host", "peer_sock", "peer_wnd", "snd_una", "snd_nxt",
+    "snd_max", "rcv_nxt", "app_end", "fin_pend", "cwnd", "ssthresh",
+    "dupacks", "recover", "ts_seq", "srtt_hi", "srtt_lo", "rttvar_hi",
+    "rttvar_lo", "rto_hi", "rto_lo", "rtx_t_hi", "rtx_t_lo", "ts_time_hi",
+    "ts_time_lo", "ts_act", "mq_valid", "mq_end")
+_RX_BOOL = frozenset(("ts_act", "mq_valid"))
+
+
+def _rx_planes(name: str, tcp: dict, device) -> tuple:
+    """Check every plane of ``RX_PLANES`` and return (the host array of
+    their device pointers, S, Q, H). The array must outlive the launch."""
+    s, h = tcp["st"].shape
+    q = tcp["mq_valid"].shape[0]
+    _check(name, device, tuple(
+        (k, tcp[k], torch.bool if k in _RX_BOOL else _I32,
+         (q, s, h) if k.startswith("mq_") else (s, h)) for k in RX_PLANES))
+    ptrs = (ctypes.c_void_p * len(RX_PLANES))(
+        *(tcp[k].data_ptr() for k in RX_PLANES))
+    return ptrs, s, q, h
+
+
+def _fits(name: str, bits: int, **vals) -> None:
+    """Raise unless each value fits a signed ``bits``-bit argument."""
+    for k, v in vals.items():
+        if not -(1 << (bits - 1)) <= v < 1 << (bits - 1):
+            raise ValueError(f"{name}: {k} = {v} does not fit the kernel's "
+                             f"{bits}-bit argument")
+
+
+def tcp_rx_ack(tcp: dict, params, mask, to_listener, p, now):
+    """The kernel of ``tcp.rx_ack`` (see ``tcp.rx_ack_plain``): one launch
+    over the [H] rows ``mask``, ``to_listener`` (the hosts whose segment is
+    a SYN to a listener), the segment's payload ``p`` [NP, H] and ``now``.
+    The planes of ``RX_PLANES`` are updated IN PLACE. Returns (the six
+    Notif rows, fresh: sock, flags, meta, meta2, dlen, space; the five
+    masks, fresh: v, est_ss, closed_by_ack, frx, flush). CUDA only."""
+    from shadow1_tpu_torch.core._build import library
+
+    dev = tcp["st"].device
+    planes, s, q, h = _rx_planes("rx_ack", tcp, dev)
+    pr = params
+    _fits("rx_ack", 32, mss=pr.mss, mss_squared=pr.mss * pr.mss,
+          sndbuf=pr.sndbuf, dupack_thresh=pr.dupack_thresh)
+    _fits("rx_ack", 64, rto_min=pr.rto_min, rto_max=pr.rto_max)
+    row = (h,)
+    mask = _arg(mask, torch.bool, row, dev)
+    to_listener = _arg(to_listener, torch.bool, row, dev)
+    p = _arg(p, _I32, (NP, h), dev)
+    now = _arg(now, _I64, row, dev)
+    nf = torch.empty((6, h), dtype=_I32, device=dev)
+    out = torch.empty((5, h), dtype=torch.bool, device=dev)
+    _launch("rx_ack", library().popk_rx_ack, ctypes.addressof(planes), mask,
+            to_listener, p, now, *nf, out, s, q, h, pr.mss, pr.sndbuf,
+            pr.dupack_thresh, pr.rto_min, pr.rto_max, _stream(dev))
+    return tuple(nf), tuple(out)
+
+
+def tcp_rx_data(tcp: dict, p, nf, v, est_ss, closed_by_ack):
+    """The kernel of ``tcp.rx_data`` (see ``tcp.rx_data_plain``): one launch
+    over the segment's payload ``p`` and ``tcp_rx_ack``'s masks ``v``,
+    ``est_ss`` and ``closed_by_ack``. The planes of ``RX_PLANES`` and the
+    Notif rows ``nf`` (``tcp_rx_ack``'s) are updated IN PLACE. Returns the
+    fresh masks (need_ack, out_of_order). CUDA only."""
+    from shadow1_tpu_torch.core._build import library
+
+    dev = tcp["st"].device
+    planes, s, _, h = _rx_planes("rx_data", tcp, dev)
+    row = (h,)
+    p = _arg(p, _I32, (NP, h), dev)
+    _check("rx_data", dev, (
+        ("v", v, torch.bool, row), ("est_ss", est_ss, torch.bool, row),
+        ("closed_by_ack", closed_by_ack, torch.bool, row),
+        ("nf.sock", nf.sock, _I32, row), ("nf.flags", nf.flags, _I32, row),
+        ("nf.meta", nf.meta, _I32, row), ("nf.dlen", nf.dlen, _I32, row)))
+    out = torch.empty((2, h), dtype=torch.bool, device=dev)
+    _launch("rx_data", library().popk_rx_data, ctypes.addressof(planes), p, v,
+            est_ss, closed_by_ack, nf.sock, nf.flags, nf.meta, nf.dlen, out,
+            s, h, _stream(dev))
+    return out[0], out[1]

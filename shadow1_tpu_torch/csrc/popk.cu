@@ -1,6 +1,7 @@
-// Hand-written Hopper kernels for the event core's round path.
+// Hand-written Hopper kernels for the event core's round path, and for
+// TCP's receive path (rx_ack, rx_data: see their section below).
 //
-// These replace the three Pallas kernels of the JAX package
+// The first three replace the three Pallas kernels of the JAX package
 // (shadow1_tpu/core/popk.py): the fused pop (_pop_kernel), the fused push
 // (_push_kernel) and the fused outbox append (_obox_kernel). Each is
 // bit-identical to its plain PyTorch version (core/events.py
@@ -108,6 +109,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -366,6 +368,343 @@ obox_kernel(const uint8_t* __restrict__ mask, const int32_t* __restrict__ cnt,
   for (int w = 0; w < kNP; ++w) p[w * plane + s] = p_v[(int64_t)w * H + h];
 }
 
+// ---- TCP's receive path (tcp/tcp.py rx_ack_plain, rx_data_plain) ----------
+//
+// No TPU kernel: the JAX package runs tcp_rx as XLA's fused dense
+// program. The port's plain version writes every field as a torch.where
+// over the whole [S, H] plane (and the message-boundary retire over the
+// [Q, S, H] one), about 30 such writes a packet, each moving the plane
+// twice to change one value a host. These two kernels run the two
+// per-socket blocks of tcp_rx with one thread per host: the thread reads
+// its socket's column [ds, h] once, runs the block in registers in the
+// source's program order (a later write wins; a read after a write sees
+// it) and stores only the fields it changed, in place. What bounds them is
+// the scattered column: a host's words sit at its own socket row, so each
+// 4-byte word costs a 32-byte sector; only the hosts with a segment read
+// any plane (the others write their zero [H] outputs and leave).
+//
+// The host-side rules they reproduce: a host outside ``mask`` (or sending a
+// SYN to a listener) is not ``v``, so every mask and notification is 0 for
+// it; ds >= S reads the clamped socket S - 1 but writes nothing (the
+// reference's one-hot is empty), and its masks and notifications still
+// follow what it read. Sequence arithmetic wraps in 32 bits and the RTT
+// estimate in 64 (done unsigned); err >> 3 and >> 2 are arithmetic shifts,
+// and (snd_nxt - snd_una) // 2 is a floor division, the same shift.
+
+// consts.py: TCP states, segment flags, notification bits.
+constexpr int32_t kTcpFree = 0, kSynSent = 2, kSynRcvd = 3, kEstablished = 4,
+                  kFinWait1 = 5, kFinWait2 = 6, kCloseWait = 7, kLastAck = 8,
+                  kClosing = 9;
+constexpr int32_t kFSyn = 1, kFAck = 2, kFFin = 4;
+constexpr int32_t kNEstablished = 1, kNAccepted = 2, kNMsg = 4, kNSpace = 8,
+                  kNPeerFin = 16, kNClosed = 32, kNData = 128;
+constexpr int32_t kCwndMax = 1 << 28;
+// TCP_CONN_STATES and TCP_RCV_STATES as bit sets.
+constexpr uint32_t kConnStates = (1u << kSynSent) | (1u << kSynRcvd) |
+                                 (1u << kEstablished) | (1u << kFinWait1) |
+                                 (1u << kFinWait2) | (1u << kCloseWait) |
+                                 (1u << kLastAck) | (1u << kClosing);
+constexpr uint32_t kRcvStates =
+    (1u << kEstablished) | (1u << kFinWait1) | (1u << kFinWait2);
+
+// The planes the two kernels read and write, in popk.RX_PLANES order: every
+// one [S, H] but the [Q, S, H] message-boundary FIFO; bool planes as bytes.
+struct TcpPlanes {
+  int32_t *st, *peer_host, *peer_sock, *peer_wnd, *snd_una, *snd_nxt,
+      *snd_max, *rcv_nxt, *app_end, *fin_pend, *cwnd, *ssthresh, *dupacks,
+      *recover, *ts_seq, *srtt_hi, *srtt_lo, *rttvar_hi, *rttvar_lo, *rto_hi,
+      *rto_lo, *rtx_t_hi, *rtx_t_lo, *ts_time_hi, *ts_time_lo;
+  uint8_t *ts_act, *mq_valid;
+  int32_t* mq_end;
+};
+constexpr int kTcpPlanes = 28;
+constexpr int kMqBatch = 16;  // rx_ack: boundary slots whose loads go together
+static_assert(sizeof(TcpPlanes) == kTcpPlanes * sizeof(void*),
+              "TcpPlanes holds one pointer per plane");
+
+__device__ __forceinline__ int32_t sub32(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a - (uint32_t)b);
+}
+
+__device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+
+// tcp._state_in: bit s of the set, for s in [0, 31) (torch's shift of a
+// larger or negative count reads 0).
+__device__ __forceinline__ bool state_in(uint32_t set, int32_t s) {
+  return (uint32_t)s < 31u && ((set >> s) & 1u);
+}
+
+// The segment's fields (tcp._segment) from the payload rows, [NP, H].
+struct Segment {
+  int32_t src, ss, ds, seq, ackno, length, wnd, mend, mmeta;
+  bool syn, ack, fin;
+};
+
+__device__ __forceinline__ Segment segment(const int32_t* __restrict__ p,
+                                           int64_t H, int h) {
+  Segment g;
+  g.src = p[h];
+  const int32_t packed = p[H + h];
+  g.seq = p[2 * H + h];
+  g.ackno = p[3 * H + h];
+  g.length = p[4 * H + h];
+  g.wnd = p[5 * H + h];
+  g.mend = p[6 * H + h];
+  g.mmeta = p[7 * H + h];
+  g.ss = packed & 0xFF;
+  g.ds = (packed >> 8) & 0xFF;
+  const int32_t flags = (packed >> 16) & 0xFF;
+  g.syn = (flags & kFSyn) != 0;
+  g.ack = (flags & kFAck) != 0;
+  g.fin = (flags & kFFin) != 0;
+  return g;
+}
+
+// rx_ack_plain: demux, ACK processing with the RTT sample and Reno, the
+// message-boundary retire, the ACK-driven state transitions and the fast
+// retransmit. Writes the six Notif rows (sock, flags, meta, meta2, dlen,
+// space) and the masks v, est_ss, closed_by_ack, frx and flush (new_ack |
+// frx), each [H].
+__global__ void __launch_bounds__(kBlock)
+rx_ack_kernel(TcpPlanes t, const uint8_t* __restrict__ mask,
+              const uint8_t* __restrict__ to_listener,
+              const int32_t* __restrict__ p, const int64_t* __restrict__ now_v,
+              int32_t* __restrict__ n_sock, int32_t* __restrict__ n_flags,
+              int32_t* __restrict__ n_meta, int32_t* __restrict__ n_meta2,
+              int32_t* __restrict__ n_dlen, int32_t* __restrict__ n_space,
+              uint8_t* __restrict__ out, int S, int Q, int H, int32_t mss,
+              int32_t sndbuf, int32_t dupthresh, int64_t rto_min,
+              int64_t rto_max) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= H) return;
+  const int64_t HH = H;
+  int32_t sock = 0, flags = 0, space = 0;
+  bool v = false, est_ss = false, closed = false, frx = false, flush = false;
+  if (mask[h] && !to_listener[h]) {
+    const Segment g = segment(p, HH, h);
+    const int64_t now = now_v[h];
+    const bool wr = g.ds < S;  // the one-hot holds the socket
+    const int64_t i = (int64_t)min(g.ds, S - 1) * HH + h;
+    // Every read first, so that the loads go out together.
+    const int32_t st0 = t.st[i], peer_host = t.peer_host[i];
+    const int32_t peer_sock0 = t.peer_sock[i];
+    const int32_t snd_una0 = t.snd_una[i], snd_nxt0 = t.snd_nxt[i];
+    const int32_t snd_max = t.snd_max[i], ts_seq = t.ts_seq[i];
+    const int32_t app_end = t.app_end[i], fin_pend = t.fin_pend[i];
+    const int32_t cwnd0 = t.cwnd[i], ssthresh0 = t.ssthresh[i];
+    const int32_t dupacks0 = t.dupacks[i], recover0 = t.recover[i];
+    const bool ts_act0 = t.ts_act[i] != 0;
+    const int64_t ts_time = join(t.ts_time_hi[i], t.ts_time_lo[i]);
+    const int64_t srtt0 = join(t.srtt_hi[i], t.srtt_lo[i]);
+    const int64_t rttvar0 = join(t.rttvar_hi[i], t.rttvar_lo[i]);
+    const int64_t rto0 = join(t.rto_hi[i], t.rto_lo[i]);
+    int32_t st = st0, peer_sock = peer_sock0, snd_una = snd_una0;
+    int32_t snd_nxt = snd_nxt0, cwnd = cwnd0, ssthresh = ssthresh0;
+    int32_t dupacks = dupacks0, recover = recover0;
+    bool ts_act = ts_act0;
+    int64_t srtt = srtt0, rttvar = rttvar0, rto = rto0;
+
+    // Demux: the peer must match; a SYN_SENT client learns the child's
+    // socket from its SYN|ACK.
+    const bool learn_peer = st0 == kSynSent && g.syn && g.ack;
+    v = state_in(kConnStates, st0) && peer_host == g.src &&
+        (peer_sock0 == g.ss || learn_peer);
+    if (wr && v && learn_peer) peer_sock = g.ss;
+    if (wr && v && g.ack) t.peer_wnd[i] = max(g.wnd, 1);
+
+    // ACK processing, against snd_max.
+    const bool a = v && g.ack;
+    const bool new_ack = a && sub32(g.ackno, snd_una0) > 0 &&
+                         sub32(g.ackno, snd_max) <= 0;
+    const bool ts_ok = new_ack && ts_act0 && sub32(g.ackno, ts_seq) >= 0;
+    int64_t rtt = wrap_sub(now, ts_time);
+    if (rtt < 1) rtt = 1;
+    const bool first = srtt0 == 0;
+    const int64_t err = wrap_sub(rtt, srtt0);
+    const int64_t abs_err = err < 0 ? wrap_sub(0, err) : err;
+    const int64_t srtt_n = first ? rtt : wrap_add(srtt0, err >> 3);
+    const int64_t rttvar_n =
+        first ? rtt / 2 : wrap_add(rttvar0, wrap_sub(abs_err, rttvar0) >> 2);
+    int64_t var4 = (int64_t)((uint64_t)rttvar_n * 4u);
+    if (var4 < 1000000) var4 = 1000000;
+    int64_t rto_n = wrap_add(srtt_n, var4);
+    rto_n = rto_n < rto_min ? rto_min : rto_n;  // torch.clamp: min, then max
+    rto_n = rto_n > rto_max ? rto_max : rto_n;
+    if (wr && ts_ok) {
+      srtt = srtt_n;
+      rttvar = rttvar_n;
+      rto = rto_n;
+      ts_act = false;
+    }
+    // cwnd growth: slow start below ssthresh, else AIMD.
+    const int32_t grow =
+        cwnd0 < ssthresh0 ? mss : max((mss * mss) / max(cwnd0, 1), 1);
+    if (wr && new_ack) {
+      cwnd = min(add32(cwnd0, grow), kCwndMax);
+      snd_una = g.ackno;
+      if (sub32(g.ackno, snd_nxt0) > 0) snd_nxt = g.ackno;
+      dupacks = 0;
+      // Retire the message boundaries the peer has fully acked. The slots
+      // sit a plane apart, a sector each: the loads of kMqBatch slots go
+      // out together (a store between them would order every load after
+      // it, one round trip a slot).
+      const int64_t col = (int64_t)g.ds * HH + h, step = (int64_t)S * HH;
+      for (int q0 = 0; q0 < Q; q0 += kMqBatch) {
+        uint8_t valid[kMqBatch];
+        int32_t end[kMqBatch];
+#pragma unroll
+        for (int k = 0; k < kMqBatch; ++k) {
+          const int64_t s = col + (q0 + k) * step;
+          valid[k] = q0 + k < Q ? t.mq_valid[s] : 0;
+          end[k] = q0 + k < Q ? t.mq_end[s] : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < kMqBatch; ++k) {
+          if (valid[k] && sub32(end[k], g.ackno) <= 0) {
+            t.mq_valid[col + (q0 + k) * step] = 0;
+          }
+        }
+      }
+    }
+    // Restart (or clear) the retransmit deadline, at the rto just set.
+    const bool outstanding = sub32(snd_max, g.ackno) > 0;
+    if (wr && new_ack) {
+      const int64_t d = outstanding ? wrap_add(now, rto) : 0;
+      t.rtx_t_hi[i] = split_hi(d);
+      t.rtx_t_lo[i] = split_lo(d);
+    }
+
+    // State transitions driven by this ACK.
+    const bool est_sr = new_ack && st0 == kSynRcvd;
+    if (wr && est_sr) st = kEstablished;
+    est_ss = a && g.syn && st0 == kSynSent && g.ackno == 1;
+    if (wr && est_ss) {
+      st = kEstablished;
+      t.rcv_nxt[i] = 1;
+    }
+    const bool fin_acked =
+        new_ack && fin_pend == 1 && g.ackno == add32(app_end, fin_pend);
+    if (wr && fin_acked && st0 == kFinWait1) st = kFinWait2;
+    closed = fin_acked && (st0 == kClosing || st0 == kLastAck);
+    const bool sp =
+        new_ack && (st0 == kEstablished || st0 == kCloseWait) && !closed;
+    flags = (est_sr ? kNAccepted : 0) | (est_ss ? kNEstablished : 0) |
+            (closed ? kNClosed : 0) | (sp ? kNSpace : 0);
+    if (flags) sock = g.ds;
+    if (sp) space = sub32(sndbuf, sub32(app_end, g.ackno));
+
+    // Duplicate ACKs, and the fast retransmit at the threshold.
+    const bool dup_a = a && !new_ack && g.ackno == snd_una0 && outstanding &&
+                       g.length == 0 && !g.syn && !g.fin;
+    const int32_t dp = add32(dupacks, 1);
+    if (wr && dup_a) dupacks = dp;
+    frx = dup_a && dp == dupthresh && sub32(snd_una0, recover0) >= 0;
+    if (wr && frx) {
+      const int32_t ssth = max(sub32(snd_nxt0, snd_una0) >> 1, 2 * mss);
+      ssthresh = ssth;
+      cwnd = ssth;
+      recover = snd_nxt0;
+      snd_nxt = snd_una0;
+      ts_act = false;
+    }
+    flush = new_ack || frx;
+
+    // Write back what changed.
+    if (st != st0) t.st[i] = st;
+    if (peer_sock != peer_sock0) t.peer_sock[i] = peer_sock;
+    if (snd_una != snd_una0) t.snd_una[i] = snd_una;
+    if (snd_nxt != snd_nxt0) t.snd_nxt[i] = snd_nxt;
+    if (cwnd != cwnd0) t.cwnd[i] = cwnd;
+    if (ssthresh != ssthresh0) t.ssthresh[i] = ssthresh;
+    if (dupacks != dupacks0) t.dupacks[i] = dupacks;
+    if (recover != recover0) t.recover[i] = recover;
+    if (ts_act != ts_act0) t.ts_act[i] = ts_act;
+    if (srtt != srtt0) {
+      t.srtt_hi[i] = split_hi(srtt);
+      t.srtt_lo[i] = split_lo(srtt);
+    }
+    if (rttvar != rttvar0) {
+      t.rttvar_hi[i] = split_hi(rttvar);
+      t.rttvar_lo[i] = split_lo(rttvar);
+    }
+    if (rto != rto0) {
+      t.rto_hi[i] = split_hi(rto);
+      t.rto_lo[i] = split_lo(rto);
+    }
+  }
+  n_sock[h] = sock;
+  n_flags[h] = flags;
+  n_meta[h] = 0;
+  n_meta2[h] = 0;
+  n_dlen[h] = 0;
+  n_space[h] = space;
+  out[h] = v;
+  out[HH + h] = est_ss;
+  out[2 * HH + h] = closed;
+  out[3 * HH + h] = frx;
+  out[4 * HH + h] = flush;
+}
+
+// rx_data_plain: the in-order payload, the FIN (under its mask for every
+// host, so no read decides whether it runs: its writes are all masked) and
+// the free of a closed socket. Updates the Notif rows sock, flags, meta and
+// dlen in place and writes the masks need_ack and out_of_order, [H].
+__global__ void __launch_bounds__(kBlock)
+rx_data_kernel(TcpPlanes t, const int32_t* __restrict__ p,
+               const uint8_t* __restrict__ v_in,
+               const uint8_t* __restrict__ est_ss_in,
+               const uint8_t* __restrict__ closed_in,
+               int32_t* __restrict__ n_sock, int32_t* __restrict__ n_flags,
+               int32_t* __restrict__ n_meta, int32_t* __restrict__ n_dlen,
+               uint8_t* __restrict__ out, int S, int H) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= H) return;
+  const int64_t HH = H;
+  bool need_ack = false, ooo = false;
+  if (v_in[h]) {  // v holds mask, est_ss and closed_by_ack
+    const Segment g = segment(p, HH, h);
+    const bool wr = g.ds < S;
+    const int64_t i = (int64_t)min(g.ds, S - 1) * HH + h;
+    const int32_t st0 = t.st[i], rcv0 = t.rcv_nxt[i];
+    int32_t st = st0, rcv = rcv0;
+    // Payload, in order only (a Go-Back-N receiver).
+    const bool has_data = state_in(kRcvStates, st0) && g.length > 0;
+    const bool in_order = has_data && g.seq == rcv0;
+    if (wr && in_order) rcv = add32(rcv0, g.length);
+    // FIN: in order once the preceding data is consumed.
+    const bool fin_here = g.fin && add32(g.seq, g.length) == rcv &&
+                          state_in(kRcvStates, st0);
+    if (wr && fin_here) rcv = add32(rcv, 1);
+    const bool to_cw = fin_here && st0 == kEstablished;
+    if (wr && to_cw) st = kCloseWait;
+    if (wr && fin_here && st0 == kFinWait1) st = kClosing;
+    const bool closed_by_fin = fin_here && st0 == kFinWait2;
+    // Free a fully closed socket.
+    if (wr && (closed_in[h] || closed_by_fin)) {
+      st = kTcpFree;
+      t.rtx_t_hi[i] = split_hi(0);
+      t.rtx_t_lo[i] = split_lo(0);
+    }
+    if (st != st0) t.st[i] = st;
+    if (rcv != rcv0) t.rcv_nxt[i] = rcv;
+    const int32_t add = (in_order ? kNData : 0) |
+                        (in_order && g.mend != 0 ? kNMsg : 0) |
+                        (to_cw ? kNPeerFin : 0) | (closed_by_fin ? kNClosed : 0);
+    if (add) {
+      n_sock[h] = g.ds;
+      n_flags[h] |= add;
+    }
+    if (in_order) n_dlen[h] = g.length;
+    if (in_order && g.mend != 0) n_meta[h] = g.mmeta;
+    need_ack = has_data || g.fin || est_ss_in[h];
+    ooo = has_data && !in_order;
+  }
+  out[h] = need_ack;
+  out[HH + h] = ooo;
+}
+
 }  // namespace
 
 extern "C" {
@@ -417,5 +756,42 @@ int popk_obox(const uint8_t* mask, const int32_t* cnt, const int64_t* pkt_ctr,
   }
   return (int)cudaGetLastError();
 }
+
+// ``planes``: a host array of the kTcpPlanes device pointers, in
+// popk.RX_PLANES order.
+int popk_rx_ack(void* const* planes, const uint8_t* mask,
+                const uint8_t* to_listener, const int32_t* p,
+                const int64_t* now, int32_t* n_sock, int32_t* n_flags,
+                int32_t* n_meta, int32_t* n_meta2, int32_t* n_dlen,
+                int32_t* n_space, uint8_t* out, int S, int Q, int H, int mss,
+                int sndbuf, int dupthresh, long long rto_min,
+                long long rto_max, cudaStream_t stream) {
+  TcpPlanes t;
+  memcpy(&t, planes, sizeof t);
+  if (H > 0) {
+    rx_ack_kernel<<<(H + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
+        t, mask, to_listener, p, now, n_sock, n_flags, n_meta, n_meta2,
+        n_dlen, n_space, out, S, Q, H, mss, sndbuf, dupthresh, rto_min,
+        rto_max);
+  }
+  return (int)cudaGetLastError();
+}
+
+int popk_rx_data(void* const* planes, const int32_t* p, const uint8_t* v,
+                 const uint8_t* est_ss, const uint8_t* closed_by_ack,
+                 int32_t* n_sock, int32_t* n_flags, int32_t* n_meta,
+                 int32_t* n_dlen, uint8_t* out, int S, int H,
+                 cudaStream_t stream) {
+  TcpPlanes t;
+  memcpy(&t, planes, sizeof t);
+  if (H > 0) {
+    rx_data_kernel<<<(H + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
+        t, p, v, est_ss, closed_by_ack, n_sock, n_flags, n_meta, n_dlen, out,
+        S, H);
+  }
+  return (int)cudaGetLastError();
+}
+
+int popk_tcp_planes() { return kTcpPlanes; }
 
 }  // extern "C"

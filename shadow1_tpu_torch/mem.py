@@ -34,8 +34,8 @@ own (eager PyTorch, not XLA's buffers):
 
 * ``output`` — one full state: a window's input state stays referenced
   while the window builds its output (every eager op returns a fresh
-  tensor; on CUDA only the kernels' event-buffer and outbox planes are
-  updated in place), so a window can double-hold every leaf. The chunk
+  tensor; on CUDA only the kernels' event-buffer, outbox and TCP planes
+  are updated in place), so a window can double-hold every leaf. The chunk
   runner hands its state over (``ckpt.run_chunked``) so the chunk-start
   state is not a third copy;
 * ``rollback`` — one full state under ``on_overflow=retry``: the guard's

@@ -22,9 +22,17 @@ so every sent lane lands and appending lane by lane writes the same
 planes, ``cnt`` and ``pkt_ctr``. Retransmit timers and transmit resumes
 are pushed through ``popk.push_local`` (``engine.push_local_event``).
 
+The receive path's two per-socket blocks, ``rx_ack`` (demux, ACK, RTT,
+Reno, transitions, fast retransmit) and ``rx_data`` (payload, FIN, free),
+are one hand-written CUDA kernel each on the card (``popk.tcp_rx_ack``,
+``popk.tcp_rx_data``: one thread per host reads its socket's column once
+and writes back, IN PLACE, the fields it changed) and their plain versions
+``rx_ack_plain`` / ``rx_data_plain`` on the CPU.
+
 The reference's two ``lax.cond`` blocks (``_accept``, ``_fin``) are a
 Python ``if`` on one device→host read each: every write in their bodies is
-masked, so skipping an all-false body is exact.
+masked, so skipping an all-false body is exact. On the card the rx_data
+kernel runs the FIN block under its mask for every host, with no read.
 """
 
 from __future__ import annotations
@@ -79,7 +87,7 @@ from shadow1_tpu_torch.core.engine import push_local_event
 from shadow1_tpu_torch.core.events import tb_join, tb_split
 from shadow1_tpu_torch.core.lanes import lsum
 from shadow1_tpu_torch.core.outbox import outbox_space
-from shadow1_tpu_torch.core.popk import outbox_append
+from shadow1_tpu_torch.core.popk import outbox_append, tcp_rx_ack, tcp_rx_data
 from shadow1_tpu_torch.net.nic import ctx_aqm, tx_stamp
 from shadow1_tpu_torch.telemetry.links import link_nic_drops
 from shadow1_tpu_torch.telemetry.profiler import read
@@ -509,42 +517,79 @@ def tcp_close(st, ctx, mask, sock, now):
 # connection demux → ACK processing (cwnd/RTT/retransmit) → payload → FIN
 # → immediate ACK, then app notifications.
 # --------------------------------------------------------------------------
-def tcp_rx(st, ctx, mask, p, now):
-    """Process one arrived TCP segment per host where ``mask``.
-    Returns (st, Notif). ``now`` is the per-host event time."""
-    pr = ctx.params
-    src = p[0]
+class Segment(NamedTuple):
+    """The arrived segment's fields, [H] each (``_segment``)."""
+
+    src: torch.Tensor
+    ss: torch.Tensor
+    ds: torch.Tensor
+    seq: torch.Tensor
+    ackno: torch.Tensor
+    length: torch.Tensor
+    wnd: torch.Tensor
+    mend: torch.Tensor
+    mmeta: torch.Tensor
+    is_syn: torch.Tensor
+    is_ack: torch.Tensor
+    is_fin: torch.Tensor
+
+
+def _segment(p) -> Segment:
     packed = p[1]
-    ss = packed & 0xFF
-    ds = (packed >> 8) & 0xFF
     flags = (packed >> 16) & 0xFF
-    seq, ackno, length = p[2], p[3], p[4]
-    wnd, mend, mmeta = p[5], p[6], p[7]
-    is_syn = (flags & F_SYN) != 0
-    is_ack = (flags & F_ACK) != 0
-    is_fin = (flags & F_FIN) != 0
-    nf = notif_none(ctx.n_hosts, ctx.device)
+    return Segment(
+        src=p[0], ss=packed & 0xFF, ds=(packed >> 8) & 0xFF, seq=p[2],
+        ackno=p[3], length=p[4], wnd=p[5], mend=p[6], mmeta=p[7],
+        is_syn=(flags & F_SYN) != 0, is_ack=(flags & F_ACK) != 0,
+        is_fin=(flags & F_FIN) != 0)
 
-    # ---- passive open: a SYN to a LISTEN socket spawns a child.
-    r0 = Sock(st.model.tcp, ds, mask)
-    syn_to_listen = mask & is_syn & ~is_ack & (r0.g("st") == TCP_LISTEN)
-    if read("tcp_listen", bool, syn_to_listen.any()):
-        tcp = st.model.tcp
-        dup = ((tcp["peer_host"] == src[None, :])
-               & (tcp["peer_sock"] == ss[None, :])
-               & (tcp["st"] != TCP_FREE)
-               & (tcp["st"] != TCP_LISTEN)).any(dim=0)
-        # Children take the HIGHEST free slot: low slots are app-owned.
-        new_conn0, child = last_true(tcp["st"] == TCP_FREE)
-        new_conn = syn_to_listen & ~dup & new_conn0
-        rc = Sock(tcp, child, new_conn)
-        _init_conn(rc, ctx, new_conn, src, ss, TCP_SYN_RCVD, 1)
-        rc.s("peer_wnd", wnd, new_conn)
-        st = st._replace(model=st.model._replace(tcp=rc.d))
-        st = tcp_flush(st, ctx, new_conn, child, now)  # emits SYN|ACK
 
-    # ---- established-path demux: the peer must match.
-    r = Sock(st.model.tcp, ds, mask)
+class RxAck(NamedTuple):
+    """``rx_ack``'s [H] masks, which the rest of ``tcp_rx`` reads."""
+
+    v: torch.Tensor              # the segment matched a connection
+    est_ss: torch.Tensor         # a SYN_SENT client's handshake completed
+    closed_by_ack: torch.Tensor  # the ACK of our FIN closed the socket
+    frx: torch.Tensor            # fast retransmit
+    flush: torch.Tensor          # new_ack | frx: the sockets to flush
+
+
+def rx_ack(tcp: dict, pr, mask, p, sg: Segment, syn_to_listen, now):
+    """TCP's demux and ACK processing for one segment per host where
+    ``mask`` (see ``rx_ack_plain``). Returns (tcp, Notif, RxAck). CUDA: one
+    launch of the rx_ack kernel (``popk.tcp_rx_ack``), which updates the
+    planes IN PLACE and returns a dict of the tensors it was given; CPU:
+    the plain version."""
+    if not tcp["st"].is_cuda:
+        return rx_ack_plain(tcp, pr, mask, sg, syn_to_listen, now)
+    nf, ack = tcp_rx_ack(tcp, pr, mask, syn_to_listen, p, now)
+    return dict(tcp), Notif(*nf), RxAck(*ack)
+
+
+def rx_data(tcp: dict, mask, p, sg: Segment, nf: Notif, ack: RxAck):
+    """TCP's payload, FIN and socket free after ``rx_ack`` and the flush
+    (see ``rx_data_plain``). Returns (tcp, Notif, need_ack, out_of_order).
+    CUDA: one launch of the rx_data kernel (``popk.tcp_rx_data``), which
+    updates the planes and ``nf``'s rows (``rx_ack``'s) IN PLACE; CPU: the
+    plain version."""
+    if not tcp["st"].is_cuda:
+        return rx_data_plain(tcp, mask, sg, nf, ack)
+    need_ack, ooo = tcp_rx_data(tcp, p, nf, ack.v, ack.est_ss,
+                                ack.closed_by_ack)
+    return dict(tcp), nf, need_ack, ooo
+
+
+def rx_ack_plain(tcp: dict, pr, mask, sg: Segment, syn_to_listen, now):
+    """Demux (the peer must match), ACK processing against ``snd_max``
+    (RTT sample, cwnd growth, ``snd_una`` / ``snd_nxt``, the retire of the
+    acked message boundaries, the retransmit deadline), the ACK-driven
+    state transitions and the duplicate ACKs with the fast retransmit.
+    Returns (tcp, Notif, RxAck)."""
+    src, ss, ds, ackno, length, wnd = (sg.src, sg.ss, sg.ds, sg.ackno,
+                                       sg.length, sg.wnd)
+    is_syn, is_ack, is_fin = sg.is_syn, sg.is_ack, sg.is_fin
+    nf = notif_none(mask.shape[0], mask.device)
+    r = Sock(tcp, ds, mask)
     state = r.g("st")
     # A client in SYN_SENT connected to the listener; the SYN|ACK comes
     # from the spawned child: accept it by host and learn the peer socket.
@@ -621,26 +666,29 @@ def tcp_rx(st, ctx, mask, p, now):
     r.s("recover", snd_nxt, frx)
     r.s("snd_nxt", snd_una, frx)
     r.s("ts_act", False, frx)
+    return r.d, nf, RxAck(v, est_ss, closed_by_ack, frx, new_ack | frx)
 
-    st = st._replace(model=st.model._replace(tcp=r.d))
-    met = st.metrics
-    st = st._replace(metrics=met._replace(
-        tcp_fast_rtx=met.tcp_fast_rtx + lsum(ctx, frx)))
-    st = tcp_flush(st, ctx, new_ack | frx, ds, now)
 
-    # ---- payload (in order only: Go-Back-N receiver) and FIN
-    r = Sock(st.model.tcp, ds, mask)
+def rx_data_plain(tcp: dict, mask, sg: Segment, nf: Notif, ack: RxAck):
+    """The payload (in order only: a Go-Back-N receiver), the FIN and the
+    free of a fully closed socket. Returns (tcp, Notif, need_ack,
+    out_of_order): ``need_ack`` holds the hosts that owe an immediate ACK
+    (any data, a duplicate ACK when out of order; any FIN; the last step of
+    the client handshake)."""
+    ds, seq, length = sg.ds, sg.seq, sg.length
+    v = ack.v
+    r = Sock(tcp, ds, mask)
     state2 = r.g("st")
     can_rcv = v & _state_in(state2, TCP_RCV_STATES)
     has_data = can_rcv & (length > 0)
     in_order = has_data & (seq == r.g("rcv_nxt"))
     r.s("rcv_nxt", r.g("rcv_nxt") + length, in_order)
     nf = _notify(nf, in_order, ds, N_DATA, dlen=length)
-    nf = _notify(nf, in_order & (mend != 0), ds, N_MSG, meta=mmeta)
+    nf = _notify(nf, in_order & (sg.mend != 0), ds, N_MSG, meta=sg.mmeta)
     # FIN: in order once the preceding data is consumed.
     closed_by_fin = torch.zeros_like(v)
-    if read("tcp_fin", bool, (v & is_fin).any()):
-        fin_here = (v & is_fin & ((seq + length) == r.g("rcv_nxt"))
+    if read("tcp_fin", bool, (v & sg.is_fin).any()):
+        fin_here = (v & sg.is_fin & ((seq + length) == r.g("rcv_nxt"))
                     & _state_in(state2, (TCP_ESTABLISHED, TCP_FIN_WAIT_1,
                                          TCP_FIN_WAIT_2)))
         r.s("rcv_nxt", r.g("rcv_nxt") + 1, fin_here)
@@ -652,20 +700,57 @@ def tcp_rx(st, ctx, mask, p, now):
         nf = _notify(nf, closed_by_fin, ds, N_CLOSED)
 
     # Free fully closed sockets (slot reuse; stale packets fail the
-    # peer-match guard above).
-    freed = closed_by_ack | closed_by_fin
+    # peer-match guard of rx_ack).
+    freed = ack.closed_by_ack | closed_by_fin
     r.s("st", TCP_FREE, freed)
     r.s("rtx_t", 0, freed)
+    need_ack = has_data | (v & sg.is_fin) | ack.est_ss
+    return r.d, nf, need_ack, has_data & ~in_order
 
-    # Immediate ACK: any data (a duplicate ACK when out of order), any FIN,
-    # and the last step of the client handshake.
-    need_ack = has_data | (v & is_fin) | est_ss
-    st = st._replace(model=st.model._replace(tcp=r.d))
-    st = _ack_now(st, ctx, need_ack, ds, now)
+
+def tcp_rx(st, ctx, mask, p, now):
+    """Process one arrived TCP segment per host where ``mask``.
+    Returns (st, Notif). ``now`` is the per-host event time.
+
+    The passive open, the flush and the immediate ACK run here; the two
+    per-socket blocks are ``rx_ack`` and ``rx_data`` (a kernel each on
+    CUDA, which update the TCP planes in place)."""
+    sg = _segment(p)
+
+    # ---- passive open: a SYN to a LISTEN socket spawns a child.
+    r0 = Sock(st.model.tcp, sg.ds, mask)
+    syn_to_listen = mask & sg.is_syn & ~sg.is_ack & (r0.g("st") == TCP_LISTEN)
+    if read("tcp_listen", bool, syn_to_listen.any()):
+        tcp = st.model.tcp
+        dup = ((tcp["peer_host"] == sg.src[None, :])
+               & (tcp["peer_sock"] == sg.ss[None, :])
+               & (tcp["st"] != TCP_FREE)
+               & (tcp["st"] != TCP_LISTEN)).any(dim=0)
+        # Children take the HIGHEST free slot: low slots are app-owned.
+        new_conn0, child = last_true(tcp["st"] == TCP_FREE)
+        new_conn = syn_to_listen & ~dup & new_conn0
+        rc = Sock(tcp, child, new_conn)
+        _init_conn(rc, ctx, new_conn, sg.src, sg.ss, TCP_SYN_RCVD, 1)
+        rc.s("peer_wnd", sg.wnd, new_conn)
+        st = st._replace(model=st.model._replace(tcp=rc.d))
+        st = tcp_flush(st, ctx, new_conn, child, now)  # emits SYN|ACK
+
+    # ---- demux, ACK processing, transitions, fast retransmit.
+    tcp, nf, ack = rx_ack(st.model.tcp, ctx.params, mask, p, sg,
+                          syn_to_listen, now)
+    st = st._replace(model=st.model._replace(tcp=tcp))
     met = st.metrics
     st = st._replace(metrics=met._replace(
-        tcp_ooo_drops=met.tcp_ooo_drops
-        + lsum(ctx, has_data & ~in_order)))
+        tcp_fast_rtx=met.tcp_fast_rtx + lsum(ctx, ack.frx)))
+    st = tcp_flush(st, ctx, ack.flush, sg.ds, now)
+
+    # ---- payload, FIN, free; then the immediate ACK.
+    tcp, nf, need_ack, ooo = rx_data(st.model.tcp, mask, p, sg, nf, ack)
+    st = st._replace(model=st.model._replace(tcp=tcp))
+    st = _ack_now(st, ctx, need_ack, sg.ds, now)
+    met = st.metrics
+    st = st._replace(metrics=met._replace(
+        tcp_ooo_drops=met.tcp_ooo_drops + lsum(ctx, ooo)))
     return st, nf
 
 

@@ -40,7 +40,7 @@ benchmark moves.
   phase launches over window ``WARMUP``, each phase in a
   ``torch.profiler`` capture of its own, beside the ``popk.LAUNCHES``
   delta of each phase. A phase is captured again (up to 3 times) when
-  its counts of the three hand-written kernels fall short of those
+  its counts of the hand-written kernels fall short of those
   deltas (CUPTI drops records now and then).
 * **drift gate** — without flags, measured counts compare against the
   committed baseline: any phase whose ops or reads drift more than
@@ -56,7 +56,9 @@ benchmark moves.
 The baseline is the port's own, ``opcensus_baseline.json`` beside this
 module, with one entry per config per backend (``cpu``, ``cuda``): on the
 CPU the kernels run their plain versions, so the op counts differ by
-backend (the reads do not). ``--update`` writes this backend's entries
+backend, and so do the reads of a TCP config (on the card the rx_data
+kernel runs the FIN block under its mask, where the plain version reads
+whether any host holds a FIN). ``--update`` writes this backend's entries
 and keeps the others. The repository's ``OPCENSUS.json`` (the JAX
 package's jaxpr counts) is never read or written. Runs on CUDA unless
 ``--device`` names another device; configs are YAML or JSON (the card
@@ -83,7 +85,7 @@ ACCEPT_ENV = "SHADOW1_OPCENSUS_ACCEPT"
 # sees a warm state (phaseprobe's default warm-up).
 WARMUP = 8
 UNITS = ("ops", "reads")
-KERNELS = ("pop", "push", "obox")
+KERNELS = ("pop", "push", "obox", "rx_ack", "rx_data")
 
 # The gated config set: the benchgate dense-phold shape plus the rung-1
 # net/TCP config (its JSON mirror) — tiny to build, but between them they
@@ -277,7 +279,7 @@ def device_records(events) -> dict:
     """Counts of a profiler capture's device records (``events``: the raw
     kineto events, each with ``name()`` and ``device_type()``): every CUDA
     kernel (``kernels``), memory copies and sets (``copies``: a
-    device→host read is one), and the three hand-written kernels by
+    device→host read is one), and the hand-written kernels by
     name."""
     from torch.autograd.profiler import _filter_name
 
@@ -303,12 +305,12 @@ def count_fusions(eng, st, attempts: int = 3) -> dict:
     with idle on each side, ending in a device synchronise), whose raw
     device records are counted (``device_records``) beside the phase's
     ``popk.LAUNCHES`` delta. A phase whose capture holds fewer launches of
-    the three kernels than the delta is captured again from its frame, up
+    the kernels than the delta is captured again from its frame, up
     to ``attempts`` times (CUPTI drops records now and then). Returns
     {"phases": {phase: device_records}, "launches": {phase: {kernel: n}},
     "attempts": {phase: n}, "seconds": {phase: wall}, "complete"}:
     ``complete`` when every phase's
-    counts of the three kernels equal its deltas. The card only."""
+    counts of the kernels equal its deltas. The card only."""
     import time
 
     import torch

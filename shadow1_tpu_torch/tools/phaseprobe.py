@@ -17,7 +17,7 @@ straight run attributes to a phase:
 
 * **capture** — run N windows stage by stage (the same composition, the
   same states bit for bit), keeping a clone of each stage's input frame
-  (the CUDA kernels update the event-buffer and outbox planes in place,
+  (the CUDA kernels update the event-buffer, outbox and TCP planes in place,
   so a frame that is kept must be a copy);
 * **replay** — each rep walks the captured windows in order: the
   straight window first (``Engine.run`` of one window from a clone of its

@@ -23,8 +23,8 @@ turns that condition into a policy applied at chunk boundaries
 
 **The rollback point is a clone.** The reference keeps the chunk-start
 state by reference, free because JAX arrays are immutable. Here the CUDA
-kernels update the event-buffer and outbox planes of the state they are
-given in place, so :meth:`OverflowGuard.rollback_point` takes a device
+kernels update the event-buffer, outbox and TCP planes of the state they
+are given in place, so :meth:`OverflowGuard.rollback_point` takes a device
 copy of every leaf before the chunk runs, and a replay starts from a fresh
 clone of that copy (the copy itself survives for a second attempt).
 

@@ -6,7 +6,9 @@ and the wrappers' argument handling, on the CPU (no ``nvcc``, no card).
 shift every argument after a changed one, so these tests parse the
 ``extern "C"`` block of ``csrc/popk.cu`` and hold each declaration to its
 row: the same count, ``c_void_p`` for every pointer and for the stream,
-``c_int`` for every int.
+``c_int`` for every int, ``c_longlong`` for every ``long long``. The rx
+kernels' ``TcpPlanes`` must list the planes of ``popk.RX_PLANES`` in their
+order.
 """
 
 import ctypes
@@ -30,6 +32,8 @@ def _ctype(param: str):
         return ctypes.c_void_p
     if re.fullmatch(r"(const\s+)?int\s+\w+", param):
         return ctypes.c_int
+    if re.fullmatch(r"(const\s+)?long long\s+\w+", param):
+        return ctypes.c_longlong
     raise AssertionError(f"no ctypes type for parameter {param!r}")
 
 
@@ -43,6 +47,14 @@ def test_signature_matches_source(name):
     assert [_ctype(p) for p in params] == _build._SIGNATURES[name], params
     if params:  # a kernel's entry point launches on the caller's stream
         assert params[-1].startswith("cudaStream_t ")
+
+
+def test_tcp_planes_struct_lists_rx_planes_in_order():
+    src = _build.SOURCE.read_text()
+    body = src[src.index("struct TcpPlanes {"):]
+    body = body[:body.index("};")]
+    names = re.findall(r"\*\s*(\w+)", body)
+    assert tuple(names) == popk.RX_PLANES
 
 
 def test_arg_passes_a_matching_tensor_through():
@@ -104,3 +116,11 @@ def test_launch_counts_only_accepted_launches():
     with pytest.raises(RuntimeError, match="cudaError 1"):
         popk._launch("pop", entry, t, None, 7)
     assert popk.LAUNCHES["pop"] == n + 1
+
+
+@pytest.mark.parametrize("bits,ok,bad", [(32, -(1 << 31), 1 << 31),
+                                         (64, (1 << 63) - 1, -(1 << 63) - 1)])
+def test_fits_raises_on_a_value_past_the_argument(bits, ok, bad):
+    popk._fits("k", bits, a=ok)
+    with pytest.raises(ValueError, match=rf"k: b = {bad} .*{bits}-bit"):
+        popk._fits("k", bits, a=ok, b=bad)

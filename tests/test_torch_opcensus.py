@@ -185,9 +185,11 @@ def test_device_records_count_kernels_copies_and_the_three():
 
     events = [Ev("void pop_kernel<4>(...)"), Ev("push_kernel"),
               Ev("push_kernel"), Ev("obox_kernel(int*)"),
+              Ev("(anonymous namespace)::rx_ack_kernel(TcpPlanes, ...)"),
               Ev("void at::native::elementwise_kernel<128, 2>(...)"),
               Ev("Memcpy DtoH (Device -> Pageable)"), Ev("Memset (Device)"),
               Ev("aten::add", "DeviceType.CPU"),
               Ev("cudaLaunchKernel", "DeviceType.CPU")]
     assert port.device_records(events) == {
-        "kernels": 5, "copies": 2, "pop": 1, "push": 2, "obox": 1}
+        "kernels": 6, "copies": 2, "pop": 1, "push": 2, "obox": 1,
+        "rx_ack": 1, "rx_data": 0}
